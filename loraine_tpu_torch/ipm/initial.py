@@ -1,0 +1,59 @@
+"""Initial point heuristics. Port of `loraine_tpu/ipm/initial.py`.
+
+Two strategies matching the reference (`src/initial_point.jl:17-81`):
+  initpoint = 0: X = I, S = n * I (n = number of variables).
+  initpoint = 1: SDPT3-like norm-scaled identity start.
+Built on the host in numpy and moved to the problem's device once.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Options
+from ..problem import SDPProblem
+from .state import IPMState
+
+__all__ = ["initial_point", "INITIAL_SIGMA", "TAU", "EXPON"]
+
+# Reference constants `src/initial_point.jl:5-9`.
+INITIAL_SIGMA = 3.0
+TAU = 0.95
+EXPON = 3.0
+
+
+def initial_point(problem: SDPProblem, opts: Options) -> IPMState:
+    dtype, device = problem.b.dtype, problem.device
+    n = problem.n
+    b2 = 1.0 + np.abs(problem.b.cpu().numpy())
+    norm_b2 = float(np.linalg.norm(b2))
+
+    def dev(x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+    Xs, Ss = [], []
+    for g in problem.groups:
+        m = g.m
+        eye = np.eye(m)[None]
+        if opts.initpoint == 0:
+            eps = np.ones((g.nb,))
+            eta = np.full((g.nb,), float(n))
+        else:
+            fro_A = np.asarray(g.data_norms)  # [nb], precomputed at build
+            f = norm_b2 / (1.0 + fro_A)
+            eps = np.sqrt(m) * np.maximum(1.0, np.sqrt(m) * f)
+            fro_C = np.asarray(g.C_norms)
+            mf = np.maximum(f, fro_C)
+            mf = (1.0 + mf) / np.sqrt(m)
+            eta = np.sqrt(m) * np.maximum(1.0, mf)
+        Xs.append(dev(eps[:, None, None] * eye))
+        Ss.append(dev(eta[:, None, None] * eye))
+
+    return IPMState(
+        X=tuple(Xs),
+        S=tuple(Ss),
+        y=dev(np.zeros(n)),
+        X_lin=None,
+        S_lin=None,
+        sigma=dev(np.asarray(INITIAL_SIGMA)),
+    )

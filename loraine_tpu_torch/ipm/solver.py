@@ -1,0 +1,303 @@
+"""Host-side IPM loop. Port of `loraine_tpu/ipm/solver.py` (`Solver`,
+`Result`, `solve`, `load_problem`, `solve_sdpa`).
+
+Mirrors the reference's `solve` loop (`src/Solvers.jl:304-361`). PyTorch
+runs eagerly, so the port steps once per host iteration: no jit, no
+K-iteration chunks, no compile cache. The status precedence is the one
+`build_chunk` applies on the device (`ipm/step.py:1353-1430`): H not
+factorizable or regcount > 5 -> 3, NT scaling failed -> 4, non-finite
+DIMACS -> 3, DIMACS < eDIMACS -> 1, DIMACS > 1e55 -> 2, |obj| > 1e55 -> 3,
+maxit -> 4.
+
+Status codes (reference `src/MOI_wrapper.jl:252-265`):
+  0 = not solved, 1 = optimal, 2 = (probably) infeasible,
+  3 = (probably) unbounded or infeasible, 4 = iteration/numerics limit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..config import Options, require_ported
+from ..problem import SDPProblem, problem_from_sdpa
+from ..utils.device import resolve_device
+from ..utils.timers import PhaseTimer
+from .initial import initial_point
+from .state import IPMState
+from .step import step
+
+__all__ = ["Result", "Solver", "solve", "solve_sdpa", "load_problem", "STATUS_NAMES"]
+
+STATUS_NAMES = {
+    0: "NOT_SOLVED",
+    1: "OPTIMAL",
+    2: "INFEASIBLE",
+    3: "INFEASIBLE_OR_UNBOUNDED",
+    4: "ITERATION_LIMIT",
+}
+
+OptionsLike = Union[Options, Dict[str, Any], None]
+
+
+def _options(options: OptionsLike) -> Options:
+    if isinstance(options, dict) or options is None:
+        options = Options.from_dict(options)
+    return options.validated()
+
+
+@dataclasses.dataclass
+class Result:
+    """Solution container (reference result surface:
+    `src/MOI_wrapper.jl:241-354`)."""
+
+    status: int
+    status_name: str
+    objective: float  # -b^T y + b_const (SDPA-sense optimal value)
+    dual_objective: float  # -sum <C_i, X_i>
+    y: np.ndarray
+    X: List[np.ndarray]  # primal blocks, original order/sizes (unpadded)
+    S: List[np.ndarray]  # dual slack blocks, original order/sizes
+    X_lin: Optional[np.ndarray]
+    iterations: int
+    cg_iterations: int
+    dimacs: float
+    errs: Dict[str, float]
+    solve_time: float
+    iteration_times: List[float]  # per iteration, device work included
+    timer: PhaseTimer
+    final_state: Optional[IPMState] = None  # for warm-start / checkpointing
+    history: Optional[List[Dict[str, float]]] = None  # per-iteration stats
+
+
+class Solver:
+    def __init__(
+        self,
+        problem: SDPProblem,
+        options: OptionsLike = None,
+        initial_state: Optional[IPMState] = None,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        """``device`` must be where ``problem`` lives ('cuda' by default; it
+        raises without a card). ``initial_state`` warm-starts the IPM from a
+        saved iterate; shapes must match the problem."""
+        self.device = resolve_device(device)
+        if problem.device.type != self.device.type:
+            raise ValueError(
+                f"problem lives on {problem.device}, solver device is {self.device}"
+            )
+        self.problem = problem
+        self.opts = _options(options)
+        self.timer = PhaseTimer()
+        self.initial_state = initial_state
+        self._apply_auto_downgrades()
+        require_ported(self.opts)
+
+    def _apply_auto_downgrades(self) -> None:
+        """kit auto-downgrades (`src/Solvers.jl:421-444`)."""
+        o, p = self.opts, self.problem
+        if o.kit == 1:
+            if p.nlmi == 0:
+                warnings.warn("Switching to a direct solver, no LMIs")
+                o.kit = 0
+            elif o.erank >= max(g.m for g in p.groups) - 1:
+                warnings.warn("Switching to a direct solver, erank bigger than matrix size")
+                o.kit = 0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- logging ----------------------------------------------------------
+    def _header(self) -> None:
+        o, p = self.opts, self.problem
+        if o.verb <= 0:
+            return
+        print(" *** loraine_tpu_torch ***")
+        print(f" Number of variables: {p.n:5d}")
+        print(f" LMI constraints    : {p.nlmi:5d}")
+        if p.nlmi > 0:
+            sizes = []
+            for g in p.groups:
+                sizes += list(g.orig_sizes)
+            print(" Matrix size(s)     :" + "".join(f"{s:6d}" for s in sizes))
+        print(f" Linear constraints : {p.nlin:5d}")
+        print(" Preconditioner     :  none, using direct solver")
+        print(" *** IP STARTS")
+        if o.verb < 2:
+            print(" it        obj         error     CPU/it")
+        else:
+            print(" it        obj         error      err1      err2      err3      err4      err5      err6     CPU/it")
+
+    def _log_iter(self, it: int, s: Dict[str, float], dt: float) -> None:
+        o = self.opts
+        if o.verb <= 0:
+            return
+        if o.verb > 1:
+            print(f"{it:3d} {s['obj']:16.8e} {s['dimacs']:9.2e} {s['err1']:9.2e} {s['err2']:9.2e} {s['err3']:9.2e} {s['err4']:9.2e} {s['err5']:9.2e} {s['err6']:9.2e} {dt:8.2f}")
+        else:
+            print(f"{it:3d} {s['obj']:16.8e} {s['dimacs']:9.2e} {dt:8.2f}")
+
+    # -- main loop --------------------------------------------------------
+    def solve(self) -> Result:
+        o, p = self.opts, self.problem
+        t_start = time.perf_counter()
+        self._header()
+
+        with self.timer.phase("initial point"):
+            state = self.initial_state if self.initial_state is not None else initial_point(p, o)
+
+        status = 0
+        it = 0
+        regcount = 0
+        stats_h: Dict[str, Any] = {}
+        iteration_times: List[float] = []
+        history: List[Dict[str, float]] = []
+
+        while status == 0:
+            t0 = time.perf_counter()
+            with self.timer.phase("ipm step"):
+                state, stats = step(p, state, o)
+                stats_h = stats.to_host()  # waits for the step's device work
+                self._sync()
+            dt = time.perf_counter() - t0
+            it += 1
+            iteration_times.append(dt)
+            history.append({k: stats_h[k] for k in (
+                "obj", "mu", "err1", "err2", "err3", "err4", "err5", "err6",
+                "dimacs")} | {"cg_pre": 0, "cg_cor": 0})
+            status = self._status(stats_h, it, regcount)
+            if stats_h["h_shifts"] > 0:
+                regcount += 1
+            if stats_h["h_ok"] and stats_h["nt_ok"] and math.isfinite(stats_h["dimacs"]) \
+                    and not (stats_h["h_shifts"] > 0 and regcount > 5):
+                self._log_iter(it, stats_h, dt)
+            if o.verb > 0 and status in (2, 3, 4):
+                if status == 2:
+                    print("WARNING: Problem probably infeasible (stopping status = 2)")
+                elif status == 3 and abs(stats_h["obj"]) > 1e55:
+                    print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
+                elif status == 4 and it >= o.maxit:
+                    print("WARNING: Stopped by iteration limit (stopping status = 4)")
+
+        solve_time = time.perf_counter() - t_start
+        if o.verb > 0 and status == 1:
+            print(f" *** Optimal solution found in {solve_time:8.2f} seconds")
+
+        result = self._extract(state, stats_h, status, it, solve_time, iteration_times)
+        result.history = history
+        if o.verb > 0 and status == 1:
+            print(f"Primal objective: {result.objective}")
+            print(f"Dual objective:   {result.dual_objective}")
+        if o.timing > 0 and o.verb > 0:
+            print(self.timer.report())
+        return result
+
+    def _status(self, s: Dict[str, Any], it: int, regcount: int) -> int:
+        """Status after one iteration, in `build_chunk`'s precedence; prints
+        the reference's warnings (src/predictor_corrector.jl:55-97)."""
+        o = self.opts
+        say = print if o.verb > 0 else (lambda *_: None)
+        if not s["h_ok"]:
+            say("WARNING: H cannot be made positive definite, giving up")
+            return 3
+        if s["h_shifts"] > 0:
+            say("Matrix H not positive definite, regularized")
+            if regcount + 1 > 5:
+                say("WARNING: too many regularizations of H, giving up")
+                return 3
+        if not s["nt_ok"]:
+            say("WARNING: X or S cannot be made positive definite, giving up")
+            return 4
+        dimacs = s["dimacs"]
+        if not math.isfinite(dimacs):
+            say("WARNING: numerical breakdown (non-finite error), giving up")
+            return 3
+        if dimacs < o.eDIMACS:
+            return 1
+        if dimacs > 1e55:
+            return 2
+        if abs(s["obj"]) > 1e55:
+            return 3
+        if it >= o.maxit:
+            return 4
+        return 0
+
+    def _extract(self, state, stats_h, status, it, solve_time, iteration_times) -> Result:
+        p = self.problem
+        Xb: List[Optional[np.ndarray]] = [None] * p.nlmi
+        Sb: List[Optional[np.ndarray]] = [None] * p.nlmi
+        trCX = 0.0
+        for g, Xg, Sg in zip(p.groups, state.X, state.S):
+            Xh = Xg.cpu().numpy()
+            Sh = Sg.cpu().numpy()
+            trCX += float(np.sum(g.C.cpu().numpy() * Xh))
+            for bpos, (oidx, osize) in enumerate(zip(g.orig_indices, g.orig_sizes)):
+                Xb[oidx] = Xh[bpos, :osize, :osize]
+                Sb[oidx] = Sh[bpos, :osize, :osize]
+        y = state.y.cpu().numpy()
+        return Result(
+            status=status,
+            status_name=STATUS_NAMES.get(status, "UNKNOWN"),
+            objective=float(-np.dot(p.b.cpu().numpy(), y) + p.b_const),
+            dual_objective=-trCX,
+            y=y,
+            X=Xb,
+            S=Sb,
+            X_lin=None,
+            iterations=it,
+            cg_iterations=0,
+            dimacs=stats_h.get("dimacs", float("nan")),
+            errs={k: stats_h.get(k, float("nan")) for k in ("err1", "err2", "err3", "err4", "err5", "err6")},
+            solve_time=solve_time,
+            iteration_times=iteration_times,
+            timer=self.timer,
+            final_state=state,
+        )
+
+
+def solve(problem: SDPProblem, options: OptionsLike = None,
+          device: Union[str, torch.device] = "cuda") -> Result:
+    """Solve an SDPProblem on ``device`` (where the problem lives)."""
+    return Solver(problem, options, device=device).solve()
+
+
+def load_problem(path: str, options: OptionsLike = None,
+                 device: Union[str, torch.device] = "cuda") -> SDPProblem:
+    """Read an SDPA .dat-s file into an SDPProblem on ``device`` with the
+    JAX package's option-driven storage selection (datarank, padding,
+    datasparsity: None = modeled-cost auto choice, 0 = force dense,
+    k > 0 = explicit nnz threshold at any n)."""
+    options = _options(options)
+    dtype = torch.float64 if options.dtype == "float64" else torch.float32
+    ds = options.datasparsity
+    if ds == 0:
+        storage, thr, min_n = "dense", None, 256
+    elif ds is None:
+        storage, thr, min_n = "auto", None, 256
+    else:
+        storage, thr, min_n = "auto", int(ds), 0
+    return problem_from_sdpa(
+        path,
+        datarank=options.datarank,
+        pad_multiple=options.pad_multiple,
+        dtype=dtype,
+        storage=storage,
+        sparse_max_nnz=thr,
+        sparse_min_n=min_n,
+        device=device,
+    )
+
+
+def solve_sdpa(path: str, options: OptionsLike = None,
+               device: Union[str, torch.device] = "cuda") -> Result:
+    """Read an SDPA .dat-s file and solve it on ``device``."""
+    options = _options(options)
+    device = resolve_device(device)
+    problem = load_problem(path, options, device=device)
+    return Solver(problem, options, device=device).solve()

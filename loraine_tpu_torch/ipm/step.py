@@ -1,0 +1,261 @@
+"""One predictor-corrector IPM iteration. Port of the f64, kit=0 branches of
+`loraine_tpu/ipm/step.py:build_step` (no LP cone, no dd/dd2 tiers, no
+mixed assembly, no sharding: ROADMAP.md Queue A items 8, 12, 13, 14).
+
+Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
+`check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
++ regularized Cholesky + one refinement step, predictor directions and
+steplengths, Mehrotra sigma, corrector, iterate update and the six DIMACS
+errors. Steplengths come from the certified spectral bounds of the B2
+kernel (`ops/jacobi.py`); the predictor uses the identity
+scaleX = -I - scaleS, so one bound computation on scaleS gives both
+steplengths (`ipm/step.py:189-200, 426-433`).
+
+Convergence-error convention (reference): err1/err3 use the residuals at
+the start of the iteration, err2/4/5/6 the updated iterate.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import Options
+from ..ops.jacobi import eig_bounds_jacobi
+from ..ops.linalg import btrace, chol_reg, cho_solve_inv, sym, tri_inv
+from ..ops.nt_scaling import NTScaling, nt_scale
+from ..ops.schur import Aadj, Aop, schur_group
+from ..problem import SDPProblem
+from .initial import EXPON, TAU
+from .state import IPMState, StepStats
+
+__all__ = ["step"]
+
+_STEP_EPS = -1e-6  # "essentially feasible direction" threshold
+
+
+def _steplen(ev: torch.Tensor) -> torch.Tensor:
+    """alpha = 0.99 if lambda_min > -1e-6 else min(1, -tau/lambda_min)
+    (`src/predictor_corrector.jl:274-291`)."""
+    return torch.where(ev > _STEP_EPS, torch.full_like(ev, 0.99),
+                       (-TAU / ev).clamp(max=1.0))
+
+
+def _safe_pow(base: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
+    return torch.exp(expo * torch.log(base.clamp_min(1e-300)))
+
+
+def _gersh_violation(M: torch.Tensor) -> torch.Tensor:
+    """max(0, -Gershgorin lower bound) per batch element."""
+    diag = torch.diagonal(M, dim1=-2, dim2=-1)
+    gersh = (diag - (M.abs().sum(-1) - diag.abs())).amin(-1)
+    return (-gersh).clamp_min(0.0)
+
+
+class _GroupDirs(NamedTuple):
+    delX: torch.Tensor
+    delS: torch.Tensor
+    alpha: torch.Tensor  # [nb]
+    beta: torch.Tensor  # [nb]
+
+
+def _group_dirs(
+    g,
+    nt: NTScaling,
+    Rd: torch.Tensor,
+    X: torch.Tensor,
+    dely: torch.Tensor,
+    *,
+    predict: bool,
+    sig_mu: Optional[torch.Tensor] = None,
+    RNT: Optional[torch.Tensor] = None,
+) -> _GroupDirs:
+    """Directions and per-block steplengths (`find_step`,
+    `src/predictor_corrector.jl:248-293`; `ipm/step.py:_group_dirs`)."""
+    GT = nt.G.mT
+    delS = Rd - Aadj(g, dely)
+    Xi = nt.W @ delS @ nt.W
+    if predict:
+        delX = sym(-X - Xi)
+    else:
+        delX = sym(sig_mu * nt.Si - X - Xi + nt.G @ RNT @ GT)
+
+    delSb = GT @ delS @ nt.G
+    scaleS = sym(nt.DDsi[:, :, None] * delSb * nt.DDsi[:, None, :])
+    if predict:
+        # Predictor identity: with Gi X Gi^T = D and DDsi = D^{-1/2},
+        # scaleX = -I - scaleS, so lambda_min(scaleX) = -1 - lambda_max(scaleS)
+        lo, hi = eig_bounds_jacobi(scaleS)
+        alpha = _steplen(-1.0 - hi)
+        beta = _steplen(lo)
+    else:
+        delXb = nt.Gi @ delX @ nt.Gi.mT
+        scaleX = sym(nt.DDsi[:, :, None] * delXb * nt.DDsi[:, None, :])
+        nb = scaleX.shape[0]
+        ev = eig_bounds_jacobi(torch.cat([scaleX, scaleS], dim=0))[0]
+        alpha = _steplen(ev[:nb])
+        beta = _steplen(ev[nb:])
+    return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta)
+
+
+def step(problem: SDPProblem, st: IPMState, opts: Options) -> Tuple[IPMState, StepStats]:
+    """One IPM iteration from ``st``; returns (new state, stats)."""
+    dtype, device = problem.b.dtype, problem.device
+    denom = problem.sum_msizes
+    zero = torch.zeros((), dtype=dtype, device=device)
+
+    # ---- mu (`find_mu`, src/Solvers.jl:480-494)
+    tr = zero
+    for X, S in zip(st.X, st.S):
+        tr = tr + btrace(X, S)
+    mu = tr / denom
+
+    # ---- NT scaling (prepare_W)
+    nts = tuple(
+        nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend)
+        for X, S in zip(st.X, st.S)
+    )
+    nt_ok = torch.ones((), dtype=torch.bool, device=device)
+    nt_suspect = torch.zeros((), dtype=torch.bool, device=device)  # certificate broken
+    for nt in nts:
+        nt_ok = nt_ok & nt.ok
+        nt_suspect = nt_suspect | nt.shifted | nt.s_indef
+
+    # ---- residuals (`predictor`, src/predictor_corrector.jl:8-22)
+    Rp = problem.b
+    for g, X in zip(problem.groups, st.X):
+        Rp = Rp - Aop(g, X)
+    Rds = tuple(sym(g.C - S - Aadj(g, st.y)) for g, S in zip(problem.groups, st.S))
+
+    # ---- predictor RHS (`makeRHS`, src/makeBBBB.jl:221-228)
+    h = Rp
+    for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
+        h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
+
+    # ---- Schur assembly + regularized Cholesky (absolute 1e-4 shift,
+    # `src/predictor_corrector.jl:74`) + explicit inverse factor
+    H = torch.zeros((problem.n, problem.n), dtype=dtype, device=device)
+    for g, nt in zip(problem.groups, nts):
+        H = H + schur_group(g, nt.W, nt.G)
+    Hs = sym(H)
+    hc = chol_reg(Hs, 1e-4, 1000)
+    Hli = tri_inv(hc.L)
+
+    def solve2(rhs):
+        # one step of iterative refinement (the reference carries it
+        # commented out at src/predictor_corrector.jl:98-115)
+        x = cho_solve_inv(Hli, rhs)
+        return x + cho_solve_inv(Hli, rhs - Hs @ x)
+
+    dely = solve2(h)
+
+    # ---- predictor directions + steplengths
+    dirs = tuple(
+        _group_dirs(g, nt, Rd, X, dely, predict=True)
+        for g, nt, Rd, X in zip(problem.groups, nts, Rds, st.X)
+    )
+    one = torch.ones((), dtype=dtype, device=device)
+    alpha_min, beta_min = one, one
+    for d in dirs:
+        alpha_min = torch.minimum(alpha_min, d.alpha.min())
+        beta_min = torch.minimum(beta_min, d.beta.min())
+
+    # trial point + NT correction term (`find_step`,
+    # src/predictor_corrector.jl:302-310)
+    trXnSn = zero
+    RNTs = []
+    for nt, d, X, S in zip(nts, dirs, st.X, st.S):
+        Xn = X + d.alpha[:, None, None] * d.delX
+        Sn = S + d.beta[:, None, None] * d.delS
+        trXnSn = trXnSn + btrace(Xn, Sn)
+        deed = nt.D[:, :, None] + nt.D[:, None, :]
+        N = nt.Gi @ d.delX @ d.delS @ nt.G
+        RNTs.append(-(N + N.mT) / deed)
+
+    # ---- sigma update (`sigma_update`, src/predictor_corrector.jl:148-179)
+    step_pred = torch.minimum(alpha_min, beta_min)
+    expon_used = torch.where(
+        mu > 1e-6,
+        torch.where(
+            step_pred < 1.0 / math.sqrt(3.0),
+            one,
+            torch.clamp(3.0 * step_pred**2, min=EXPON),
+        ),
+        torch.clamp(torch.clamp(3.0 * step_pred**2, max=EXPON), min=1.0),
+    )
+    ratio = trXnSn / denom / mu
+    sigma = torch.where(
+        trXnSn < 0,
+        torch.full_like(one, 0.8),
+        torch.clamp(_safe_pow(ratio, expon_used), max=1.0),
+    )
+    sig_mu = sigma * mu
+
+    # ---- corrector RHS (`corrector`, src/predictor_corrector.jl:183-192)
+    h2 = Rp
+    for g, nt, Rd, RNT in zip(problem.groups, nts, Rds, RNTs):
+        GT = nt.G.mT
+        inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
+        h2 = h2 + Aop(g, nt.G @ inner @ GT)
+    dely2 = solve2(h2)
+
+    # ---- corrector directions + final update
+    dirs2 = tuple(
+        _group_dirs(g, nt, Rd, X, dely2, predict=False, sig_mu=sig_mu, RNT=RNT)
+        for g, nt, Rd, X, RNT in zip(problem.groups, nts, Rds, st.X, RNTs)
+    )
+    amin, bmin = one, one
+    for d in dirs2:
+        amin = torch.minimum(amin, d.alpha.min())
+        bmin = torch.minimum(bmin, d.beta.min())
+
+    y_new = st.y + bmin * dely2
+    X_new = tuple(sym(X + amin * d.delX) for X, d in zip(st.X, dirs2))
+    S_new = tuple(sym(S + bmin * d.delS) for S, d in zip(st.S, dirs2))
+
+    # ---- DIMACS errors (`check_convergence`, src/Solvers.jl:496-524).
+    # The iterates are feasible by construction (steplengths from certified
+    # lower bounds), so err2/err4 are zero unless the NT scaling itself was
+    # regularized; then report the Gershgorin violation of the new iterate.
+    normb = torch.linalg.norm(problem.b)
+    by = torch.dot(problem.b, y_new)
+    err1 = torch.linalg.norm(Rp) / (1.0 + normb)
+    err2, err3, err4, err6, trCX = zero, zero, zero, zero, zero
+    for g, X, S, Rd in zip(problem.groups, X_new, S_new, Rds):
+        normC = torch.sqrt((g.C**2).sum((-1, -2)))  # [nb]
+        viol = _gersh_violation(torch.cat([X, S], dim=0))
+        viol = torch.where(nt_suspect, viol, torch.zeros_like(viol))
+        violX, violS = viol[: X.shape[0]], viol[X.shape[0] :]
+        err2 = err2 + (violX / (1.0 + normb)).sum()
+        err3 = err3 + (torch.sqrt((Rd**2).sum((-1, -2))) / (1.0 + normC)).sum()
+        err4 = err4 + (violS / (1.0 + normC)).sum()
+        CX = (g.C * X).sum((-1, -2))
+        trCX = trCX + CX.sum()
+        SX = (S * X).sum((-1, -2))
+        err6 = err6 + (SX / (1.0 + CX.abs() + by.abs())).sum()
+    err5 = (trCX - by) / (1.0 + trCX.abs() + by.abs())
+
+    dimacs = err2 + err3 + err4 + err5.abs() + err6
+    if problem.nlmi > 0:
+        dimacs = dimacs + err1
+
+    new_state = IPMState(X=X_new, S=S_new, y=y_new, X_lin=None, S_lin=None, sigma=sigma)
+    stats = StepStats(
+        obj=-by + problem.b_const,
+        mu=mu,
+        sigma=sigma,
+        err1=err1,
+        err2=err2,
+        err3=err3,
+        err4=err4,
+        err5=err5,
+        err6=err6,
+        dimacs=dimacs,
+        alpha_min=amin,
+        beta_min=bmin,
+        h_shifts=hc.shifts,
+        h_ok=hc.ok,
+        nt_ok=nt_ok,
+    )
+    return new_state, stats

@@ -1,0 +1,4 @@
+from .device import resolve_device
+from .timers import PhaseTimer
+
+__all__ = ["PhaseTimer", "resolve_device"]

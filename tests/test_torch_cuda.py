@@ -1,0 +1,50 @@
+"""The CUDA kernels of loraine_tpu_torch/ops/jacobi.py on a card.
+
+Needs an NVIDIA GPU (marker `cuda`; skips without one). This file imports
+neither jax nor the JAX package, so it also runs on a machine without them:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+import pytest
+import torch
+
+from loraine_tpu_torch.ops import jacobi as tj
+from torch_cases import spectrum_matrix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,m", [(1, 56), (2, 56), (1, 800)])
+def test_kernels_match_plain_on_card(nb, m):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    A = torch.from_numpy(spectrum_matrix("clustered", m, nb, seed=m)).cuda()
+    Mn, scale = tj._normalize_pad(A)
+    s1, s2 = tj.jacobi_sweeps_for(m), tj.bound_sweeps_for(m)
+    lam_k, V = tj._sorted_eigh(*tj.jacobi_eigh_cuda(Mn, s1), m, scale)
+    lam_p, _ = tj._sorted_eigh(*tj.jacobi_eigh_plain(Mn, s1), m, scale)
+    lo_k, hi_k = tj._widened_bounds(*tj.jacobi_bounds_cuda(Mn, s2), m, scale, A.dtype)
+    lo_p, hi_p = tj._widened_bounds(*tj.jacobi_bounds_plain(Mn, s2), m, scale, A.dtype)
+    torch.cuda.synchronize()
+    # Unsorted outputs are label-ordered and legitimately differ on clustered
+    # spectra (FMA rounding decides which label lands on which eigenvalue), so
+    # compare the sorted seed and the certified bounds: the contracts of
+    # tests/test_jacobi_pallas.py.
+    ev = torch.linalg.eigvalsh(A)
+    sc = scale[:, None]
+    assert ((lam_k.double() - lam_p.double()).abs() / sc).max() < 5e-5
+    assert ((lam_k.double() - ev).abs() / sc).max() < 5e-5
+    Vd = V.double()
+    R = (Vd * lam_k.double()[:, None, :]) @ Vd.mT
+    assert ((R - A).abs().amax((-1, -2)) / scale).max() < 1e-4
+    # m >= 256 runs the trimmed schedule (10 sweeps): seed orthogonality is
+    # then ~2.5e-4 for the plain version too (chip_smoke.py compares them)
+    assert (Vd.mT @ Vd - torch.eye(m, dtype=Vd.dtype, device=Vd.device)).abs().max() < (
+        1e-4 if m < 256 else 1e-3)
+    for lo, hi in ((lo_k, hi_k), (lo_p, hi_p)):
+        assert (lo <= ev[:, 0]).all() and (hi >= ev[:, -1]).all()
+    # the net of chip_smoke.py: per instance the slack is rounding luck on
+    # clustered spectra (60 seeds at m=56: medians 1.50e-4 kernel, 1.43e-4
+    # plain); fail only a kernel looser than twice the plain bound and 1e-3
+    slack_k = (torch.maximum(ev[:, 0] - lo_k, hi_k - ev[:, -1]) / scale).max()
+    slack_p = (torch.maximum(ev[:, 0] - lo_p, hi_p - ev[:, -1]) / scale).max()
+    assert slack_k < max(1e-3, 2 * float(slack_p))
