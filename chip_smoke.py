@@ -5,20 +5,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and no network, and exits non-zero on the first failed check.
 
 Phases:
-  1. setup: card name and power limit, build of the CUDA Jacobi kernels
-     (csrc/jacobi.cu, nvcc for sm_90a) from the checkout.
-  2. each kernel against its plain PyTorch version on the card, at the
-     solver's shapes (nb, m) in {(1, 56), (2, 56), (1, 800), (2, 800)}, on
-     clustered (IPM-like) and random spectra, with both times.
+  1. setup: card name and power limit, build of the CUDA kernels
+     (csrc/jacobi.cu and csrc/pcg.cu, one nvcc each for sm_90a, started
+     together) from the checkout.
+  2. each Jacobi kernel against its plain PyTorch version on the card, at
+     the solver's shapes (nb, m) in {(1, 56), (2, 56), (1, 800), (2, 800)},
+     on clustered (IPM-like) and random spectra, with both times.
   3. SDPLIB theta1 (n=104, one 50x50 block) through ``solve_sdpa`` on the
      card: OPTIMAL at 23.0, and the same trajectory as the CPU run of the
      port (plain Jacobi versions) on the same input.
   4. SDPLIB maxG11 (n=800, one 800x800 block, rank-1 data) through
      ``solve_sdpa`` on the card: OPTIMAL at 629.1648.
-  5. kernel launch counts of phases 3-4 (reset just before them).
+  5. kernel launch counts of phases 3-4.
+  6. each CG kernel (B3 f64 min-residual, B4 f32) inside its refinement
+     wrapper against its plain version on the card, at n in
+     {21, 104, 464, 1000}: (a) identity preconditioner, kappa 1e3, tol 1e-10;
+     (b) Mli = inv(chol(H + 1e-6 I)), kappa(H) 1e8, tol 1e-12 (B3) and 1e-9
+     (B4); body times at n = 464 and 1000.
+  7. SDPLIB control1 with the CG path (kit=1, `bench.py` options) on the
+     card: OPTIMAL at 17.78463, beside the port's CPU run.
+  8. theta1 with the CG path, materialized (B3) and matrix-free (SMW
+     H_alpha) routes: OPTIMAL at 23.0.
+  9. theta_G100, a Lovasz theta SDP at SDPLIB theta2's size (100 vertices,
+     463 edges from a seed, n=464, one 100x100 block), kit=1 and kit=0 on
+     the card: both OPTIMAL, objectives within 1e-5 relative.
+ 10. control1 with the f32 CG kernel (cg_kernel='pallas', loose options).
+ 11. launch counts of the four kernels over the solve phases.
 
-The line before the last two is a JSON object with one entry per kernel;
-then the card's name and power limit; the last line is
+Every solve (phases 3, 4, 7-10) runs with the launch counts set to 0 just
+before it and read just after, and fails if a kernel of its path was not
+launched. The line before the last two is a JSON object with one entry per
+kernel; then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -34,10 +51,22 @@ import torch
 
 THETA1 = "tests/data/theta1.dat-s"
 MAXG11 = "tests/data/maxG11.dat-s"
+CONTROL1 = "tests/data/control1.dat-s"
 THETA1_OPT = 23.0  # SDPLIB optimum
 MAXG11_OPT = 629.1648  # SDPLIB optimum
+CONTROL1_OPT = 17.78463  # SDPLIB optimum
 OBJ_RTOL = 1e-5
 SHAPES = [(1, 56), (2, 56), (1, 800), (2, 800)]
+PCG_SIZES = (21, 104, 464, 1000)
+# bench.py:77-79 (control1-cg) and :93-95 (theta1-cg)
+CONTROL1_CG = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
+               "initpoint": 1, "verb": 0}
+THETA1_CG = {"kit": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-5, "preconditioner": 1,
+             "initpoint": 1, "verb": 0}
+# tests/test_pcg_pallas.py:76-82
+CONTROL1_F32 = {"kit": 1, "preconditioner": 1, "eDIMACS": 3e-3, "tol_cg_min": 1e-4,
+                "initpoint": 1, "verb": 0, "cg_kernel": "pallas", "maxit": 40}
+KERNELS = ("B1", "B2", "B3", "B4")
 
 
 def check(cond: bool, what: str) -> None:
@@ -150,6 +179,121 @@ def kernels_vs_plain(tj) -> dict:
     return {"err": err, "times": times}
 
 
+def cg_system(n: int, cond: float, seed: int):
+    """SPD H = Q diag(logspace(0, -log10 cond)) Q^T (tests/test_pcg_pallas.py)
+    and a normal rhs, in f64 on the card."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    H = (Q * np.logspace(0, -np.log10(cond), n)) @ Q.T
+    H = torch.from_numpy((H + H.T) / 2).cuda()
+    return H, torch.from_numpy(rng.standard_normal(n)).cuda()
+
+
+def pcg_vs_plain(tp) -> dict:
+    """Phase 6. Each CG kernel inside its refinement wrapper against the
+    wrapper around its plain version, on the same inputs. Returns per-kernel
+    max |x_kernel - x_plain| / max |x_plain| and the body times at n = 464."""
+    err = {"B3": 0.0, "B4": 0.0}
+    times = {}
+    bodies = {
+        "B3": (tp.pcg_kernel_ff, tp.cg_minres_f64_cuda, tp.cg_minres_plain),
+        "B4": (tp.pcg_kernel_mixed, tp.cg_f32_cuda, tp.cg_f32_plain),
+    }
+    for n in PCG_SIZES:
+        for case in ("a", "b"):
+            eye = torch.eye(n, dtype=torch.float64, device="cuda")
+            if case == "a":
+                kappa, tols = 1e3, {"B3": 1e-10, "B4": 1e-10}
+                H, b = cg_system(n, kappa, seed=n)
+                Mli = eye
+            else:
+                # b = H x_true: with a normal b, x ~ kappa |b| and the f64
+                # residual b - H x itself is only accurate to ~u kappa ~ 1e-8
+                kappa, tols = 1e8, {"B3": 1e-12, "B4": 1e-9}
+                H, x_true = cg_system(n, kappa, seed=n + 1)
+                b = H @ x_true
+                L = torch.linalg.cholesky(H + 1e-6 * eye)
+                Mli = torch.linalg.solve_triangular(L, eye, upper=False)
+            for k, (wrapper, kern, plain) in bodies.items():
+                tol = tols[k]
+                xk, ik = wrapper(H, Mli, b, tol, 10000, body=kern)
+                xp, ip = wrapper(H, Mli, b, tol, 10000, body=plain)
+                torch.cuda.synchronize()
+                nb = float(torch.linalg.norm(b))
+                res_k = float(torch.linalg.norm(b - H @ xk)) / nb
+                res_p = float(torch.linalg.norm(b - H @ xp)) / nb
+                dx = float((xk - xp).abs().max() / xp.abs().max())
+                ik, ip = int(ik), int(ip)
+                line = (f"phase 6 {k} n={n} ({case}) tol={tol:.0e}: res={res_k:.2e} "
+                        f"(plain {res_p:.2e}) |x-plain|/|x|={dx:.2e} its={ik} (plain {ip})")
+                if case == "a" and n in (464, 1000):
+                    # one full solve of the body: the wrapper's first pass
+                    tol2 = torch.tensor((0.25 * tol) ** 2, dtype=torch.float64, device="cuda")
+                    rhs = b / torch.linalg.norm(b)
+                    if k == "B3":
+                        args = (H, rhs, tol2, 4 * n + 128, tp.stall_limit(n))
+                    else:
+                        args = (H.float(), rhs.float(), tol2.float(), 2 * n + 64)
+                    ms = cuda_ms(lambda: kern(*args), 10)
+                    plain(*args)  # warm
+                    plain_ms = cuda_ms(lambda: plain(*args), 1, warmup=False)
+                    line += f" body ms={ms:.3f} plain_ms={plain_ms:.1f} (its {int(kern(*args)[1])})"
+                    if n == 464:
+                        times[k] = (ms, plain_ms)
+                print(line, flush=True)
+                # same algorithm, other summation order: both meet the
+                # target, x agrees to kappa * tol * 10, iterations to 10% + 2
+                check(res_k <= tol and res_p <= tol, f"{k} n={n} ({case}) residual")
+                check(dx <= kappa * tol * 10, f"{k} n={n} ({case}) x vs plain")
+                check(abs(ik - ip) <= 0.1 * ip + 2, f"{k} n={n} ({case}) iterations vs plain")
+                err[k] = max(err[k], dx)
+    return {"err": err, "times": times}
+
+
+def theta_g100(ltt):
+    """Lovasz theta SDP at SDPLIB theta2's size: 100 vertices, edges with
+    probability 0.1 from seed 2 (463 edges), n = 464, dense storage
+    (`loraine_tpu.models.theta.lovasz_theta_problem` builds the same data)."""
+    rng = np.random.default_rng(2)
+    nv = 100
+    E = [(i, j) for i in range(nv) for j in range(i + 1, nv) if rng.random() < 0.1]
+    n = 1 + len(E)
+    A = np.zeros((n, nv, nv))
+    A[0] = np.eye(nv)
+    for k, (i, j) in enumerate(E):
+        A[k + 1, i, j] = A[k + 1, j, i] = 0.5
+    b = np.zeros(n)
+    b[0] = 1.0
+    return ltt.problem_from_dense([A], [-np.ones((nv, nv))], b, storage="dense", device="cuda")
+
+
+class Launches:
+    """The four kernels' launch counters: reset before each solve, read after,
+    summed over the solves."""
+
+    def __init__(self, tj, tp):
+        self.fns = dict(zip(KERNELS, (tj.jacobi_eigh_cuda, tj.jacobi_bounds_cuda,
+                                      tp.cg_minres_f64_cuda, tp.cg_f32_cuda)))
+        self.total = dict.fromkeys(KERNELS, 0)
+
+    def run(self, label: str, needs, solve):
+        for fn in self.fns.values():
+            fn.launches = 0
+        r = solve()
+        got = {k: fn.launches for k, fn in self.fns.items()}
+        for k in KERNELS:
+            self.total[k] += got[k]
+        print(f"launches in {label}: " + " ".join(f"{k}={v}" for k, v in got.items()), flush=True)
+        check(all(got[k] > 0 for k in needs), f"{label}: a kernel of its path was not launched")
+        return r
+
+
+def solve_line(phase: str, r) -> str:
+    return (f"phase {phase}: {r.status_name} obj={r.objective!r} it={r.iterations} "
+            f"cg_it={r.cg_iterations} solve={r.solve_time:.3f} s "
+            f"median_iter_ms={1e3 * float(np.median(r.iteration_times)):.2f} dimacs={r.dimacs:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs one NVIDIA GPU",
@@ -163,26 +307,27 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     import loraine_tpu_torch as ltt
-    from loraine_tpu_torch.ops import jacobi as tj
-    from loraine_tpu_torch.utils.cuda_build import BUILD_DIR
+    from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
+    from loraine_tpu_torch.utils.cuda_build import BUILD_DIR, build_libraries
 
     # ---- phase 1: setup + build
     print(f"phase 1 python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card '{card}' count {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
+    build_libraries("jacobi", "pcg")
     tj._lib()
-    print(f"phase 1 built+loaded csrc/jacobi.cu in {time.perf_counter() - t0:.2f} s "
-          f"into {BUILD_DIR}", flush=True)
+    tp._lib()
+    print(f"phase 1 built+loaded csrc/jacobi.cu and csrc/pcg.cu in "
+          f"{time.perf_counter() - t0:.2f} s into {BUILD_DIR}", flush=True)
 
-    # ---- phase 2: kernels vs plain versions on the card
+    # ---- phase 2: Jacobi kernels vs plain versions on the card
     k = kernels_vs_plain(tj)
+    launches = Launches(tj, tp)
 
     # ---- phase 3: theta1, card against the port's CPU run
     opts = {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}
     ref = ltt.solve_sdpa(THETA1, opts, device="cpu")
-    tj.jacobi_eigh_cuda.launches = 0
-    tj.jacobi_bounds_cuda.launches = 0
-    r = ltt.solve_sdpa(THETA1, opts, device="cuda")
+    r = launches.run("phase 3", ("B1", "B2"), lambda: ltt.solve_sdpa(THETA1, opts, device="cuda"))
     print(f"phase 3 theta1 cuda: {r.status_name} obj={r.objective!r} it={r.iterations} "
           f"wall={r.solve_time:.3f} s it/s={r.iterations / r.solve_time:.2f} "
           f"median_iter_ms={1e3 * float(np.median(r.iteration_times)):.2f} dimacs={r.dimacs:.3e} | "
@@ -198,7 +343,7 @@ def main() -> int:
     opts = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "datarank": -1, "verb": 0}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = ltt.solve_sdpa(MAXG11, opts, device="cuda")
+    r = launches.run("phase 4", ("B1", "B2"), lambda: ltt.solve_sdpa(MAXG11, opts, device="cuda"))
     wall = time.perf_counter() - t0
     X = r.X[0]
     print(f"phase 4 maxG11 cuda: {r.status_name} obj={r.objective!r} it={r.iterations} "
@@ -211,18 +356,78 @@ def main() -> int:
     check(X.shape == (800, 800) and bool(np.isfinite(X).all()), "maxG11 primal block")
     check(math.isfinite(r.dimacs) and r.dimacs < opts["eDIMACS"], "maxG11 DIMACS")
 
-    # ---- phase 5: the main path went through both kernels
-    launches = {"eigh": tj.jacobi_eigh_cuda.launches, "bounds": tj.jacobi_bounds_cuda.launches}
-    print(f"phase 5 launches in phases 3-4: B1={launches['eigh']} B2={launches['bounds']}", flush=True)
-    check(launches["eigh"] > 0 and launches["bounds"] > 0, "a kernel was not launched")
+    # ---- phase 5: the kit=0 path went through both Jacobi kernels
+    print(f"phase 5 launches in phases 3-4: B1={launches.total['B1']} "
+          f"B2={launches.total['B2']}", flush=True)
+
+    # ---- phase 6: CG kernels vs plain versions on the card
+    kc = pcg_vs_plain(tp)
+
+    # ---- phase 7: control1 on the CG path, card beside the port's CPU run
+    ref = ltt.solve_sdpa(CONTROL1, CONTROL1_CG, device="cpu")
+    r = launches.run("phase 7", ("B1", "B2", "B3"),
+                     lambda: ltt.solve_sdpa(CONTROL1, CONTROL1_CG, device="cuda"))
+    print(solve_line("7 control1-cg cuda", r) + f" | cpu: {ref.status_name} "
+          f"obj={ref.objective!r} it={ref.iterations} cg_it={ref.cg_iterations}", flush=True)
+    check(r.status == 1, "control1-cg not OPTIMAL")
+    check(abs(r.objective - CONTROL1_OPT) <= OBJ_RTOL * CONTROL1_OPT, "control1-cg objective")
+    check(r.dimacs < CONTROL1_CG["eDIMACS"], "control1-cg DIMACS")
+
+    # ---- phase 8: theta1 on the CG path, materialized and matrix-free
+    for route, extra, needs in (("materialized", {}, ("B1", "B2", "B3")),
+                                ("matrix-free", {"cg_materialize": "never"}, ("B1", "B2"))):
+        o = dict(THETA1_CG, **extra)
+        r = launches.run(f"phase 8 ({route})", needs,
+                         lambda: ltt.solve_sdpa(THETA1, o, device="cuda"))
+        print(solve_line(f"8 theta1-cg {route} cuda", r), flush=True)
+        check(r.status == 1, f"theta1-cg {route} not OPTIMAL")
+        check(abs(r.objective - THETA1_OPT) <= OBJ_RTOL * THETA1_OPT, f"theta1-cg {route} objective")
+
+    # ---- phase 9: theta_G100 at full size, kit=1 against kit=0
+    p = theta_g100(ltt)
+    res = {}
+    for kit, o, needs in ((1, THETA1_CG, ("B1", "B2", "B3")),
+                          (0, {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}, ("B1", "B2"))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = launches.run(f"phase 9 (kit={kit})", needs, lambda: ltt.solve(p, o, device="cuda"))
+        wall = time.perf_counter() - t0
+        print(solve_line(f"9 theta_G100 n={p.n} kit={kit} cuda", r) + f" wall={wall:.3f} s "
+              f"peak_mem_MiB={torch.cuda.max_memory_allocated() / 2**20:.1f}", flush=True)
+        check(r.status == 1, f"theta_G100 kit={kit} not OPTIMAL")
+        check(r.X[0].shape == (100, 100) and bool(np.isfinite(r.X[0]).all()), "theta_G100 primal block")
+        res[kit] = r.objective
+    check(abs(res[1] - res[0]) <= OBJ_RTOL * abs(res[0]), "theta_G100 kit=1 vs kit=0 objective")
+
+    # ---- phase 10: the f32 CG kernel end to end
+    r = launches.run("phase 10", ("B1", "B2", "B4"),
+                     lambda: ltt.solve_sdpa(CONTROL1, CONTROL1_F32, device="cuda"))
+    print(solve_line("10 control1 cg_kernel=pallas cuda", r), flush=True)
+    check(r.status == 1, "control1 with the f32 CG kernel not OPTIMAL")
+    check(abs(r.objective - 17.7846) <= 1e-3 * 17.7846, "control1 f32 CG objective")
+
+    # ---- phase 11: the solves went through all four kernels
+    print("phase 11 launches in the solve phases: "
+          + " ".join(f"{k_}={v}" for k_, v in launches.total.items()), flush=True)
+    check(all(v > 0 for v in launches.total.values()), "a kernel was not launched")
 
     rows = []
-    for key, name, line in (("eigh", "jacobi_eigh_f32", 109), ("bounds", "jacobi_bounds_f32", 185)):
+    for key, kname, name, src, line in (
+            ("eigh", "B1", "jacobi_eigh_f32", "jacobi", "jacobi_pallas.py:109"),
+            ("bounds", "B2", "jacobi_bounds_f32", "jacobi", "jacobi_pallas.py:185")):
         ms, plain_ms = k["times"][key]
         rows.append({
-            "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/jacobi.cu",
-            "replaces": f"loraine_tpu/ops/jacobi_pallas.py:{line}",
-            "launches": launches[key], "max_abs_err": k["err"][key],
+            "name": name, "route": "cuda", "source": f"loraine_tpu_torch/csrc/{src}.cu",
+            "replaces": f"loraine_tpu/ops/{line}",
+            "launches": launches.total[kname], "max_abs_err": k["err"][key],
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    for kname, name, line in (("B3", "cg_minres_f64", 327), ("B4", "cg_f32", 48)):
+        ms, plain_ms = kc["times"][kname]
+        rows.append({
+            "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/pcg.cu",
+            "replaces": f"loraine_tpu/ops/pcg_pallas.py:{line}",
+            "launches": launches.total[kname], "max_abs_err": kc["err"][kname],
             "ms": ms, "plain_ms": plain_ms,
         })
     print(json.dumps({"kernels": rows}))

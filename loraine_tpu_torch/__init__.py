@@ -4,11 +4,12 @@ A primal-dual predictor-corrector interior-point solver for linear SDPs,
 ported from the JAX package `loraine_tpu` (which stays the reference) to
 PyTorch, with its Pallas TPU kernels rewritten as CUDA kernels for Hopper.
 
-This slice runs the direct (kit=0) f64 path on dense and rank-1 data. Its
-kernels are the two Jacobi kernels of `ops/jacobi.py` (CUDA C++ in
-`csrc/jacobi.cu`, built with nvcc at first use). The device is explicit and
-defaults to ``"cuda"``; pass ``device="cpu"`` to run the kernels' plain
-PyTorch versions on the CPU::
+The port runs the direct (kit=0) and the CG (kit=1) f64 paths on dense and
+rank-1 data. Its kernels are the two Jacobi kernels of `ops/jacobi.py`
+(CUDA C++ in `csrc/jacobi.cu`) and the two single-launch CG kernels of
+`ops/pcg.py` (`csrc/pcg.cu`), built with nvcc at first use. The device is
+explicit and defaults to ``"cuda"``; pass ``device="cpu"`` to run the
+kernels' plain PyTorch versions on the CPU::
 
     import loraine_tpu_torch as ltt
     res = ltt.solve_sdpa("tests/data/theta1.dat-s",

@@ -5,13 +5,21 @@ mirrors Loraine.jl `src/Solvers.jl:169-302`). Every value the JAX package
 accepts is accepted here too; `require_ported` then names the values this
 port does not run yet, and `Solver` raises `NotImplementedError` for them.
 
-What the port runs: ``kit=0``, ``precision='f64'``, ``dtype='float64'``,
-``nt_method='eigh'``, ``eigh_backend``/``step_eig`` in 'auto'/'pallas',
-``chol_backend`` 'auto'/'f64', ``gemm_backend='f64'``,
-``assembly_precision='f64'``. In the port 'pallas' means the hand-written
-Jacobi kernels of `ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto'
-resolves to them on every device; on a CPU tensor they run their plain
-PyTorch version, so CPU and card runs take the same algorithmic path.
+What the port runs: ``kit`` 0 and 1, ``precision='f64'``,
+``dtype='float64'``, ``nt_method='eigh'``, ``eigh_backend``/``step_eig`` in
+'auto'/'pallas', ``chol_backend`` 'auto'/'f64', ``gemm_backend='f64'``,
+``assembly_precision='f64'``, and every ``cg_kernel`` / ``cg_materialize``
+value. In the port 'pallas' means the hand-written Jacobi kernels of
+`ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto' resolves to them
+on every device; on a CPU tensor they run their plain PyTorch version, so
+CPU and card runs take the same algorithmic path.
+
+``cg_kernel`` (materialized CG route only, `resolve_cg_kernel`): 'ff' is the
+single-launch f64 CG kernel B3 and 'pallas' the f32 CG kernel B4
+(`ops/pcg.py`, CUDA C++ in `csrc/pcg.cu`); on a CPU tensor each runs its
+plain PyTorch version. 'xla' is the eager f64 CG of `ops/cg.py`. 'auto' is
+'ff' on a CUDA device for n <= 1024 and 'xla' otherwise, as the JAX package
+picks 'ff' on the TPU and 'xla' on the CPU.
 """
 from __future__ import annotations
 
@@ -125,7 +133,7 @@ class Options:
 
 # option -> (values the port runs, ROADMAP item that ports the rest)
 _PORTED = {
-    "kit": ((0,), "Queue A item 11 (CG path)"),
+    "kit": ((0, 1), "Queue A item 11 (CG path)"),
     "precision": (("f64",), "Queue A item 12 (precision tiers)"),
     "dtype": (("float64",), "Queue A item 13 (remaining option values)"),
     "nt_method": (("eigh",), "Queue A item 13 (remaining option values)"),
@@ -154,6 +162,15 @@ def require_ported(o: Options) -> None:
             "timing>=2 (per-phase re-timing) is not ported to "
             "loraine_tpu_torch yet; see ROADMAP.md Queue A item 15 (diagnostics)"
         )
+
+
+def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:
+    """The CG solver of the materialized route (`ipm/step.py:790-801` of the
+    JAX package, with the card in the TPU's place): 'auto' is the B3 kernel
+    ('ff') on a CUDA device up to n = 1024, else the f64 'xla' loop."""
+    if cg_kernel != "auto":
+        return cg_kernel
+    return "ff" if device.type == "cuda" and n <= 1024 else "xla"
 
 
 def _one_of(name: str, value, allowed) -> None:

@@ -7,7 +7,9 @@ K-iteration chunks, no compile cache. The status precedence is the one
 `build_chunk` applies on the device (`ipm/step.py:1353-1430`): H not
 factorizable or regcount > 5 -> 3, NT scaling failed -> 4, non-finite
 DIMACS -> 3, DIMACS < eDIMACS -> 1, DIMACS > 1e55 -> 2, |obj| > 1e55 -> 3,
-maxit -> 4.
+maxit -> 4. On the CG path (kit=1) the loop also carries the CG tolerance
+schedule and the hybrid preconditioner switch (4 -> 1), as the JAX
+package's chunk does (`ipm/step.py:1393-1413`).
 
 Status codes (reference `src/MOI_wrapper.jl:252-265`):
   0 = not solved, 1 = optimal, 2 = (probably) infeasible,
@@ -127,21 +129,28 @@ class Solver:
                 sizes += list(g.orig_sizes)
             print(" Matrix size(s)     :" + "".join(f"{s:6d}" for s in sizes))
         print(f" Linear constraints : {p.nlin:5d}")
-        print(" Preconditioner     :  none, using direct solver")
-        print(" *** IP STARTS")
-        if o.verb < 2:
-            print(" it        obj         error     CPU/it")
+        if o.kit > 0:
+            print(f" Preconditioner     : {o.preconditioner:5d}")
         else:
-            print(" it        obj         error      err1      err2      err3      err4      err5      err6     CPU/it")
+            print(" Preconditioner     :  none, using direct solver")
+        print(" *** IP STARTS")
+        cg = "   cg_iter" if o.kit == 1 else ""
+        if o.verb < 2:
+            print(f" it        obj         error  {cg}   CPU/it")
+        else:
+            cg = "    cg_pre  cg_cor" if o.kit == 1 else ""
+            print(f" it        obj         error      err1      err2      err3      err4      err5      err6 {cg}    CPU/it")
 
     def _log_iter(self, it: int, s: Dict[str, float], dt: float) -> None:
         o = self.opts
         if o.verb <= 0:
             return
         if o.verb > 1:
-            print(f"{it:3d} {s['obj']:16.8e} {s['dimacs']:9.2e} {s['err1']:9.2e} {s['err2']:9.2e} {s['err3']:9.2e} {s['err4']:9.2e} {s['err5']:9.2e} {s['err6']:9.2e} {dt:8.2f}")
+            cg = f" {s['cg_pre']:7d} {s['cg_cor']:7d}" if o.kit == 1 else ""
+            print(f"{it:3d} {s['obj']:16.8e} {s['dimacs']:9.2e} {s['err1']:9.2e} {s['err2']:9.2e} {s['err3']:9.2e} {s['err4']:9.2e} {s['err5']:9.2e} {s['err6']:9.2e}{cg} {dt:8.2f}")
         else:
-            print(f"{it:3d} {s['obj']:16.8e} {s['dimacs']:9.2e} {dt:8.2f}")
+            cg = f" {s['cg_pre'] + s['cg_cor']:9d}" if o.kit == 1 else ""
+            print(f"{it:3d} {s['obj']:16.8e} {s['dimacs']:9.2e}{cg} {dt:8.2f}")
 
     # -- main loop --------------------------------------------------------
     def solve(self) -> Result:
@@ -155,6 +164,9 @@ class Solver:
         status = 0
         it = 0
         regcount = 0
+        cg_tot = 0
+        tol_cg = o.tol_cg
+        precond_kind = o.preconditioner if o.kit == 1 else -1
         stats_h: Dict[str, Any] = {}
         iteration_times: List[float] = []
         history: List[Dict[str, float]] = []
@@ -162,16 +174,21 @@ class Solver:
         while status == 0:
             t0 = time.perf_counter()
             with self.timer.phase("ipm step"):
-                state, stats = step(p, state, o)
+                state, stats = step(p, state, o, tol_cg, precond_kind)
                 stats_h = stats.to_host()  # waits for the step's device work
                 self._sync()
             dt = time.perf_counter() - t0
             it += 1
             iteration_times.append(dt)
+            stats_h["cg_pre"] = stats_h.pop("cg_iter_pre")
+            stats_h["cg_cor"] = stats_h.pop("cg_iter_cor")
+            cg_tot += stats_h["cg_pre"] + stats_h["cg_cor"]
             history.append({k: stats_h[k] for k in (
                 "obj", "mu", "err1", "err2", "err3", "err4", "err5", "err6",
-                "dimacs")} | {"cg_pre": 0, "cg_cor": 0})
+                "dimacs", "cg_pre", "cg_cor")})
             status = self._status(stats_h, it, regcount)
+            # tol_cg schedule (`loraine_tpu/ipm/step.py:1413`)
+            tol_cg = max(tol_cg * o.tol_cg_up, o.tol_cg_min)
             if stats_h["h_shifts"] > 0:
                 regcount += 1
             if stats_h["h_ok"] and stats_h["nt_ok"] and math.isfinite(stats_h["dimacs"]) \
@@ -184,12 +201,21 @@ class Solver:
                     print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
                 elif status == 4 and it >= o.maxit:
                     print("WARNING: Stopped by iteration limit (stopping status = 4)")
+            if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
+                # hybrid preconditioner switch (src/Solvers.jl:339-347)
+                precond_kind = 1
+                o.aamat = 2
+                if o.verb > 0:
+                    print("Switching to preconditioner 1")
 
         solve_time = time.perf_counter() - t_start
-        if o.verb > 0 and status == 1:
-            print(f" *** Optimal solution found in {solve_time:8.2f} seconds")
+        if o.verb > 0:
+            if o.kit == 1:
+                print(f" *** Total CG iterations: {cg_tot:8d}")
+            if status == 1:
+                print(f" *** Optimal solution found in {solve_time:8.2f} seconds")
 
-        result = self._extract(state, stats_h, status, it, solve_time, iteration_times)
+        result = self._extract(state, stats_h, status, it, cg_tot, solve_time, iteration_times)
         result.history = history
         if o.verb > 0 and status == 1:
             print(f"Primal objective: {result.objective}")
@@ -228,7 +254,15 @@ class Solver:
             return 4
         return 0
 
-    def _extract(self, state, stats_h, status, it, solve_time, iteration_times) -> Result:
+    def _hybrid_switch(self, cg_cor: int, it: int) -> bool:
+        """Preconditioner 4 hands over from H_beta to H_alpha once the
+        corrector's CG count passes the reference's threshold
+        (`loraine_tpu/ipm/step.py:1393-1399`)."""
+        p = self.problem
+        thresh = self.opts.erank * p.nlmi * math.sqrt(p.n) / 20.0
+        return (cg_cor / 2.0 > thresh and it > math.sqrt(p.n) / 60.0) or cg_cor > 100
+
+    def _extract(self, state, stats_h, status, it, cg_tot, solve_time, iteration_times) -> Result:
         p = self.problem
         Xb: List[Optional[np.ndarray]] = [None] * p.nlmi
         Sb: List[Optional[np.ndarray]] = [None] * p.nlmi
@@ -251,7 +285,7 @@ class Solver:
             S=Sb,
             X_lin=None,
             iterations=it,
-            cg_iterations=0,
+            cg_iterations=cg_tot,
             dimacs=stats_h.get("dimacs", float("nan")),
             errs={k: stats_h.get(k, float("nan")) for k in ("err1", "err2", "err3", "err4", "err5", "err6")},
             solve_time=solve_time,

@@ -44,6 +44,8 @@ class StepStats:
     h_shifts: int  # Schur-Cholesky regularization shifts this iteration
     h_ok: bool  # Schur factorization succeeded
     nt_ok: torch.Tensor  # bool: NT scaling factorizations succeeded
+    cg_iter_pre: torch.Tensor  # int32: CG iterations of the predictor solve (kit=1)
+    cg_iter_cor: torch.Tensor  # int32: CG iterations of the corrector solve
 
     def to_host(self) -> dict:
         """All fields as Python numbers, with ONE device-to-host transfer for
@@ -56,4 +58,6 @@ class StepStats:
         out = {n: getattr(self, n) for n in names if n not in tens}
         out.update(zip(tens, vals))
         out["nt_ok"] = bool(out["nt_ok"])
+        for k in ("cg_iter_pre", "cg_iter_cor"):
+            out[k] = int(out[k])
         return out

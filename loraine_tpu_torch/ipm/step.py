@@ -1,6 +1,7 @@
-"""One predictor-corrector IPM iteration. Port of the f64, kit=0 branches of
-`loraine_tpu/ipm/step.py:build_step` (no LP cone, no dd/dd2 tiers, no
-mixed assembly, no sharding: ROADMAP.md Queue A items 8, 12, 13, 14).
+"""One predictor-corrector IPM iteration. Port of the f64 kit=0 and kit=1
+branches of `loraine_tpu/ipm/step.py:build_step` (no LP cone, no dd/dd2
+tiers, no mixed assembly, no sharding: ROADMAP.md Queue A items 8, 12, 13,
+14).
 
 Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
 `check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
@@ -21,10 +22,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..config import Options
+from ..config import Options, resolve_cg_kernel
+from ..ops.cg import cg_plain, pcg
 from ..ops.jacobi import eig_bounds_jacobi
 from ..ops.linalg import btrace, chol_reg, cho_solve_inv, sym, tri_inv
 from ..ops.nt_scaling import NTScaling, nt_scale
+from ..ops.pcg import pcg_kernel_ff, pcg_kernel_mixed
+from ..ops.precond import prep_alpha, prep_beta
 from ..ops.schur import Aadj, Aop, schur_group
 from ..problem import SDPProblem
 from .initial import EXPON, TAU
@@ -99,8 +103,107 @@ def _group_dirs(
     return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta)
 
 
-def step(problem: SDPProblem, st: IPMState, opts: Options) -> Tuple[IPMState, StepStats]:
-    """One IPM iteration from ``st``; returns (new state, stats)."""
+def _schur(problem: SDPProblem, nts) -> torch.Tensor:
+    """The symmetrized Schur matrix H = sum over groups of schur_group."""
+    H = torch.zeros((problem.n, problem.n), dtype=problem.b.dtype, device=problem.device)
+    for g, nt in zip(problem.groups, nts):
+        H = H + schur_group(g, nt.W, nt.G)
+    return sym(H)
+
+
+def _cg_solver(problem: SDPProblem, nts, opts: Options, tol_cg: float, precond_kind: int):
+    """The kit=1 Schur solve, rhs -> (dely, CG iterations), for one IPM
+    iteration (`loraine_tpu/ipm/step.py:716-853`).
+
+    Materialized route (n <= 512 under 'auto', or 'always'): Hcg assembled
+    like the direct path's H, the preconditioner as the matrix Mli with
+    M = Mli^T Mli, and then either a CG kernel on Hp = sym(Mli Hcg Mli^T)
+    followed by the f64 `cg_plain` polish of any shortfall, or the f64
+    `cg_plain` on Hp. Matrix-free route: `pcg` with the operator
+    Aop(W Aadj(x) W) and the SMW H_alpha / diagonal H_beta."""
+    n = problem.n
+    mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
+    if mat_cg:
+        Hcg = _schur(problem, nts)
+        matvec = lambda x: Hcg @ x  # noqa: E731
+    else:
+        def matvec(x):
+            r = torch.zeros_like(x)
+            for g, nt in zip(problem.groups, nts):
+                r = r + Aop(g, nt.W @ Aadj(g, x) @ nt.W)
+            return r
+
+    if precond_kind == 0:
+        precond, Mli = (lambda x: x), None
+    elif precond_kind == 1:
+        pa = prep_alpha(problem, nts, None, opts.erank, opts.aamat, opts.eigh_backend,
+                        materialize=mat_cg)
+        if mat_cg:
+            precond, Mli = pa.apply, pa.Mli
+        else:
+            precond, Mli = (lambda x: pa.apply_with(problem, x)), None
+    else:  # 2 or 4 (the hybrid starts as beta)
+        pb = prep_beta(problem, nts, None, opts.erank, opts.aamat, opts.eigh_backend)
+        precond = pb.apply
+        # beta is diagonal: its inverse-Cholesky factor is diag(1/sqrt(d))
+        Mli = torch.diag(1.0 / torch.sqrt(pb.diag)) if mat_cg else None
+
+    cg_kernel = resolve_cg_kernel(opts.cg_kernel, n, problem.device)
+    use_kernel = mat_cg and cg_kernel in ("ff", "pallas")
+    if use_kernel and Mli is None:
+        Mli = torch.eye(n, dtype=Hcg.dtype, device=Hcg.device)
+    if mat_cg and Mli is not None:
+        # the split-preconditioned system, once per IPM iteration for both
+        # solves (and the polish)
+        MliT = Mli.mT
+        Hp = sym(Mli @ Hcg @ MliT)
+
+    if use_kernel:
+        kernel_fn = pcg_kernel_ff if cg_kernel == "ff" else pcg_kernel_mixed
+
+        def solve(rhs):
+            # Stop where the split route below stops, ||Mli r|| <= tol
+            # ||Mli rhs||. The JAX package hands the kernel and the polish
+            # tol * ||rhs|| instead: once ||Mli|| < 1 (late theta_G100:
+            # ||Mli rhs|| ~ 0.01 ||rhs||) that stops the solve ~30x short
+            # and the IPM diverges (ROADMAP Queue C).
+            target = tol_cg * torch.linalg.norm(Mli @ rhs)
+            nrm = torch.linalg.norm(rhs)
+            x, it = kernel_fn(Hcg, Mli, rhs, target / torch.where(nrm > 0, nrm, 1.0),
+                              opts.cg_maxiter, Hp=Hp)
+            # guaranteed finish: polish any kernel shortfall (a stalled pass
+            # returns its best iterate) with the f64 split-preconditioned
+            # CG; a converged solve costs one host read here
+            rp = Mli @ (rhs - Hcg @ x)
+            nrm_rp = torch.linalg.norm(rp)
+            tol_fb = target / torch.where(nrm_rp > 0, nrm_rp, torch.ones_like(nrm_rp))
+            u, it2 = cg_plain(lambda v: Hp @ v, rp, tol_fb, opts.cg_maxiter)
+            return x + MliT @ u, it + it2
+    elif mat_cg and Mli is not None:
+        # split-preconditioned f64 CG: solve (Mli H Mli^T) u = Mli b,
+        # x = Mli^T u; the Krylov iterates of PCG with M = Mli^T Mli
+        def solve(rhs):
+            u, it = cg_plain(lambda v: Hp @ v, Mli @ rhs, tol_cg, opts.cg_maxiter)
+            return MliT @ u, it
+    else:
+        def solve(rhs):
+            return pcg(matvec, rhs, precond, tol_cg, opts.cg_maxiter)
+    return solve
+
+
+def step(
+    problem: SDPProblem,
+    st: IPMState,
+    opts: Options,
+    tol_cg: Optional[float] = None,
+    precond_kind: Optional[int] = None,
+) -> Tuple[IPMState, StepStats]:
+    """One IPM iteration from ``st``; returns (new state, stats).
+
+    kit=1 only: ``tol_cg`` is the CG tolerance of this iteration (default
+    ``opts.tol_cg``; the solver tightens it after every iteration) and
+    ``precond_kind`` the preconditioner (default ``opts.preconditioner``;
+    the solver's hybrid 4 -> 1 switch changes it between iterations)."""
     dtype, device = problem.b.dtype, problem.device
     denom = problem.sum_msizes
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -133,22 +236,31 @@ def step(problem: SDPProblem, st: IPMState, opts: Options) -> Tuple[IPMState, St
     for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
         h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
 
-    # ---- Schur assembly + regularized Cholesky (absolute 1e-4 shift,
-    # `src/predictor_corrector.jl:74`) + explicit inverse factor
-    H = torch.zeros((problem.n, problem.n), dtype=dtype, device=device)
-    for g, nt in zip(problem.groups, nts):
-        H = H + schur_group(g, nt.W, nt.G)
-    Hs = sym(H)
-    hc = chol_reg(Hs, 1e-4, 1000)
-    Hli = tri_inv(hc.L)
+    # ---- predictor solve
+    if opts.kit == 0:
+        # Schur assembly + regularized Cholesky (absolute 1e-4 shift,
+        # `src/predictor_corrector.jl:74`) + explicit inverse factor
+        H = _schur(problem, nts)
+        hc = chol_reg(H, 1e-4, 1000)
+        h_shifts, h_ok = hc.shifts, hc.ok
+        Hli = tri_inv(hc.L)
+        cg_pre = cg_cor = torch.zeros((), dtype=torch.int32, device=device)
 
-    def solve2(rhs):
-        # one step of iterative refinement (the reference carries it
-        # commented out at src/predictor_corrector.jl:98-115)
-        x = cho_solve_inv(Hli, rhs)
-        return x + cho_solve_inv(Hli, rhs - Hs @ x)
+        def solve(rhs):
+            # one step of iterative refinement (the reference carries it
+            # commented out at src/predictor_corrector.jl:98-115)
+            x = cho_solve_inv(Hli, rhs)
+            return x + cho_solve_inv(Hli, rhs - H @ x), cg_pre
+    else:
+        # the corrector re-solves with the same operator and preconditioner
+        solve = _cg_solver(
+            problem, nts, opts,
+            opts.tol_cg if tol_cg is None else tol_cg,
+            opts.preconditioner if precond_kind is None else precond_kind,
+        )
+        h_shifts, h_ok = 0, True
 
-    dely = solve2(h)
+    dely, cg_pre = solve(h)
 
     # ---- predictor directions + steplengths
     dirs = tuple(
@@ -198,7 +310,7 @@ def step(problem: SDPProblem, st: IPMState, opts: Options) -> Tuple[IPMState, St
         GT = nt.G.mT
         inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
         h2 = h2 + Aop(g, nt.G @ inner @ GT)
-    dely2 = solve2(h2)
+    dely2, cg_cor = solve(h2)
 
     # ---- corrector directions + final update
     dirs2 = tuple(
@@ -254,8 +366,10 @@ def step(problem: SDPProblem, st: IPMState, opts: Options) -> Tuple[IPMState, St
         dimacs=dimacs,
         alpha_min=amin,
         beta_min=bmin,
-        h_shifts=hc.shifts,
-        h_ok=hc.ok,
+        h_shifts=h_shifts,
+        h_ok=h_ok,
         nt_ok=nt_ok,
+        cg_iter_pre=cg_pre,
+        cg_iter_cor=cg_cor,
     )
     return new_state, stats

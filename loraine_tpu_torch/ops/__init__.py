@@ -1,3 +1,3 @@
-from . import eigh, jacobi, linalg, nt_scaling, schur
+from . import cg, eigh, jacobi, linalg, nt_scaling, pcg, precond, schur
 
-__all__ = ["eigh", "jacobi", "linalg", "nt_scaling", "schur"]
+__all__ = ["cg", "eigh", "jacobi", "linalg", "nt_scaling", "pcg", "precond", "schur"]

@@ -1,6 +1,6 @@
 """Small batched linear-algebra building blocks. Port of
 `loraine_tpu/ops/linalg.py` (`sym`, `btrace`, `chol_reg`, `tri_solve`,
-`tri_inv`, `cho_solve_inv`).
+`cho_solve`, `tri_inv`, `cho_solve_inv`).
 
 The Cholesky factorization and triangular solves are f64 library calls
 (cuSOLVER / cuBLAS on the card, LAPACK on the CPU): the JAX package also
@@ -20,6 +20,7 @@ __all__ = [
     "chol_reg",
     "CholResult",
     "tri_solve",
+    "cho_solve",
     "tri_inv",
     "cho_solve_inv",
 ]
@@ -79,6 +80,13 @@ def tri_solve(L: torch.Tensor, B: torch.Tensor, *, trans: bool = False) -> torch
     if trans:
         return torch.linalg.solve_triangular(L.mT, B, upper=True)
     return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) x = b given the lower Cholesky factor; batched."""
+    if b.ndim == L.ndim - 1:
+        return torch.cholesky_solve(b[..., None], L)[..., 0]
+    return torch.cholesky_solve(b, L)
 
 
 def tri_inv(L: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,183 @@
+"""Low-rank preconditioners H_alpha / H_beta for the CG path. Port of
+`loraine_tpu/ops/precond.py` (dense and rank-1 data, no LP cone).
+
+Math (reference `docs/src/low-rank_solutions.md`, `src/Solvers.jl:616-904`):
+with the NT scaling point split W = W_0 + U U^T (U spanning the top-``erank``
+eigenspace), the Schur operator is approximated by
+
+    H_alpha = (sum_i ttau_i^2) I + V V^T,  V = A^T (U (x) Z),  Z Z^T = 2 W_0 + U U^T
+    H_beta  = (sum_i ttau_i^2) I
+
+where ttau_i is a scalar surrogate for the tail spectrum of W_i (``aamat``).
+H_alpha^{-1} is applied with Sherman-Morrison-Woodbury through the small
+matrix V^T V / s + I (`AlphaPrecond.apply_with`), or, materialized, as the
+inverse Cholesky factor of the n x n matrix s I + V V^T (`AlphaPrecondDense`).
+
+The eigendecompositions are library f64 calls (`torch.linalg.eigh`): in the
+JAX package `_eigh` sends the resolved 'pallas' backend to `jnp.linalg.eigh`,
+not to the Jacobi kernel. The LP terms (ROADMAP Queue A item 8) raise
+NotImplementedError; sparse storage (item 10) never reaches here, since the
+port's problem build refuses it.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..problem import SDPProblem
+from .eigh import eigh_backend_for
+from .linalg import chol_reg, cho_solve, sym, tri_inv
+from .nt_scaling import NTScaling
+from .schur import Aadj, Aop
+
+__all__ = [
+    "BetaPrecond", "AlphaPrecond", "AlphaPrecondDense", "prep_beta",
+    "prep_alpha",
+]
+
+
+def _eigh(M: torch.Tensor, backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    resolved = eigh_backend_for(backend, M.shape[-1])
+    if resolved != "pallas":
+        raise NotImplementedError(
+            f"preconditioner eigh_backend={backend!r} is not ported to "
+            "loraine_tpu_torch yet; see ROADMAP.md Queue A item 13"
+        )
+    return torch.linalg.eigh(M)
+
+
+def _no_lp(problem: SDPProblem, lpw) -> None:
+    if problem.nlin > 0 or lpw is not None:
+        raise NotImplementedError(
+            "the LP-cone terms of the preconditioners are not ported to "
+            "loraine_tpu_torch yet; see ROADMAP.md Queue A item 8"
+        )
+
+
+def _ttau(lam_s: torch.Tensor, aamat: int) -> torch.Tensor:
+    """Tail-spectrum surrogate per block: min, or (min + mean) / 2, of the
+    tail eigenvalues (`src/Solvers.jl:646-650,715-719`). lam_s [nb, m-k]
+    ascending."""
+    lam_min = lam_s[:, 0]
+    if aamat == 0:
+        return lam_min
+    return (lam_min + lam_s.mean(1)) / 2.0 - 1.0e-14
+
+
+class BetaPrecond(NamedTuple):
+    diag: torch.Tensor  # [n]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return x / self.diag
+
+
+def prep_beta(
+    problem: SDPProblem,
+    nts: Tuple[NTScaling, ...],
+    lpw: Optional[torch.Tensor],
+    erank: int,
+    aamat: int,
+    eigh_backend: str = "auto",
+) -> BetaPrecond:
+    _no_lp(problem, lpw)
+    s = torch.zeros((), dtype=problem.b.dtype, device=problem.device)
+    for g, nt in zip(problem.groups, nts):
+        k = min(erank, g.m - 1)
+        lam, _ = _eigh(nt.W, eigh_backend)  # [nb, m] ascending
+        s = s + (_ttau(lam[:, : g.m - k], aamat) ** 2).sum()
+    return BetaPrecond(diag=torch.ones_like(problem.b) * s)
+
+
+class AlphaPrecond(NamedTuple):
+    U: Tuple[torch.Tensor, ...]  # per group [nb, m, k]
+    Z: Tuple[torch.Tensor, ...]  # per group [nb, m, m] lower Cholesky of 2W0+UU^T
+    cholS: torch.Tensor  # [sizeS, sizeS] lower factor of the SMW matrix + I
+    diag_scalar: torch.Tensor  # sum_i ttau_i^2
+    groups_meta: Tuple[Tuple[int, int, int], ...]  # (nb, k, m) per group
+
+    def apply_with(self, problem: SDPProblem, x: torch.Tensor) -> torch.Tensor:
+        """SMW apply: x / s minus the low-rank correction
+        (`src/Solvers.jl:866-904`)."""
+        v = x / self.diag_scalar
+        segs: List[torch.Tensor] = []
+        for g, U, Z in zip(problem.groups, self.U, self.Z):
+            M22 = Aadj(g, v)  # [nb, m, m], symmetric
+            segs.append(torch.einsum("bpq,bpr,brl->blq", Z, M22, U).reshape(-1))
+        y = cho_solve(self.cholS, torch.cat(segs))
+        yy2 = torch.zeros_like(x)
+        off = 0
+        for g, U, Z, (nb, k, m) in zip(problem.groups, self.U, self.Z, self.groups_meta):
+            seg = y[off : off + nb * k * m].reshape(nb, k, m)
+            off += nb * k * m
+            Mrec = torch.einsum("bpq,blq,brl->bpr", Z, seg, U)  # Z Y U^T
+            yy2 = yy2 + Aop(g, sym(Mrec))
+        return v - yy2 / self.diag_scalar
+
+
+class AlphaPrecondDense(NamedTuple):
+    """H_alpha materialized: M = s I + t t^T, applied as two GEMVs against
+    the inverse Cholesky factor. Same operator as `AlphaPrecond` up to
+    rounding."""
+
+    Mli: torch.Tensor  # inv(L) for M = L L^T
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Mli.mT @ (self.Mli @ x)
+
+
+def prep_alpha(
+    problem: SDPProblem,
+    nts: Tuple[NTScaling, ...],
+    lpw: Optional[torch.Tensor],
+    erank: int,
+    aamat: int,
+    eigh_backend: str = "auto",
+    materialize: bool = False,
+):
+    """H_alpha for the current NT scaling: `AlphaPrecondDense` when
+    ``materialize`` (the materialized CG route), else `AlphaPrecond`."""
+    _no_lp(problem, lpw)
+    n = problem.n
+    s = torch.zeros((), dtype=problem.b.dtype, device=problem.device)
+    Us: List[torch.Tensor] = []
+    Zs: List[torch.Tensor] = []
+    meta: List[Tuple[int, int, int]] = []
+    for g, nt in zip(problem.groups, nts):
+        m = g.m
+        k = min(erank, m - 1)
+        lam, V = _eigh(nt.W, eigh_backend)  # ascending
+        lam_s, lam_l = lam[:, : m - k], lam[:, m - k :]
+        tt = _ttau(lam_s, aamat)  # [nb]
+        U = V[:, :, m - k :] * torch.sqrt((lam_l - tt[:, None]).clamp_min(0.0))[:, None, :]
+        # 2 W_0 + U U^T = V diag([2 lam_s, lam_l + ttau]) V^T
+        dz = torch.cat([2.0 * lam_s, lam_l + tt[:, None]], dim=1)
+        Z = chol_reg(sym((V * dz[:, None, :]) @ V.mT), 1e-10, 50).L
+        Us.append(U)
+        Zs.append(Z)
+        meta.append((g.nb, k, m))
+        s = s + (tt**2).sum()
+
+    # V = A^T (U (x) Z) as t[j, (b, l, q)] = (Z_b^T A_j^{(b)} U_b)[q, l]
+    tcols: List[torch.Tensor] = []
+    for g, U, Z in zip(problem.groups, Us, Zs):
+        if g.is_rank1:
+            ZB = torch.einsum("bpq,bjp->bjq", Z, g.B)  # Z^T b_j
+            UB = torch.einsum("bpl,bjp->bjl", U, g.B)  # U^T b_j
+            t_g = torch.einsum("bj,bjl,bjq->jblq", g.Bsgn, UB, ZB)
+        else:
+            AU = torch.einsum("bjpr,brl->bjpl", g.A, U)
+            t_g = torch.einsum("bpq,bjpl->jblq", Z, AU)
+        tcols.append(t_g.reshape(n, -1))
+    t = torch.cat(tcols, dim=1)  # [n, sizeS]
+    if materialize:
+        M = s * torch.eye(n, dtype=t.dtype, device=t.device) + t @ t.mT
+        return AlphaPrecondDense(Mli=tri_inv(chol_reg(sym(M), 1e-10, 50).L))
+    Ssmw = sym(t.mT @ (t / s)) + torch.eye(t.shape[1], dtype=t.dtype, device=t.device)
+    return AlphaPrecond(
+        U=tuple(Us),
+        Z=tuple(Zs),
+        cholS=chol_reg(Ssmw, 1e-10, 50).L,
+        diag_scalar=s,
+        groups_meta=tuple(meta),
+    )

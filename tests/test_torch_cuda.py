@@ -1,14 +1,15 @@
-"""The CUDA kernels of loraine_tpu_torch/ops/jacobi.py on a card.
+"""The CUDA kernels of loraine_tpu_torch (ops/jacobi.py, ops/pcg.py) on a card.
 
 Needs an NVIDIA GPU (marker `cuda`; skips without one). This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
-from loraine_tpu_torch.ops import jacobi as tj
+from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
 from torch_cases import spectrum_matrix
 
 
@@ -48,3 +49,49 @@ def test_kernels_match_plain_on_card(nb, m):
     slack_k = (torch.maximum(ev[:, 0] - lo_k, hi_k - ev[:, -1]) / scale).max()
     slack_p = (torch.maximum(ev[:, 0] - lo_p, hi_p - ev[:, -1]) / scale).max()
     assert slack_k < max(1e-3, 2 * float(slack_p))
+
+
+def _cg_case(n):
+    """kappa 1e3, identity preconditioner (tests/test_pcg_pallas.py:26-41)."""
+    rng = np.random.default_rng(n)
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    H = (Q * np.logspace(0, -3, n)) @ Q.T
+    H = torch.from_numpy((H + H.T) / 2).cuda()
+    return H, torch.from_numpy(rng.standard_normal(n)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [21, 464])
+def test_b3_matches_plain_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    H, b = _cg_case(n)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    before = tp.cg_minres_f64_cuda.launches
+    xk, ik = tp.pcg_kernel_ff(H, eye, b, 1e-10, 10000)  # routed: the kernel
+    assert tp.cg_minres_f64_cuda.launches == before + 2  # two refinement passes
+    xp, ip = tp.pcg_kernel_ff(H, eye, b, 1e-10, 10000, body=tp.cg_minres_plain)
+    torch.cuda.synchronize()
+    # same f64 algorithm, other summation order (chip_smoke.py phase 6)
+    for x in (xk, xp):
+        assert torch.linalg.norm(b - H @ x) <= 1e-10 * torch.linalg.norm(b)
+    assert (xk - xp).abs().max() <= 1e3 * 1e-10 * 10 * xp.abs().max()
+    assert abs(int(ik) - int(ip)) <= 0.1 * int(ip) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [21, 464])
+def test_b4_matches_plain_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    H, b = _cg_case(n)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    before = tp.cg_f32_cuda.launches
+    xk, ik = tp.pcg_kernel_mixed(H, eye, b, 1e-10, 10000)  # routed: the kernel
+    assert tp.cg_f32_cuda.launches == before + 3  # three refinement passes
+    xp, ip = tp.pcg_kernel_mixed(H, eye, b, 1e-10, 10000, body=tp.cg_f32_plain)
+    torch.cuda.synchronize()
+    for x in (xk, xp):
+        assert torch.linalg.norm(b - H @ x) <= 1e-10 * torch.linalg.norm(b)
+    assert (xk - xp).abs().max() <= 1e3 * 1e-10 * 10 * xp.abs().max()
+    assert abs(int(ik) - int(ip)) <= 0.1 * int(ip) + 2

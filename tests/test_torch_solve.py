@@ -70,6 +70,21 @@ def test_theta1_matches_jax(theta1_runs):
     assert rt.X[0].shape == (50, 50) and np.isfinite(rt.X[0]).all()
 
 
+def test_control1_multiblock_matches_jax():
+    """control1: two blocks (10 and 5) packed into one group of 2 x 16.
+    Measured 28 = 28 iterations, objective 2.1e-7 apart (the f32 seeds reach
+    the trajectory through the steplength bounds, as above)."""
+    opts = dict(PORT_OPTS, eDIMACS=1e-5)
+    rj = lt.solve_sdpa(str(DATA / "control1.dat-s"), dict(opts, eigh_backend="pallas",
+                                                           step_eig="pallas"))
+    rt = ltt.solve_sdpa(str(DATA / "control1.dat-s"), opts, device="cpu")
+    assert rt.status == rj.status == 1
+    assert rt.iterations == rj.iterations
+    assert abs(rt.objective - rj.objective) <= 1e-6 * abs(rj.objective)
+    assert [X.shape for X in rt.X] == [(10, 10), (5, 5)]
+    assert rt.cg_iterations == 0
+
+
 def test_maxcut_rank1_matches_jax(maxcut_runs):
     rj, rt = maxcut_runs
     assert rj.iterations == 11
@@ -137,7 +152,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("opts,item", [
-    ({"kit": 1}, "item 11"),
+    ({"kit": 1, "precision": "dd"}, "item 12"),
     ({"precision": "dd"}, "item 12"),
     ({"nt_method": "svd"}, "item 13"),
     ({"eigh_backend": "jacobi"}, "item 13"),
