@@ -9,8 +9,10 @@ Phases:
      (csrc/jacobi.cu and csrc/pcg.cu, one nvcc each for sm_90a, started
      together) from the checkout.
   2. each Jacobi kernel against its plain PyTorch version on the card, at
-     the solver's shapes (nb, m) in {(1, 56), (2, 56), (1, 800), (2, 800)},
-     on clustered (IPM-like) and random spectra, with both times.
+     the solver's shapes (nb, m) in {(1, 16), (2, 16), (1, 56), (2, 56),
+     (1, 144), (1, 152), (1, 800), (2, 800), (1, 808)} (tru3, vib3 and
+     control1, theta1, vib9's and tru9's groups, maxG11, thetaG11), on
+     clustered (IPM-like) and random spectra, with both times.
   3. SDPLIB theta1 (n=104, one 50x50 block) through ``solve_sdpa`` on the
      card: OPTIMAL at 23.0, and the same trajectory as the CPU run of the
      port (plain Jacobi versions) on the same input.
@@ -19,7 +21,7 @@ Phases:
   5. kernel launch counts of phases 3-4.
   6. each CG kernel (B3 f64 min-residual, B4 f32) inside its refinement
      wrapper against its plain version on the card, at n in
-     {21, 104, 464, 1000}: (a) identity preconditioner, kappa 1e3, tol 1e-10;
+     {21, 36, 104, 464, 1000} (control1, tru3/vib3, theta1, theta_G100): (a) identity preconditioner, kappa 1e3, tol 1e-10;
      (b) Mli = inv(chol(H + 1e-6 I)), kappa(H) 1e8, tol 1e-12 (B3) and 1e-9
      (B4); body times at n = 464 and 1000.
   7. SDPLIB control1 with the CG path (kit=1, `bench.py` options) on the
@@ -30,13 +32,28 @@ Phases:
      463 edges from a seed, n=464, one 100x100 block), kit=1 and kit=0 on
      the card: both OPTIMAL, objectives within 1e-5 relative.
  10. control1 with the f32 CG kernel (cg_kernel='pallas', loose options).
- 11. launch counts of the four kernels over the solve phases.
+ 11. SDPLIB tru9 at full size (n=3240, one 145x145 block padded to 152,
+     6480 LP variables; sparse COO storage by the auto rule; `bench.py`
+     options): OPTIMAL at 0.05975333 in 22 +- 2 iterations.
+ 12. SDPLIB vib9 at full size (blocks 145 and 144 in two groups, padded 152
+     and 144; Jacobi mp 160 and 144; 6480 LP variables; sparse): OPTIMAL at
+     0.01276683 in 34 +- 2 iterations, with B1 and B2 launched at both mp.
+ 13. SDPLIB tru3 and vib3 (LP cone, n=36) with kit=0 and kit=1 (control1-cg
+     options, materialized route: B3) on the card beside the port's CPU
+     run: all OPTIMAL, iteration counts within one.
+ 14. the sparse adjoint and the sparse Schur assembly, each called twice on
+     tru9's data on the card: bitwise-equal results.
+ 15. SDPLIB thetaG11 at full size (n=2401, one 801x801 block, rank-1 via
+     `datarank=-1`; padded 808, Jacobi mp 816): OPTIMAL at 400.00023146 in
+     17 +- 2 iterations.
+ 16. launch counts of the four kernels over the solve phases.
 
-Every solve (phases 3, 4, 7-10) runs with the launch counts set to 0 just
-before it and read just after, and fails if a kernel of its path was not
-launched. The line before the last two is a JSON object with one entry per
-kernel; then the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+The reference values of phases 11, 12 and 15 are the JAX package's CPU
+runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
+15) runs with the launch counts set to 0 just before it and read just
+after, and fails if a kernel of its path was not launched. The line before
+the last two is a JSON object with one entry per kernel; then the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -52,12 +69,20 @@ import torch
 THETA1 = "tests/data/theta1.dat-s"
 MAXG11 = "tests/data/maxG11.dat-s"
 CONTROL1 = "tests/data/control1.dat-s"
+TRU9 = "tests/data/tru9.dat-s"
+VIB9 = "tests/data/vib9.dat-s"
+THETAG11 = "tests/data/thetaG11.dat-s"
 THETA1_OPT = 23.0  # SDPLIB optimum
 MAXG11_OPT = 629.1648  # SDPLIB optimum
 CONTROL1_OPT = 17.78463  # SDPLIB optimum
+# the JAX package on the CPU: objective, iterations (results_cpu_r2.jsonl)
+TRU9_REF = (0.05975333, 22)
+VIB9_REF = (0.01276683, 34)
+THETAG11_REF = (400.00023146, 17)
 OBJ_RTOL = 1e-5
-SHAPES = [(1, 56), (2, 56), (1, 800), (2, 800)]
-PCG_SIZES = (21, 104, 464, 1000)
+SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 144), (1, 152), (1, 800), (2, 800),
+          (1, 808)]
+PCG_SIZES = (21, 36, 104, 464, 1000)
 # bench.py:77-79 (control1-cg) and :93-95 (theta1-cg)
 CONTROL1_CG = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
                "initpoint": 1, "verb": 0}
@@ -66,6 +91,11 @@ THETA1_CG = {"kit": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-5, "preconditioner": 1,
 # tests/test_pcg_pallas.py:76-82
 CONTROL1_F32 = {"kit": 1, "preconditioner": 1, "eDIMACS": 3e-3, "tol_cg_min": 1e-4,
                 "initpoint": 1, "verb": 0, "cg_kernel": "pallas", "maxit": 40}
+# bench.py:80-83 (tru9, vib9) and :86-87 (thetaG11)
+LARGE_KIT0 = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "verb": 0}
+THETAG11_OPTS = dict(LARGE_KIT0, datarank=-1)
+# tests/test_torch_lp.py: kit=0 at eDIMACS 1e-7 (tests/test_ipm_e2e.py:54-60)
+LP_KIT0 = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
 KERNELS = ("B1", "B2", "B3", "B4")
 
 
@@ -268,22 +298,28 @@ def theta_g100(ltt):
 
 
 class Launches:
-    """The four kernels' launch counters: reset before each solve, read after,
-    summed over the solves."""
+    """The four kernels' launch counters (the Jacobi kernels count per padded
+    size mp): reset before each solve, read after, summed over the solves."""
 
     def __init__(self, tj, tp):
-        self.fns = dict(zip(KERNELS, (tj.jacobi_eigh_cuda, tj.jacobi_bounds_cuda,
-                                      tp.cg_minres_f64_cuda, tp.cg_f32_cuda)))
+        self.jacobi = {"B1": tj.jacobi_eigh_cuda, "B2": tj.jacobi_bounds_cuda}
+        self.cg = {"B3": tp.cg_minres_f64_cuda, "B4": tp.cg_f32_cuda}
         self.total = dict.fromkeys(KERNELS, 0)
 
     def run(self, label: str, needs, solve):
-        for fn in self.fns.values():
+        for fn in self.jacobi.values():
+            fn.launches_by_mp.clear()
+        for fn in self.cg.values():
             fn.launches = 0
         r = solve()
-        got = {k: fn.launches for k, fn in self.fns.items()}
+        # the Jacobi kernels' launches per padded size mp, of this solve
+        self.by_mp = {k: dict(sorted(fn.launches_by_mp.items())) for k, fn in self.jacobi.items()}
+        got = {k: sum(v.values()) for k, v in self.by_mp.items()}
+        got.update({k: fn.launches for k, fn in self.cg.items()})
         for k in KERNELS:
             self.total[k] += got[k]
-        print(f"launches in {label}: " + " ".join(f"{k}={v}" for k, v in got.items()), flush=True)
+        print(f"launches in {label}: " + " ".join(f"{k}={v}" for k, v in got.items())
+              + f" | by mp: B1 {self.by_mp['B1']} B2 {self.by_mp['B2']}", flush=True)
         check(all(got[k] > 0 for k in needs), f"{label}: a kernel of its path was not launched")
         return r
 
@@ -292,6 +328,57 @@ def solve_line(phase: str, r) -> str:
     return (f"phase {phase}: {r.status_name} obj={r.objective!r} it={r.iterations} "
             f"cg_it={r.cg_iterations} solve={r.solve_time:.3f} s "
             f"median_iter_ms={1e3 * float(np.median(r.iteration_times)):.2f} dimacs={r.dimacs:.3e}")
+
+
+def large_case(launches, phase: str, path: str, opts, ref, ltt, problem=None):
+    """One full-size solve on the card against the JAX package's CPU
+    reference (objective within OBJ_RTOL, iterations within 2); prints the
+    wall time, the median time per iteration and the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if problem is None:
+        r = launches.run(f"phase {phase}", ("B1", "B2"),
+                         lambda: ltt.solve_sdpa(path, opts, device="cuda"))
+    else:
+        r = launches.run(f"phase {phase}", ("B1", "B2"),
+                         lambda: ltt.solve(problem, opts, device="cuda"))
+    wall = time.perf_counter() - t0
+    print(solve_line(f"{phase} {path.split('/')[-1]} cuda", r)
+          + f" wall(load+solve)={wall:.3f} s "
+          f"peak_mem_MiB={torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"| JAX CPU: obj={ref[0]} it={ref[1]}", flush=True)
+    name = path.split("/")[-1]
+    check(r.status == 1, f"{name} not OPTIMAL")
+    check(abs(r.objective - ref[0]) <= OBJ_RTOL * abs(ref[0]), f"{name} objective")
+    check(abs(r.iterations - ref[1]) <= 2, f"{name} iterations")
+    check(math.isfinite(r.dimacs) and r.dimacs < opts["eDIMACS"], f"{name} DIMACS")
+    check(all(bool(np.isfinite(X).all()) for X in r.X), f"{name} primal blocks")
+    return r
+
+
+def sparse_determinism(ltt) -> None:
+    """Phase 14: the sparse adjoint (per-cell layout, no float atomics) and
+    the sparse Schur assembly, each twice on tru9's data on the card."""
+    from loraine_tpu_torch.ops import schur as ts
+
+    p = ltt.load_problem(TRU9, LARGE_KIT0, device="cuda")
+    (g,) = p.groups
+    rng = np.random.default_rng(14)
+    R = torch.from_numpy(rng.standard_normal((g.nb, g.m, g.m))).to(p.device)
+    W = R @ R.mT / g.m + torch.eye(g.m, dtype=R.dtype, device=p.device)
+    G = torch.linalg.cholesky(W)
+    y = torch.from_numpy(rng.standard_normal(p.n)).to(p.device)
+    adj = [ts.Aadj(g, y) for _ in range(2)]
+    H = [ts.schur_group(g, W, G) for _ in range(2)]
+    torch.cuda.synchronize()
+    ms_adj = cuda_ms(lambda: ts.Aadj(g, y), 10)
+    ms_h = cuda_ms(lambda: ts.schur_group(g, W, G), 3)
+    print(f"phase 14 tru9 sparse Aadj {tuple(adj[0].shape)} bitwise_equal="
+          f"{torch.equal(adj[0], adj[1])} ms={ms_adj:.3f} | _schur_sparse {tuple(H[0].shape)} "
+          f"bitwise_equal={torch.equal(H[0], H[1])} ms={ms_h:.2f}", flush=True)
+    check(torch.equal(adj[0], adj[1]), "sparse Aadj not bitwise reproducible")
+    check(torch.equal(H[0], H[1]), "sparse Schur assembly not bitwise reproducible")
+    check(bool(torch.isfinite(H[0]).all()), "sparse Schur assembly not finite")
 
 
 def main() -> int:
@@ -406,8 +493,43 @@ def main() -> int:
     check(r.status == 1, "control1 with the f32 CG kernel not OPTIMAL")
     check(abs(r.objective - 17.7846) <= 1e-3 * 17.7846, "control1 f32 CG objective")
 
-    # ---- phase 11: the solves went through all four kernels
-    print("phase 11 launches in the solve phases: "
+    # ---- phase 11: tru9 at full size (sparse storage, LP cone)
+    large_case(launches, "11", TRU9, LARGE_KIT0, TRU9_REF, ltt)
+
+    # ---- phase 12: vib9 at full size, two block groups
+    p = ltt.load_problem(VIB9, LARGE_KIT0, device="cuda")
+    groups = [(g.m, g.nb, g.is_sparse) for g in p.groups]
+    print(f"phase 12 vib9 groups (m, nb, sparse): {groups} nlin={p.nlin}", flush=True)
+    check(groups == [(144, 1, True), (152, 1, True)] and p.nlin == 6480, "vib9 block groups")
+    large_case(launches, "12", VIB9, LARGE_KIT0, VIB9_REF, ltt, problem=p)
+    for kname in ("B1", "B2"):
+        check(all(launches.by_mp[kname].get(mp, 0) > 0 for mp in (144, 160)),
+              f"vib9: {kname} not launched at both mp 144 and 160")
+
+    # ---- phase 13: tru3 and vib3 (LP cone), kit=0 and kit=1, card vs CPU
+    for name in ("tru3", "vib3"):
+        path = f"tests/data/{name}.dat-s"
+        for kit, o, needs in ((0, LP_KIT0, ("B1", "B2")), (1, CONTROL1_CG, ("B1", "B2", "B3"))):
+            ref = ltt.solve_sdpa(path, o, device="cpu")
+            r = launches.run(f"phase 13 ({name} kit={kit})", needs,
+                             lambda: ltt.solve_sdpa(path, o, device="cuda"))
+            print(solve_line(f"13 {name} kit={kit} cuda", r) + f" | cpu: {ref.status_name} "
+                  f"obj={ref.objective!r} it={ref.iterations} cg_it={ref.cg_iterations}", flush=True)
+            check(r.status == ref.status == 1, f"{name} kit={kit} not OPTIMAL")
+            check(abs(r.iterations - ref.iterations) <= 1, f"{name} kit={kit} iterations vs CPU")
+            check(abs(r.objective - ref.objective) <= o["eDIMACS"] * abs(ref.objective),
+                  f"{name} kit={kit} objective vs CPU")
+            check(r.X_lin.shape == (72,) and bool((r.X_lin > 0).all()), f"{name} LP variables")
+
+    # ---- phase 14: the sparse contractions are bitwise reproducible
+    sparse_determinism(ltt)
+
+    # ---- phase 15: thetaG11 at full size (rank-1, mp=816)
+    large_case(launches, "15", THETAG11, THETAG11_OPTS, THETAG11_REF, ltt)
+    check(launches.by_mp["B1"].get(816, 0) > 0, "thetaG11: B1 not launched at mp 816")
+
+    # ---- phase 16: the solves went through all four kernels
+    print("phase 16 launches in the solve phases: "
           + " ".join(f"{k_}={v}" for k_, v in launches.total.items()), flush=True)
     check(all(v > 0 for v in launches.total.values()), "a kernel was not launched")
 

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .ipm.state import IPMState
-from .problem import BlockGroup, SDPProblem
+from .problem import BlockGroup, SDPProblem, adjoint_layout
 from .utils.device import resolve_device
 
 __all__ = ["problem_from_numpy", "state_from_numpy"]
@@ -31,20 +31,20 @@ def problem_from_numpy(
     device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.float64,
 ) -> SDPProblem:
-    """The port's SDPProblem from a host copy of a `loraine_tpu`
-    SDPProblem (dense or rank-1 groups; fields as numpy arrays)."""
+    """The port's SDPProblem from a host copy of a `loraine_tpu` SDPProblem
+    (dense, rank-1 or sparse groups, and the LP cone; fields as numpy
+    arrays). Sparse groups get their `AdjLayout` built here."""
     device = resolve_device(device)
-    if getattr(src, "nlin", 0):
-        raise NotImplementedError(
-            "the LP cone (nlin > 0) is not ported to loraine_tpu_torch yet; "
-            "see ROADMAP.md Queue A item 8"
-        )
     groups = []
     for g in src.groups:
+        sparse = {}
         if getattr(g, "Avals", None) is not None:
-            raise NotImplementedError(
-                "sparse COO storage is not ported to loraine_tpu_torch yet; "
-                "see ROADMAP.md Queue A item 10"
+            rows, cols, vals = (np.array(x) for x in (g.Arows, g.Acols, g.Avals))
+            sparse = dict(
+                Arows=_tensor(rows, device, torch.int64),
+                Acols=_tensor(cols, device, torch.int64),
+                Avals=_tensor(vals, device, dtype),
+                adj=adjoint_layout(rows, cols, vals, int(g.m), dtype, device),
             )
         groups.append(BlockGroup(
             C=_tensor(g.C, device, dtype),
@@ -57,14 +57,15 @@ def problem_from_numpy(
             orig_indices=tuple(g.orig_indices),
             data_norms=tuple(g.data_norms),
             C_norms=tuple(g.C_norms),
+            **sparse,
         ))
     return SDPProblem(
         groups=tuple(groups),
         b=_tensor(src.b, device, dtype),
-        C_lin=None,
-        d_lin=None,
+        C_lin=_tensor(src.C_lin, device, dtype),
+        d_lin=_tensor(src.d_lin, device, dtype),
         n=int(src.n),
-        nlin=0,
+        nlin=int(src.nlin),
         nlmi=int(src.nlmi),
         b_const=float(src.b_const),
         sum_msizes=int(src.sum_msizes),
@@ -77,18 +78,13 @@ def state_from_numpy(
     dtype: torch.dtype = torch.float64,
 ) -> IPMState:
     """The port's IPMState from a host copy of a `loraine_tpu` IPMState
-    (the f64 fields X, S, y, sigma)."""
+    (the f64 fields X, S, y, X_lin, S_lin, sigma)."""
     device = resolve_device(device)
-    if getattr(src, "X_lin", None) is not None:
-        raise NotImplementedError(
-            "LP-cone iterates are not ported to loraine_tpu_torch yet; "
-            "see ROADMAP.md Queue A item 8"
-        )
     return IPMState(
         X=tuple(_tensor(X, device, dtype) for X in src.X),
         S=tuple(_tensor(S, device, dtype) for S in src.S),
         y=_tensor(src.y, device, dtype),
-        X_lin=None,
-        S_lin=None,
+        X_lin=_tensor(src.X_lin, device, dtype),
+        S_lin=_tensor(src.S_lin, device, dtype),
         sigma=_tensor(src.sigma, device, dtype),
     )

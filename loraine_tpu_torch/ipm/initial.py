@@ -1,7 +1,7 @@
 """Initial point heuristics. Port of `loraine_tpu/ipm/initial.py`.
 
 Two strategies matching the reference (`src/initial_point.jl:17-81`):
-  initpoint = 0: X = I, S = n * I (n = number of variables).
+  initpoint = 0: X = I, S = n * I (n = number of variables), LP vars = 1.
   initpoint = 1: SDPT3-like norm-scaled identity start.
 Built on the host in numpy and moved to the problem's device once.
 """
@@ -49,11 +49,26 @@ def initial_point(problem: SDPProblem, opts: Options) -> IPMState:
         Xs.append(dev(eps[:, None, None] * eye))
         Ss.append(dev(eta[:, None, None] * eye))
 
+    X_lin = S_lin = None
+    if problem.nlin > 0:
+        if opts.initpoint == 0:
+            epss = etaa = 1.0
+        else:
+            C_lin = problem.C_lin.cpu().numpy()  # [n, nlin]
+            row_norms = np.linalg.norm(C_lin, axis=1)  # per variable j
+            p = b2 / (1.0 + row_norms)
+            epss = max(1.0, float(p.max())) if p.size else 1.0
+            mf = max(float(row_norms.max()) if row_norms.size else 0.0,
+                     float(np.linalg.norm(problem.d_lin.cpu().numpy())))
+            etaa = max(1.0, mf / np.sqrt(problem.nlin))
+        X_lin = dev(np.full(problem.nlin, epss))
+        S_lin = dev(np.full(problem.nlin, etaa))
+
     return IPMState(
         X=tuple(Xs),
         S=tuple(Ss),
         y=dev(np.zeros(n)),
-        X_lin=None,
-        S_lin=None,
+        X_lin=X_lin,
+        S_lin=S_lin,
         sigma=dev(np.asarray(INITIAL_SIGMA)),
     )

@@ -61,7 +61,7 @@ class Result:
     status: int
     status_name: str
     objective: float  # -b^T y + b_const (SDPA-sense optimal value)
-    dual_objective: float  # -sum <C_i, X_i>
+    dual_objective: float  # -sum <C_i, X_i> - d_lin^T x_lin
     y: np.ndarray
     X: List[np.ndarray]  # primal blocks, original order/sizes (unpadded)
     S: List[np.ndarray]  # dual slack blocks, original order/sizes
@@ -275,15 +275,19 @@ class Solver:
                 Xb[oidx] = Xh[bpos, :osize, :osize]
                 Sb[oidx] = Sh[bpos, :osize, :osize]
         y = state.y.cpu().numpy()
+        X_lin = None if state.X_lin is None else state.X_lin.cpu().numpy()
+        dual_obj = -trCX
+        if p.nlin > 0:
+            dual_obj -= float(np.dot(p.d_lin.cpu().numpy(), X_lin))
         return Result(
             status=status,
             status_name=STATUS_NAMES.get(status, "UNKNOWN"),
             objective=float(-np.dot(p.b.cpu().numpy(), y) + p.b_const),
-            dual_objective=-trCX,
+            dual_objective=dual_obj,
             y=y,
             X=Xb,
             S=Sb,
-            X_lin=None,
+            X_lin=X_lin,
             iterations=it,
             cg_iterations=cg_tot,
             dimacs=stats_h.get("dimacs", float("nan")),

@@ -19,7 +19,7 @@ class IPMState:
     X: Tuple[torch.Tensor, ...]  # per block group [nb, m, m]
     S: Tuple[torch.Tensor, ...]
     y: torch.Tensor  # [n]
-    X_lin: Optional[torch.Tensor]  # [nlin] or None (always None: no LP cone yet)
+    X_lin: Optional[torch.Tensor]  # [nlin] or None
     S_lin: Optional[torch.Tensor]
     sigma: torch.Tensor  # scalar
 

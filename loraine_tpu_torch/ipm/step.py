@@ -1,16 +1,17 @@
 """One predictor-corrector IPM iteration. Port of the f64 kit=0 and kit=1
-branches of `loraine_tpu/ipm/step.py:build_step` (no LP cone, no dd/dd2
-tiers, no mixed assembly, no sharding: ROADMAP.md Queue A items 8, 12, 13,
-14).
+branches of `loraine_tpu/ipm/step.py:build_step`, LP cone included (no
+dd/dd2 tiers, no mixed assembly, no sharding: ROADMAP.md Queue A items 12,
+13, 14).
 
 Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
 `check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
 + regularized Cholesky + one refinement step, predictor directions and
 steplengths, Mehrotra sigma, corrector, iterate update and the six DIMACS
-errors. Steplengths come from the certified spectral bounds of the B2
-kernel (`ops/jacobi.py`); the predictor uses the identity
-scaleX = -I - scaleS, so one bound computation on scaleS gives both
-steplengths (`ipm/step.py:189-200, 426-433`).
+errors, with the LP cone's terms beside the LMI blocks' (`find_step_lin`,
+`src/predictor_corrector.jl:329-347`). Steplengths come from the certified
+spectral bounds of the B2 kernel (`ops/jacobi.py`); the predictor uses the
+identity scaleX = -I - scaleS, so one bound computation on scaleS gives
+both steplengths (`ipm/step.py:189-200, 426-433`).
 
 Convergence-error convention (reference): err1/err3 use the residuals at
 the start of the iteration, err2/4/5/6 the updated iterate.
@@ -29,7 +30,7 @@ from ..ops.linalg import btrace, chol_reg, cho_solve_inv, sym, tri_inv
 from ..ops.nt_scaling import NTScaling, nt_scale
 from ..ops.pcg import pcg_kernel_ff, pcg_kernel_mixed
 from ..ops.precond import prep_alpha, prep_beta
-from ..ops.schur import Aadj, Aop, schur_group
+from ..ops.schur import Aadj, Aop, lp_weight, schur_group, schur_lp
 from ..problem import SDPProblem
 from .initial import EXPON, TAU
 from .state import IPMState, StepStats
@@ -103,15 +104,48 @@ def _group_dirs(
     return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta)
 
 
-def _schur(problem: SDPProblem, nts) -> torch.Tensor:
-    """The symmetrized Schur matrix H = sum over groups of schur_group."""
+class _LinDirs(NamedTuple):
+    delX: torch.Tensor
+    delS: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+
+
+def _lin_dirs(
+    problem: SDPProblem,
+    st: IPMState,
+    Si_lin: torch.Tensor,
+    Rd_lin: torch.Tensor,
+    dely: torch.Tensor,
+    *,
+    predict: bool,
+    sig_mu: Optional[torch.Tensor] = None,
+    RNT_lin: Optional[torch.Tensor] = None,
+) -> _LinDirs:
+    """LP-cone directions and steplengths (`find_step_lin`,
+    `src/predictor_corrector.jl:329-347`; `ipm/step.py:_lin_dirs`)."""
+    delS = Rd_lin - problem.C_lin.mT @ dely
+    delX = -st.X_lin - st.X_lin * Si_lin * delS
+    if not predict:
+        delX = delX + sig_mu * Si_lin + RNT_lin
+    mX = (delX / st.X_lin).min()
+    mS = (delS / st.S_lin).min()
+    return _LinDirs(delX=delX, delS=delS, alpha=_steplen(mX), beta=_steplen(mS))
+
+
+def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor]) -> torch.Tensor:
+    """The symmetrized Schur matrix H = sum over groups of schur_group, plus
+    the LP block C_lin diag(lpw) C_lin^T."""
     H = torch.zeros((problem.n, problem.n), dtype=problem.b.dtype, device=problem.device)
     for g, nt in zip(problem.groups, nts):
         H = H + schur_group(g, nt.W, nt.G)
+    if problem.nlin:
+        H = H + schur_lp(problem.C_lin, lpw)
     return sym(H)
 
 
-def _cg_solver(problem: SDPProblem, nts, opts: Options, tol_cg: float, precond_kind: int):
+def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Options,
+               tol_cg: float, precond_kind: int):
     """The kit=1 Schur solve, rhs -> (dely, CG iterations), for one IPM
     iteration (`loraine_tpu/ipm/step.py:716-853`).
 
@@ -120,30 +154,33 @@ def _cg_solver(problem: SDPProblem, nts, opts: Options, tol_cg: float, precond_k
     M = Mli^T Mli, and then either a CG kernel on Hp = sym(Mli Hcg Mli^T)
     followed by the f64 `cg_plain` polish of any shortfall, or the f64
     `cg_plain` on Hp. Matrix-free route: `pcg` with the operator
-    Aop(W Aadj(x) W) and the SMW H_alpha / diagonal H_beta."""
+    Aop(W Aadj(x) W) + C_lin (lpw * C_lin^T x) and the SMW H_alpha /
+    diagonal H_beta."""
     n = problem.n
     mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
     if mat_cg:
-        Hcg = _schur(problem, nts)
+        Hcg = _schur(problem, nts, lpw)
         matvec = lambda x: Hcg @ x  # noqa: E731
     else:
         def matvec(x):
             r = torch.zeros_like(x)
             for g, nt in zip(problem.groups, nts):
                 r = r + Aop(g, nt.W @ Aadj(g, x) @ nt.W)
+            if problem.nlin:
+                r = r + problem.C_lin @ (lpw * (problem.C_lin.mT @ x))
             return r
 
     if precond_kind == 0:
         precond, Mli = (lambda x: x), None
     elif precond_kind == 1:
-        pa = prep_alpha(problem, nts, None, opts.erank, opts.aamat, opts.eigh_backend,
+        pa = prep_alpha(problem, nts, lpw, opts.erank, opts.aamat, opts.eigh_backend,
                         materialize=mat_cg)
         if mat_cg:
             precond, Mli = pa.apply, pa.Mli
         else:
             precond, Mli = (lambda x: pa.apply_with(problem, x)), None
     else:  # 2 or 4 (the hybrid starts as beta)
-        pb = prep_beta(problem, nts, None, opts.erank, opts.aamat, opts.eigh_backend)
+        pb = prep_beta(problem, nts, lpw, opts.erank, opts.aamat, opts.eigh_backend)
         precond = pb.apply
         # beta is diagonal: its inverse-Cholesky factor is diag(1/sqrt(d))
         Mli = torch.diag(1.0 / torch.sqrt(pb.diag)) if mat_cg else None
@@ -205,13 +242,16 @@ def step(
     ``precond_kind`` the preconditioner (default ``opts.preconditioner``;
     the solver's hybrid 4 -> 1 switch changes it between iterations)."""
     dtype, device = problem.b.dtype, problem.device
-    denom = problem.sum_msizes
+    nlin = problem.nlin
+    denom = problem.sum_msizes + nlin
     zero = torch.zeros((), dtype=dtype, device=device)
 
     # ---- mu (`find_mu`, src/Solvers.jl:480-494)
     tr = zero
     for X, S in zip(st.X, st.S):
         tr = tr + btrace(X, S)
+    if nlin:
+        tr = tr + torch.dot(st.X_lin, st.S_lin)
     mu = tr / denom
 
     # ---- NT scaling (prepare_W)
@@ -224,23 +264,30 @@ def step(
     for nt in nts:
         nt_ok = nt_ok & nt.ok
         nt_suspect = nt_suspect | nt.shifted | nt.s_indef
+    Si_lin = (1.0 / st.S_lin) if nlin else None
+    lpw = lp_weight(st.X_lin, Si_lin) if nlin else None
 
     # ---- residuals (`predictor`, src/predictor_corrector.jl:8-22)
     Rp = problem.b
     for g, X in zip(problem.groups, st.X):
         Rp = Rp - Aop(g, X)
+    if nlin:
+        Rp = Rp - problem.C_lin @ st.X_lin
     Rds = tuple(sym(g.C - S - Aadj(g, st.y)) for g, S in zip(problem.groups, st.S))
+    Rd_lin = (problem.d_lin - st.S_lin - problem.C_lin.mT @ st.y) if nlin else None
 
     # ---- predictor RHS (`makeRHS`, src/makeBBBB.jl:221-228)
     h = Rp
     for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
         h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
+    if nlin:
+        h = h + problem.C_lin @ (lpw * Rd_lin + st.X_lin)
 
     # ---- predictor solve
     if opts.kit == 0:
         # Schur assembly + regularized Cholesky (absolute 1e-4 shift,
         # `src/predictor_corrector.jl:74`) + explicit inverse factor
-        H = _schur(problem, nts)
+        H = _schur(problem, nts, lpw)
         hc = chol_reg(H, 1e-4, 1000)
         h_shifts, h_ok = hc.shifts, hc.ok
         Hli = tri_inv(hc.L)
@@ -254,7 +301,7 @@ def step(
     else:
         # the corrector re-solves with the same operator and preconditioner
         solve = _cg_solver(
-            problem, nts, opts,
+            problem, nts, lpw, opts,
             opts.tol_cg if tol_cg is None else tol_cg,
             opts.preconditioner if precond_kind is None else precond_kind,
         )
@@ -268,22 +315,33 @@ def step(
         for g, nt, Rd, X in zip(problem.groups, nts, Rds, st.X)
     )
     one = torch.ones((), dtype=dtype, device=device)
-    alpha_min, beta_min = one, one
+    if nlin:
+        ld = _lin_dirs(problem, st, Si_lin, Rd_lin, dely, predict=True)
+        alpha_min, beta_min = ld.alpha, ld.beta
+    else:
+        alpha_min, beta_min = one, one
     for d in dirs:
         alpha_min = torch.minimum(alpha_min, d.alpha.min())
         beta_min = torch.minimum(beta_min, d.beta.min())
 
     # trial point + NT correction term (`find_step`,
     # src/predictor_corrector.jl:302-310)
-    trXnSn = zero
+    trXnSn_mat = zero
     RNTs = []
     for nt, d, X, S in zip(nts, dirs, st.X, st.S):
         Xn = X + d.alpha[:, None, None] * d.delX
         Sn = S + d.beta[:, None, None] * d.delS
-        trXnSn = trXnSn + btrace(Xn, Sn)
+        trXnSn_mat = trXnSn_mat + btrace(Xn, Sn)
         deed = nt.D[:, :, None] + nt.D[:, None, :]
         N = nt.Gi @ d.delX @ d.delS @ nt.G
         RNTs.append(-(N + N.mT) / deed)
+    trXnSn = trXnSn_mat
+    RNT_lin = None
+    if nlin:
+        Xn_lin = st.X_lin + ld.alpha * ld.delX
+        Sn_lin = st.S_lin + ld.beta * ld.delS
+        trXnSn = trXnSn + torch.dot(Xn_lin, Sn_lin)
+        RNT_lin = -(ld.delX * ld.delS) * Si_lin
 
     # ---- sigma update (`sigma_update`, src/predictor_corrector.jl:148-179)
     step_pred = torch.minimum(alpha_min, beta_min)
@@ -297,8 +355,10 @@ def step(
         torch.clamp(torch.clamp(3.0 * step_pred**2, max=EXPON), min=1.0),
     )
     ratio = trXnSn / denom / mu
+    # the 0.8 fallback tests only the matrix trace, the ratio uses the
+    # combined one (`ipm/step.py:994-1001`)
     sigma = torch.where(
-        trXnSn < 0,
+        trXnSn_mat < 0,
         torch.full_like(one, 0.8),
         torch.clamp(_safe_pow(ratio, expon_used), max=1.0),
     )
@@ -310,6 +370,9 @@ def step(
         GT = nt.G.mT
         inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
         h2 = h2 + Aop(g, nt.G @ inner @ GT)
+    if nlin:
+        tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
+        h2 = h2 + problem.C_lin @ (lpw * Rd_lin + st.X_lin + tmp)
     dely2, cg_cor = solve(h2)
 
     # ---- corrector directions + final update
@@ -317,7 +380,12 @@ def step(
         _group_dirs(g, nt, Rd, X, dely2, predict=False, sig_mu=sig_mu, RNT=RNT)
         for g, nt, Rd, X, RNT in zip(problem.groups, nts, Rds, st.X, RNTs)
     )
-    amin, bmin = one, one
+    if nlin:
+        ld2 = _lin_dirs(problem, st, Si_lin, Rd_lin, dely2, predict=False,
+                        sig_mu=sig_mu, RNT_lin=RNT_lin)
+        amin, bmin = ld2.alpha, ld2.beta
+    else:
+        amin, bmin = one, one
     for d in dirs2:
         amin = torch.minimum(amin, d.alpha.min())
         bmin = torch.minimum(bmin, d.beta.min())
@@ -325,6 +393,8 @@ def step(
     y_new = st.y + bmin * dely2
     X_new = tuple(sym(X + amin * d.delX) for X, d in zip(st.X, dirs2))
     S_new = tuple(sym(S + bmin * d.delS) for S, d in zip(st.S, dirs2))
+    X_lin_new = (st.X_lin + amin * ld2.delX) if nlin else None
+    S_lin_new = (st.S_lin + bmin * ld2.delS) if nlin else None
 
     # ---- DIMACS errors (`check_convergence`, src/Solvers.jl:496-524).
     # The iterates are feasible by construction (steplengths from certified
@@ -346,13 +416,23 @@ def step(
         trCX = trCX + CX.sum()
         SX = (S * X).sum((-1, -2))
         err6 = err6 + (SX / (1.0 + CX.abs() + by.abs())).sum()
-    err5 = (trCX - by) / (1.0 + trCX.abs() + by.abs())
+    if nlin:
+        dX = torch.dot(problem.d_lin, X_lin_new)
+        normd = torch.linalg.norm(problem.d_lin)
+        err2 = err2 + (-X_lin_new.min()).clamp_min(0.0) / (1.0 + normb)
+        err3 = err3 + torch.linalg.norm(Rd_lin) / (1.0 + normd)
+        err4 = err4 + (-S_lin_new.min()).clamp_min(0.0) / (1.0 + normd)
+        err5 = (trCX + dX - by) / (1.0 + trCX.abs() + by.abs())
+        err6 = err6 + torch.dot(S_lin_new, X_lin_new) / (1.0 + dX.abs() + by.abs())
+    else:
+        err5 = (trCX - by) / (1.0 + trCX.abs() + by.abs())
 
     dimacs = err2 + err3 + err4 + err5.abs() + err6
     if problem.nlmi > 0:
         dimacs = dimacs + err1
 
-    new_state = IPMState(X=X_new, S=S_new, y=y_new, X_lin=None, S_lin=None, sigma=sigma)
+    new_state = IPMState(X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new,
+                         sigma=sigma)
     stats = StepStats(
         obj=-by + problem.b_const,
         mu=mu,

@@ -29,6 +29,7 @@ mp = max(round_up(m, 16), 16), the stable ascending sort, and the
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Dict, Tuple
@@ -231,7 +232,7 @@ def jacobi_eigh_cuda(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch
     VT = torch.empty_like(Mp)
     lam = torch.empty((nb, mp), dtype=torch.float32, device=Mp.device)
     _launch(_lib().lt_jacobi_eigh_f32, Mp, (VT, lam), sweeps)
-    jacobi_eigh_cuda.launches += 1
+    jacobi_eigh_cuda.launches_by_mp[mp] += 1
     return lam, VT
 
 
@@ -242,12 +243,14 @@ def jacobi_bounds_cuda(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, tor
     g = torch.empty((nb, mp), dtype=torch.float32, device=Mp.device)
     h = torch.empty_like(g)
     _launch(_lib().lt_jacobi_bounds_f32, Mp, (g, h), sweeps)
-    jacobi_bounds_cuda.launches += 1
+    jacobi_bounds_cuda.launches_by_mp[mp] += 1
     return g, h
 
 
-jacobi_eigh_cuda.launches = 0
-jacobi_bounds_cuda.launches = 0
+# launch counts per padded size mp (a problem with several block groups
+# launches each kernel at several mp in one iteration); the total is the sum
+jacobi_eigh_cuda.launches_by_mp = collections.Counter()
+jacobi_bounds_cuda.launches_by_mp = collections.Counter()
 
 
 def _route(Mp: torch.Tensor, plain, cuda, sweeps: int):

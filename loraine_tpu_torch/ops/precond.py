@@ -1,23 +1,23 @@
 """Low-rank preconditioners H_alpha / H_beta for the CG path. Port of
-`loraine_tpu/ops/precond.py` (dense and rank-1 data, no LP cone).
+`loraine_tpu/ops/precond.py` (dense, rank-1 and sparse data, LP cone).
 
 Math (reference `docs/src/low-rank_solutions.md`, `src/Solvers.jl:616-904`):
 with the NT scaling point split W = W_0 + U U^T (U spanning the top-``erank``
 eigenspace), the Schur operator is approximated by
 
-    H_alpha = (sum_i ttau_i^2) I + V V^T,  V = A^T (U (x) Z),  Z Z^T = 2 W_0 + U U^T
-    H_beta  = (sum_i ttau_i^2) I
+    H_alpha = AAAATtau + V V^T,  V = A^T (U (x) Z),  Z Z^T = 2 W_0 + U U^T
+    H_beta  = AAAATtau           (its diagonal only)
 
-where ttau_i is a scalar surrogate for the tail spectrum of W_i (``aamat``).
+where AAAATtau = (sum_i ttau_i^2) I + C_lin diag(x_lin / s_lin) C_lin^T and
+ttau_i is a scalar surrogate for the tail spectrum of W_i (``aamat``).
 H_alpha^{-1} is applied with Sherman-Morrison-Woodbury through the small
-matrix V^T V / s + I (`AlphaPrecond.apply_with`), or, materialized, as the
-inverse Cholesky factor of the n x n matrix s I + V V^T (`AlphaPrecondDense`).
+matrix V^T AAAATtau^{-1} V + I (`AlphaPrecond.apply_with`), or, materialized,
+as the inverse Cholesky factor of the n x n matrix AAAATtau + V V^T
+(`AlphaPrecondDense`).
 
 The eigendecompositions are library f64 calls (`torch.linalg.eigh`): in the
 JAX package `_eigh` sends the resolved 'pallas' backend to `jnp.linalg.eigh`,
-not to the Jacobi kernel. The LP terms (ROADMAP Queue A item 8) raise
-NotImplementedError; sparse storage (item 10) never reaches here, since the
-port's problem build refuses it.
+not to the Jacobi kernel.
 """
 from __future__ import annotations
 
@@ -47,14 +47,6 @@ def _eigh(M: torch.Tensor, backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.linalg.eigh(M)
 
 
-def _no_lp(problem: SDPProblem, lpw) -> None:
-    if problem.nlin > 0 or lpw is not None:
-        raise NotImplementedError(
-            "the LP-cone terms of the preconditioners are not ported to "
-            "loraine_tpu_torch yet; see ROADMAP.md Queue A item 8"
-        )
-
-
 def _ttau(lam_s: torch.Tensor, aamat: int) -> torch.Tensor:
     """Tail-spectrum surrogate per block: min, or (min + mean) / 2, of the
     tail eigenvalues (`src/Solvers.jl:646-650,715-719`). lam_s [nb, m-k]
@@ -80,13 +72,15 @@ def prep_beta(
     aamat: int,
     eigh_backend: str = "auto",
 ) -> BetaPrecond:
-    _no_lp(problem, lpw)
     s = torch.zeros((), dtype=problem.b.dtype, device=problem.device)
     for g, nt in zip(problem.groups, nts):
         k = min(erank, g.m - 1)
         lam, _ = _eigh(nt.W, eigh_backend)  # [nb, m] ascending
         s = s + (_ttau(lam[:, : g.m - k], aamat) ** 2).sum()
-    return BetaPrecond(diag=torch.ones_like(problem.b) * s)
+    diag = torch.ones_like(problem.b) * s
+    if problem.nlin > 0:
+        diag = diag + problem.C_lin**2 @ lpw
+    return BetaPrecond(diag=diag)
 
 
 class AlphaPrecond(NamedTuple):
@@ -94,12 +88,18 @@ class AlphaPrecond(NamedTuple):
     Z: Tuple[torch.Tensor, ...]  # per group [nb, m, m] lower Cholesky of 2W0+UU^T
     cholS: torch.Tensor  # [sizeS, sizeS] lower factor of the SMW matrix + I
     diag_scalar: torch.Tensor  # sum_i ttau_i^2
+    lp_chol: Optional[torch.Tensor]  # lower factor of AAAATtau when nlin > 0
     groups_meta: Tuple[Tuple[int, int, int], ...]  # (nb, k, m) per group
 
+    def _solve_tau(self, x: torch.Tensor) -> torch.Tensor:
+        if self.lp_chol is not None:
+            return cho_solve(self.lp_chol, x)
+        return x / self.diag_scalar
+
     def apply_with(self, problem: SDPProblem, x: torch.Tensor) -> torch.Tensor:
-        """SMW apply: x / s minus the low-rank correction
+        """SMW apply: AAAATtau^{-1} x minus the low-rank correction
         (`src/Solvers.jl:866-904`)."""
-        v = x / self.diag_scalar
+        v = self._solve_tau(x)
         segs: List[torch.Tensor] = []
         for g, U, Z in zip(problem.groups, self.U, self.Z):
             M22 = Aadj(g, v)  # [nb, m, m], symmetric
@@ -112,11 +112,11 @@ class AlphaPrecond(NamedTuple):
             off += nb * k * m
             Mrec = torch.einsum("bpq,blq,brl->bpr", Z, seg, U)  # Z Y U^T
             yy2 = yy2 + Aop(g, sym(Mrec))
-        return v - yy2 / self.diag_scalar
+        return v - self._solve_tau(yy2)
 
 
 class AlphaPrecondDense(NamedTuple):
-    """H_alpha materialized: M = s I + t t^T, applied as two GEMVs against
+    """H_alpha materialized: M = AAAATtau + t t^T, applied as two GEMVs against
     the inverse Cholesky factor. Same operator as `AlphaPrecond` up to
     rounding."""
 
@@ -137,7 +137,6 @@ def prep_alpha(
 ):
     """H_alpha for the current NT scaling: `AlphaPrecondDense` when
     ``materialize`` (the materialized CG route), else `AlphaPrecond`."""
-    _no_lp(problem, lpw)
     n = problem.n
     s = torch.zeros((), dtype=problem.b.dtype, device=problem.device)
     Us: List[torch.Tensor] = []
@@ -158,6 +157,12 @@ def prep_alpha(
         meta.append((g.nb, k, m))
         s = s + (tt**2).sum()
 
+    # AAAATtau = s I + C_lin diag(lpw) C_lin^T (dense when nlin > 0)
+    lp_tau = None
+    if problem.nlin > 0:
+        eye = torch.eye(n, dtype=s.dtype, device=s.device)
+        lp_tau = s * eye + (problem.C_lin * lpw[None, :]) @ problem.C_lin.mT
+
     # V = A^T (U (x) Z) as t[j, (b, l, q)] = (Z_b^T A_j^{(b)} U_b)[q, l]
     tcols: List[torch.Tensor] = []
     for g, U, Z in zip(problem.groups, Us, Zs):
@@ -165,19 +170,28 @@ def prep_alpha(
             ZB = torch.einsum("bpq,bjp->bjq", Z, g.B)  # Z^T b_j
             UB = torch.einsum("bpl,bjp->bjl", U, g.B)  # U^T b_j
             t_g = torch.einsum("bj,bjl,bjq->jblq", g.Bsgn, UB, ZB)
+        elif g.is_sparse:
+            # (Z^T A_j U)[q, l] = sum_t v_t Z[r_t, q] U[c_t, l]
+            bidx = torch.arange(g.nb, device=Z.device)[:, None, None]
+            Zr, Uc = Z[bidx, g.Arows], U[bidx, g.Acols]  # [nb, n, s, m], [nb, n, s, k]
+            t_g = torch.einsum("bjt,bjtq,bjtl->jblq", g.Avals, Zr, Uc)
         else:
             AU = torch.einsum("bjpr,brl->bjpl", g.A, U)
             t_g = torch.einsum("bpq,bjpl->jblq", Z, AU)
         tcols.append(t_g.reshape(n, -1))
     t = torch.cat(tcols, dim=1)  # [n, sizeS]
     if materialize:
-        M = s * torch.eye(n, dtype=t.dtype, device=t.device) + t @ t.mT
+        M = s * torch.eye(n, dtype=t.dtype, device=t.device) if lp_tau is None else lp_tau
+        M = M + t @ t.mT
         return AlphaPrecondDense(Mli=tri_inv(chol_reg(sym(M), 1e-10, 50).L))
-    Ssmw = sym(t.mT @ (t / s)) + torch.eye(t.shape[1], dtype=t.dtype, device=t.device)
+    lp_chol = None if lp_tau is None else chol_reg(lp_tau, 1e-10, 50).L
+    tau_t = t / s if lp_chol is None else cho_solve(lp_chol, t)
+    Ssmw = sym(t.mT @ tau_t) + torch.eye(t.shape[1], dtype=t.dtype, device=t.device)
     return AlphaPrecond(
         U=tuple(Us),
         Z=tuple(Zs),
         cholS=chol_reg(Ssmw, 1e-10, 50).L,
         diag_scalar=s,
+        lp_chol=lp_chol,
         groups_meta=tuple(meta),
     )

@@ -1,28 +1,32 @@
-"""Problem representation: dense and rank-1 block groups on one device.
+"""Problem representation: dense, rank-1 and sparse block groups plus the
+LP cone, on one device. Port of `loraine_tpu/problem.py`.
 
-Port of `loraine_tpu/problem.py` (dense and rank-1 storage). The solved
-problem, in the reference's convention (`src/model.jl:8-49`)::
+The solved problem, in the reference's convention (`src/model.jl:8-49`)::
 
     max  b^T y - b_const
     s.t. sum_j y_j A_j^{(i)}  <=  C^{(i)}     (PSD order, i = 1..nlmi)
+         C_lin^T y            <=  d_lin       (elementwise)
 
 LMI blocks are bucketed by padded size and stacked, exactly as the JAX
-package does, so the padded shapes are identical: ``A [nb, n, m, m]`` (dense)
-or factors ``B [nb, n, m]`` with signs ``Bsgn [nb, n]`` (rank-1, A_j =
-sgn_j b_j b_j^T). Padding is exact: a block of size m0 padded to m is the
-same SDP with a trailing ``0 <= I`` identity tail (A padded with zeros, C
-with an identity tail).
+package does, so the padded shapes are identical: ``A [nb, n, m, m]``
+(dense), factors ``B [nb, n, m]`` with signs ``Bsgn [nb, n]`` (rank-1,
+A_j = sgn_j b_j b_j^T), or the fully expanded COO ``Arows/Acols/Avals
+[nb, n, s]`` (sparse). Padding is exact: a block of size m0 padded to m is
+the same SDP with a trailing ``0 <= I`` identity tail (A padded with zeros,
+C with an identity tail). The LP cone is dense, ``C_lin [n, nlin]``.
 
-Not ported yet: the sparse COO storage (ROADMAP Queue A item 10) and the LP
-cone (item 8); building a problem that needs either raises
-NotImplementedError.
+Sparse groups also carry `AdjLayout`, built once at load time: the COO
+entries regrouped by target cell so that the adjoint sum_j y_j A_j is a
+gather and fixed-shape sums (`ops/schur.py` `Aadj`). The JAX package's
+scatter-add would be float atomics on a card, whose result changes from run
+to run in the last bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import warnings
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,16 +35,36 @@ from .io.sdpa import SDPAData, read_sdpa
 from .utils.device import resolve_device
 
 __all__ = [
+    "AdjLayout",
     "BlockGroup",
     "SDPProblem",
     "problem_from_dense",
     "problem_from_sdpa",
     "pick_storage",
+    "adjoint_layout",
     "RANK1_TOL",
 ]
 
 # Reference rank-1 conversion guard: `src/model.jl:189-191`.
 RANK1_TOL = 5.0e-6
+
+
+class AdjLayout(NamedTuple):
+    """The sparse COO of one group regrouped by target cell, for a sparse
+    adjoint with a fixed summation order. Per block, the entries of cell c
+    (flat index r*m + col) are split into rows of K consecutive entries;
+    level 1 sums each row, level 2 sums each cell's rows.
+
+      j     [nb, R, K]        int64 constraint index of each entry (pad 0)
+      v     [nb, R, K]        value (pad 0.0)
+      rows  [nb, ncell, R2]   int64 level-1 rows of each cell (pad R, a zero)
+      cells [nb, ncell]       int64 flat target r*m + col (pad m*m, dropped)
+    """
+
+    j: torch.Tensor
+    v: torch.Tensor
+    rows: torch.Tensor
+    cells: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -50,6 +74,10 @@ class BlockGroup:
     Exactly one data representation is present:
       dense:  ``A [nb, n, m, m]``
       rank-1: ``B [nb, n, m]`` + ``Bsgn [nb, n]`` (A_j = sgn_j b_j b_j^T)
+      sparse: ``Arows/Acols [nb, n, s]`` int64 + ``Avals [nb, n, s]``, the
+              fully expanded COO (both triangles listed) padded to the
+              group's max entry count s with (0, 0, 0.0) entries; ``adj``
+              its per-cell layout
 
     ``orig_indices[b]`` is the position of stacked block b in the user's
     original block ordering (bucketing permutes blocks).
@@ -67,18 +95,26 @@ class BlockGroup:
     # ||AA_i||_F = sqrt(sum_j ||A_j||_F^2) and ||C_i||_F
     data_norms: Tuple[float, ...] = ()
     C_norms: Tuple[float, ...] = ()
+    Arows: Optional[torch.Tensor] = None  # [nb, n, s] int64
+    Acols: Optional[torch.Tensor] = None  # [nb, n, s] int64
+    Avals: Optional[torch.Tensor] = None  # [nb, n, s]
+    adj: Optional[AdjLayout] = None
 
     @property
     def is_rank1(self) -> bool:
         return self.B is not None
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.Avals is not None
 
 
 @dataclasses.dataclass
 class SDPProblem:
     groups: Tuple[BlockGroup, ...]
     b: torch.Tensor  # [n]
-    C_lin: Optional[torch.Tensor]  # always None in this port (no LP cone yet)
-    d_lin: Optional[torch.Tensor]
+    C_lin: Optional[torch.Tensor]  # [n, nlin] or None
+    d_lin: Optional[torch.Tensor]  # [nlin] or None
     n: int
     nlin: int
     nlmi: int  # number of LMI blocks (sum of group nb)
@@ -194,26 +230,33 @@ def _rank1_factor_block(blk: _BlockData, n: int) -> Optional[Tuple[np.ndarray, n
 
 
 # ---------------------------------------------------------------------------
-# Storage choice: the JAX package's Kojima-style cost model, verbatim, so the
-# port decides dense/sparse exactly as the reference package does.
+# Sparse COO: expansion, storage choice, per-cell adjoint layout
 # ---------------------------------------------------------------------------
 
-GATHER_PENALTY = 64.0
-SPARSE_OVERHEAD = 5.0e6
 
-
-def _max_entries(blk: _BlockData, n: int) -> int:
-    """Max per-matrix entry count of the fully expanded (both-triangle) COO
-    (`loraine_tpu/problem.py:_expand_coo` counts)."""
+def _expand_coo(blk: _BlockData, n: int) -> Tuple[Tuple[np.ndarray, ...], np.ndarray]:
+    """Full (both-triangle) COO of every A_j of one block, and the per-matrix
+    entry counts (`loraine_tpu/problem.py:_expand_coo`)."""
     if blk.A_coo is not None:
-        j, r, c, _ = blk.A_coo
+        j, r, c, v = blk.A_coo
     else:
         j, r, c = np.nonzero(blk.A_dense)
-        keep = r <= c
+        keep = r <= c  # upper triangle; expansion below restores symmetry
         j, r, c = j[keep], r[keep], c[keep]
-    jf = np.concatenate([j, j[r != c]])
+        v = blk.A_dense[j, r, c]
+    off = r != c
+    jf = np.concatenate([j, j[off]])
+    rf = np.concatenate([r, c[off]])
+    cf = np.concatenate([c, r[off]])
+    vf = np.concatenate([v, v[off]])
     counts = np.bincount(jf, minlength=n)
-    return int(counts.max()) if counts.size else 0
+    return (jf, rf, cf, vf), counts
+
+
+# The JAX package's Kojima-style cost model, verbatim, so the port decides
+# dense/sparse exactly as the reference package does.
+GATHER_PENALTY = 64.0
+SPARSE_OVERHEAD = 5.0e6
 
 
 def schur_cost_dense(n: int, m: int, nb: int = 1) -> float:
@@ -237,17 +280,67 @@ def pick_storage(n: int, block_stats: List[Tuple[int, int]]) -> str:
     return "sparse" if sparse < dense else "dense"
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to loraine_tpu_torch yet; see ROADMAP.md "
-        f"Queue A {item}"
+def adjoint_layout(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, m: int,
+    dtype: torch.dtype, device: torch.device,
+) -> AdjLayout:
+    """The `AdjLayout` of a padded COO ``rows/cols/vals [nb, n, s]`` (numpy),
+    on ``device`` (no JAX counterpart).
+
+    Rows are K = ceil(sqrt(kmax)) entries wide, kmax being the most entries
+    any cell has, so both levels stay near the entry count even when one
+    cell is shared by thousands of constraints (thetaG11: kmax 1601). Pad
+    slots (value 0.0) are dropped. Within a cell the entries keep their COO
+    order (constraint-major), as in the JAX package's scatter."""
+    nb, n, s = rows.shape
+    per_block = []
+    kmax = 1
+    for b in range(nb):
+        f = (rows[b].astype(np.int64) * m + cols[b].astype(np.int64)).reshape(-1)
+        v = vals[b].reshape(-1)
+        jj = np.repeat(np.arange(n, dtype=np.int64), s)
+        keep = v != 0.0
+        f, jj, v = f[keep], jj[keep], v[keep]
+        order = np.argsort(f, kind="stable")
+        f, jj, v = f[order], jj[order], v[order]
+        cells, counts = np.unique(f, return_counts=True)
+        per_block.append((cells, counts, jj, v))
+        if counts.size:
+            kmax = max(kmax, int(counts.max()))
+    K = int(math.ceil(math.sqrt(kmax)))
+    R2 = -(-kmax // K)
+    nrows = [-(-counts // K) for _, counts, _, _ in per_block]
+    R = max(max((int(r.sum()) for r in nrows), default=0), 1)
+    ncell = max(max((c.size for c, _, _, _ in per_block), default=0), 1)
+    J = np.zeros((nb, R, K), dtype=np.int64)
+    V = np.zeros((nb, R, K))
+    Rows = np.full((nb, ncell, R2), R, dtype=np.int64)
+    Cells = np.full((nb, ncell), m * m, dtype=np.int64)
+    for b, ((cells, counts, jj, v), nr) in enumerate(zip(per_block, nrows)):
+        if not cells.size:
+            continue
+        first = np.cumsum(counts) - counts  # first entry of each cell
+        rank = np.arange(jj.size) - np.repeat(first, counts)
+        row0 = np.cumsum(nr) - nr  # first level-1 row of each cell
+        row = np.repeat(row0, counts) + rank // K
+        J[b, row, rank % K] = jj
+        V[b, row, rank % K] = v
+        cell_of_row = np.repeat(np.arange(cells.size), nr)
+        Rows[b, cell_of_row, np.arange(nr.sum()) - np.repeat(row0, nr)] = np.arange(nr.sum())
+        Cells[b, : cells.size] = cells
+    return AdjLayout(
+        j=torch.as_tensor(J).to(device=device),
+        v=torch.as_tensor(V).to(device=device, dtype=dtype),
+        rows=torch.as_tensor(Rows).to(device=device),
+        cells=torch.as_tensor(Cells).to(device=device),
     )
 
 
 def _build_problem(
     blocks: List[_BlockData],
     b: np.ndarray,
-    nlin: int,
+    C_lin: Optional[np.ndarray],
+    d_lin: Optional[np.ndarray],
     b_const: float,
     datarank: int,
     pad_multiple: int,
@@ -258,10 +351,7 @@ def _build_problem(
     sparse_max_nnz: Optional[int] = None,
     sparse_min_n: int = 256,
 ) -> SDPProblem:
-    """Port of `loraine_tpu/problem.py:_build_problem` (dense and rank-1
-    branches)."""
-    if nlin > 0:
-        raise _unported("the LP cone (nlin > 0)", "item 8 (multi-block + LP cone)")
+    """Port of `loraine_tpu/problem.py:_build_problem`."""
     n = int(np.asarray(b).shape[0])
     nlmi = len(blocks)
 
@@ -275,24 +365,33 @@ def _build_problem(
                 break
             factors[i] = f
 
+    # storage decision (per problem): rank-1 when it applies, else the
+    # modeled-cost choice, an explicit nnz threshold, or sparse when dense
+    # data would not fit
     mode = storage
     if use_rank1:
         mode = "rank1"
     elif storage == "auto":
         dense_bytes = sum((n + 1) * blk.m0**2 * 8 for blk in blocks)
-        stats = [(blk.m0, _max_entries(blk, n)) for blk in blocks]
+        stats = []
+        for blk in blocks:
+            _, counts = _expand_coo(blk, n)
+            stats.append((blk.m0, int(counts.max()) if counts.size else 0))
         s_max = max((s for _, s in stats), default=0)
         if dense_bytes > max_dense_gb * 1e9:
             mode = "sparse"
+            if s_max > (64 if sparse_max_nnz is None else sparse_max_nnz):
+                warnings.warn(
+                    f"data too large for dense storage and not very sparse "
+                    f"(max {s_max} entries/matrix); using the sparse path anyway"
+                )
         elif sparse_max_nnz is None:
             mode = pick_storage(n, stats)
         elif s_max <= sparse_max_nnz and n >= sparse_min_n:
             mode = "sparse"
         else:
             mode = "dense"
-    if mode == "sparse":
-        raise _unported("sparse COO storage", "item 10 (sparse COO storage)")
-    if mode not in ("dense", "rank1"):
+    if mode not in ("dense", "sparse", "rank1"):
         raise ValueError(f"storage must be auto/dense/sparse, got {storage!r}")
     if mode == "rank1" and not use_rank1:
         raise ValueError("rank-1 storage requires datarank=-1 and factorizable data")
@@ -317,7 +416,7 @@ def _build_problem(
     groups = []
     for m_pad in sorted(buckets):
         idxs = buckets[m_pad]
-        Cstack, Astack, Bstack, Sgnstack, sizes = [], [], [], [], []
+        Cstack, Astack, Bstack, Sgnstack, sizes, coo_blocks = [], [], [], [], [], []
         for i in idxs:
             blk = blocks[i]
             m0 = blk.m0
@@ -332,12 +431,36 @@ def _build_problem(
                 Bp[:, :m0] = B
                 Bstack.append(Bp)
                 Sgnstack.append(sgn)
+            elif mode == "sparse":
+                coo_blocks.append(_expand_coo(blk, n))
             else:
                 Ap = np.zeros((n, m_pad, m_pad))
                 Ap[:, :m0, :m0] = blk.densify(n)
                 Astack.append(Ap)
 
-        if mode == "rank1":
+        sparse = {}
+        if mode == "sparse":
+            # padded slot layout of the JAX package: per matrix, its entries
+            # in COO order in slots 0..count-1, pads (0, 0, 0.0)
+            s_grp = max(max((int(c.max()) if c.size else 0) for _, c in coo_blocks), 1)
+            Arows = np.zeros((len(idxs), n, s_grp), dtype=np.int64)
+            Acols = np.zeros((len(idxs), n, s_grp), dtype=np.int64)
+            Avals = np.zeros((len(idxs), n, s_grp))
+            for bpos, ((jf, rf, cf, vf), counts) in enumerate(coo_blocks):
+                order = np.argsort(jf, kind="stable")
+                jf, rf, cf, vf = jf[order], rf[order], cf[order], vf[order]
+                slot = np.concatenate([np.arange(c) for c in counts]) if jf.size else jf
+                Arows[bpos, jf, slot] = rf
+                Acols[bpos, jf, slot] = cf
+                Avals[bpos, jf, slot] = vf
+            sparse = dict(
+                Arows=torch.as_tensor(Arows).to(device=device),
+                Acols=torch.as_tensor(Acols).to(device=device),
+                Avals=dev(Avals),
+                adj=adjoint_layout(Arows, Acols, Avals, m_pad, dtype, device),
+            )
+            data_norms = tuple(float(np.sqrt(np.sum(Avals[i] ** 2))) for i in range(len(idxs)))
+        elif mode == "rank1":
             data_norms = tuple(
                 float(np.sqrt(np.sum(np.sum(B**2, axis=-1) ** 2))) for B in Bstack
             )
@@ -355,16 +478,18 @@ def _build_problem(
                 orig_indices=tuple(idxs),
                 data_norms=data_norms,
                 C_norms=tuple(float(np.linalg.norm(Ci)) for Ci in Cstack),
+                **sparse,
             )
         )
 
+    nlin = 0 if C_lin is None else int(np.asarray(C_lin).shape[1])
     return SDPProblem(
         groups=tuple(groups),
         b=dev(b),
-        C_lin=None,
-        d_lin=None,
+        C_lin=dev(C_lin) if nlin else None,
+        d_lin=dev(d_lin) if nlin else None,
         n=n,
-        nlin=0,
+        nlin=nlin,
         nlmi=nlmi,
         b_const=float(b_const),
         sum_msizes=sum(g.m * g.nb for g in groups),
@@ -390,10 +515,12 @@ def problem_from_dense(
       As: per LMI block, array [n, m_i, m_i] of data matrices A_j.
       Cs: per LMI block, array [m_i, m_i].
       b: objective vector [n] (maximize b^T y).
-      C_lin, d_lin: the LP cone; not ported yet (must be None).
+      C_lin: optional [n, nlin]; d_lin: optional [nlin] (the LP cone
+        C_lin^T y <= d_lin).
       datarank: -1 attempts the rank-one compression (5e-6 guard with dense
         fallback).
-      storage: 'auto' | 'dense' ('sparse' is not ported yet).
+      storage: 'auto' | 'dense' | 'sparse' data representation (auto picks
+        sparse for small-support data with large n).
       device: where the data lives ('cuda' by default; raises without a card).
     """
     device = resolve_device(device)
@@ -401,9 +528,8 @@ def problem_from_dense(
         _BlockData(C=np.asarray(C, dtype=np.float64), A_dense=np.asarray(A, dtype=np.float64))
         for A, C in zip(As, Cs)
     ]
-    nlin = 0 if C_lin is None else int(np.asarray(C_lin).shape[1])
     return _build_problem(
-        blocks, np.asarray(b, dtype=np.float64), nlin, b_const, datarank,
+        blocks, np.asarray(b, dtype=np.float64), C_lin, d_lin, b_const, datarank,
         pad_multiple, dtype, device, storage=storage,
     )
 
@@ -420,18 +546,25 @@ def problem_from_sdpa(
     device: Union[str, torch.device] = "cuda",
 ) -> SDPProblem:
     """Convert SDPA data (min c^T x s.t. sum x_j F_j - F_0 >= 0) to the
-    internal dual form: y = x, b = -c, A_j = -F_j, C = -F_0. The reported
-    objective ``-b^T y`` then equals SDPA's optimal ``c^T x``. Diagonal
-    (LP) blocks are not ported yet and raise NotImplementedError."""
+    internal dual form: y = x, b = -c, A_j = -F_j, C = -F_0; diagonal blocks
+    map to the LP cone with C_lin[j, l] = -diag(F_j)_l, d_lin = -diag(F_0).
+    The reported objective ``-b^T y`` then equals SDPA's optimal ``c^T x``."""
     device = resolve_device(device)
     data = read_sdpa(source) if isinstance(source, str) else source
     n = data.nvar
 
     blocks: List[_BlockData] = []
-    nlin = 0
+    lp_cols: List[np.ndarray] = []
+    lp_d: List[np.ndarray] = []
     for bs, (mat, row, col, val) in zip(data.block_sizes, data.blocks):
         if bs < 0:
-            nlin += -bs
+            Cl = np.zeros((n, -bs))
+            dl = np.zeros(-bs)
+            f0 = mat == 0  # diagonal blocks: row == col
+            np.add.at(dl, row[f0], -val[f0])
+            np.add.at(Cl, (mat[~f0] - 1, row[~f0]), -val[~f0])
+            lp_cols.append(Cl)
+            lp_d.append(dl)
             continue
         C = np.zeros((bs, bs))
         f0 = mat == 0
@@ -446,7 +579,8 @@ def problem_from_sdpa(
     return _build_problem(
         blocks,
         b=-np.asarray(data.c, dtype=np.float64),
-        nlin=nlin,
+        C_lin=np.concatenate(lp_cols, axis=1) if lp_cols else None,
+        d_lin=np.concatenate(lp_d) if lp_d else None,
         b_const=0.0,
         datarank=datarank,
         pad_multiple=pad_multiple,

@@ -95,3 +95,29 @@ def test_b4_matches_plain_on_card(n):
         assert torch.linalg.norm(b - H @ x) <= 1e-10 * torch.linalg.norm(b)
     assert (xk - xp).abs().max() <= 1e3 * 1e-10 * 10 * xp.abs().max()
     assert abs(int(ik) - int(ip)) <= 0.1 * int(ip) + 2
+
+
+@pytest.mark.cuda
+def test_sparse_contractions_reproducible_on_card():
+    """The sparse adjoint (per-cell layout, no float atomics) and the sparse
+    Schur assembly: bitwise equal from call to call on the card, and equal
+    to the CPU's result to rounding (forced-sparse tru3, LP cone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import loraine_tpu_torch as ltt
+    from loraine_tpu_torch.ops import schur as ts
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = ltt.load_problem("tests/data/tru3.dat-s", {"datasparsity": 64}, device=dev)
+        (g,) = p.groups
+        rng = np.random.default_rng(3)
+        R = torch.from_numpy(rng.standard_normal((g.nb, g.m, g.m))).to(dev)
+        W = R @ R.mT + g.m * torch.eye(g.m, dtype=R.dtype, device=dev)
+        y = torch.from_numpy(rng.standard_normal(p.n)).to(dev)
+        runs = [(ts.Aadj(g, y), ts.schur_group(g, W, None)) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        outs[dev] = [x.cpu().numpy() for x in runs[0]]
+    for c, k in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_allclose(k, c, rtol=1e-12, atol=1e-12 * np.abs(c).max())

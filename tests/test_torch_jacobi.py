@@ -100,9 +100,10 @@ def test_bounds_plain_match_pallas_and_hold(m, kind):
 
 def test_cpu_tensors_take_the_plain_version():
     A = torch.from_numpy(spectrum_matrix("random", 20, 1, seed=1))
-    before = (tj.jacobi_eigh_cuda.launches, tj.jacobi_bounds_cuda.launches)
+    fns = (tj.jacobi_eigh_cuda, tj.jacobi_bounds_cuda)
+    before = [sum(fn.launches_by_mp.values()) for fn in fns]
     tj.eigh_jacobi_f32(A)
     tj.eig_bounds_jacobi(A)
-    assert (tj.jacobi_eigh_cuda.launches, tj.jacobi_bounds_cuda.launches) == before
+    assert [sum(fn.launches_by_mp.values()) for fn in fns] == before
     with pytest.raises(ValueError):
         tj.jacobi_eigh_padded(torch.zeros((1, 16, 16), device="meta"), 1)

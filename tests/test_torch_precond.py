@@ -10,6 +10,7 @@ f64 calls on both sides. Top eigenvalues of W may be degenerate, which
 makes U basis-dependent, so the preconditioners are compared by their
 action on seeded vectors: within 1e-10 relative.
 """
+import dataclasses
 import pathlib
 
 import jax
@@ -85,9 +86,20 @@ def test_smw_and_materialized_alpha_agree(states):
 
 
 def test_lp_terms_raise(states):
-    _, _, pt, ntt = states["dense"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tprec.prep_beta(pt, ntt, torch.ones(3, dtype=torch.float64), 1, 1)
+    """The LP terms once raised NotImplementedError. Now H_beta's diagonal is
+    s + (C_lin^2) lpw, as in the JAX package: here on theta1's state with an
+    LP cone of 3 seeded columns attached to both problems."""
+    pj, ntj, pt, ntt = states["dense"]
+    lpw = np.random.default_rng(2).uniform(0.5, 2.0, 3)
+    C_lin = np.random.default_rng(3).standard_normal((pt.n, 3))
+    pj = dataclasses.replace(pj, C_lin=jnp.asarray(C_lin), d_lin=jnp.ones(3), nlin=3)
+    pt2 = dataclasses.replace(pt, C_lin=torch.from_numpy(C_lin),
+                              d_lin=torch.ones(3, dtype=torch.float64), nlin=3)
+    s = tprec.prep_beta(pt, ntt, None, 1, 1).diag
+    d = tprec.prep_beta(pt2, ntt, torch.from_numpy(lpw), 1, 1).diag
+    np.testing.assert_allclose(d.numpy(), s.numpy() + (C_lin**2) @ lpw, rtol=1e-14)
+    dj = jprec.prep_beta(pj, ntj, jnp.asarray(lpw), 1, 1, "pallas").diag
+    np.testing.assert_allclose(d.numpy(), np.asarray(dj), rtol=1e-10)
 
 
 def _mixed_problem(seed=0):

@@ -31,12 +31,18 @@ def assert_same_problem(pt, pj):
             gj.m, gj.nb, gj.orig_sizes, gj.orig_indices)
         assert gt.data_norms == gj.data_norms and gt.C_norms == gj.C_norms
         assert gt.is_rank1 == gj.is_rank1
-        for name in ("C", "A", "B", "Bsgn"):
+        assert gt.is_sparse == gj.is_sparse
+        for name in ("C", "A", "B", "Bsgn", "Arows", "Acols", "Avals"):
             a, b = getattr(gt, name), getattr(gj, name)
             assert (a is None) == (b is None), name
             if a is not None:
-                assert a.dtype == torch.float64
+                assert a.dtype == (torch.int64 if name in ("Arows", "Acols") else torch.float64)
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    for name in ("C_lin", "d_lin"):
+        a, b = getattr(pt, name), getattr(pj, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
 
 
 @pytest.mark.parametrize("name,opts", [
@@ -88,8 +94,10 @@ def test_initial_point_matches_jax(name, opts):
 
 
 def test_unported_storage_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        ltt.load_problem(str(DATA / "tru3.dat-s"), device="cpu")  # nlin > 0
-    # an explicit datasparsity threshold sends control1 to the sparse path
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        ltt.load_problem(str(DATA / "control1.dat-s"), {"datasparsity": 1000}, device="cpu")
+    """The LP cone (tru3) and sparse storage once raised NotImplementedError;
+    both now load exactly as the JAX package loads them."""
+    for name, opts in (("tru3", {}), ("control1", {"datasparsity": 1000})):
+        pj = lt.load_problem(str(DATA / f"{name}.dat-s"), opts)
+        pt = ltt.load_problem(str(DATA / f"{name}.dat-s"), opts, device="cpu")
+        assert_same_problem(pt, pj)
+    assert pt.groups[0].is_sparse and pt.groups[0].adj is not None  # control1

@@ -166,11 +166,16 @@ def test_unported_options_raise(opts, item):
 
 
 def test_unported_problems_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ltt.solve_sdpa(str(DATA / "tru3.dat-s"), PORT_OPTS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ltt.solve_sdpa(str(DATA / "control1.dat-s"), dict(PORT_OPTS, datasparsity=1000),
-                       device="cpu")
+    """The LP cone (tru3) and sparse storage (control1 with an explicit nnz
+    threshold) once raised NotImplementedError; both solve now.
+    test_torch_lp.py and test_torch_sparse.py hold them against JAX."""
+    r = ltt.solve_sdpa(str(DATA / "tru3.dat-s"), PORT_OPTS, device="cpu")
+    assert r.status == 1 and abs(r.objective - 0.0625) <= 1e-6
+    assert r.X_lin.shape == (72,) and abs(r.dual_objective - r.objective) <= 1e-6
+    p = ltt.load_problem(str(DATA / "control1.dat-s"), {"datasparsity": 1000}, device="cpu")
+    assert all(g.is_sparse for g in p.groups)
+    r = ltt.solve(p, dict(PORT_OPTS, eDIMACS=1e-5), device="cpu")
+    assert r.status == 1 and abs(r.objective - 17.78463) <= 1e-5 * 17.78463
 
 
 def test_cuda_device_raises_without_card():

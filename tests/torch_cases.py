@@ -36,3 +36,94 @@ def spectrum_matrix(kind: str, m: int, nb: int, seed: int) -> np.ndarray:
     Q = np.linalg.qr(rng.standard_normal((nb, m, m)))[0]
     A = Q @ (d[:, :, None] * np.eye(m)) @ Q.transpose(0, 2, 1)
     return (A + A.transpose(0, 2, 1)) / 2
+
+
+# Eigen/step modes under which the two packages run the same algorithm
+# (ROADMAP "Held against the reference"). PALLAS_MODES is the path the port
+# takes: the Jacobi kernels (Pallas in interpret mode on the JAX side, the
+# plain PyTorch versions on the port's CPU side), whose f32 seeds differ at
+# f32 rounding and reach the trajectory through the steplength bounds at
+# ~1e-5 relative. EXACT_MODES replaces the spectral bounds by exact f64
+# eigenvalues on both sides (the port's through `exact_bounds`), so that a
+# test can hold the rest of the step's f64 arithmetic to rounding.
+PALLAS_MODES = {"eigh_backend": "pallas", "step_eig": "pallas", "cg_kernel": "xla"}
+EXACT_MODES = {"eigh_backend": "xla", "step_eig": "exact", "cg_kernel": "xla"}
+STEP_FIELDS = ("obj", "mu", "sigma", "err1", "err2", "err3", "err4", "err5", "err6",
+               "dimacs", "alpha_min", "beta_min", "h_shifts", "h_ok", "nt_ok",
+               "cg_iter_pre", "cg_iter_cor")
+
+
+def exact_bounds(M):
+    """(lambda_min, lambda_max) per matrix from f64 eigvalsh: the port's
+    step under EXACT_MODES (monkeypatched over `ipm.step.eig_bounds_jacobi`)."""
+    import torch
+
+    ev = torch.linalg.eigvalsh(M)
+    return ev[..., 0], ev[..., -1]
+
+
+def step_both(pj, state_j, opts, tol_cg=1e-3):
+    """One step of each package from the same JAX iterate, JAX under
+    EXACT_MODES. The caller patches the port's bounds with `exact_bounds`.
+    Returns ((new_j, stats_j), (new_t, stats_t))."""
+    import jax
+
+    import loraine_tpu as lt
+    import loraine_tpu_torch as ltt
+    from loraine_tpu.ipm.step import build_step
+    from loraine_tpu_torch.convert import problem_from_numpy, state_from_numpy
+    from loraine_tpu_torch.ipm.step import step
+
+    precond = opts.get("preconditioner", 1) if opts.get("kit", 0) == 1 else -1
+    oj = lt.Options.from_dict(dict(opts, **EXACT_MODES)).validated()
+    new_j, stats_j = jax.jit(build_step(oj, precond))(pj, state_j, tol_cg)
+    pt = problem_from_numpy(jax.device_get(pj), device="cpu")
+    st = state_from_numpy(jax.device_get(state_j), device="cpu")
+    ot = ltt.Options.from_dict(opts).validated()
+    new_t, stats_t = step(pt, st, ot, tol_cg, precond if precond >= 0 else None)
+    return (new_j, stats_j), (new_t, stats_t)
+
+
+def solve_pair(path, opts, modes):
+    """(JAX result, port result) of one whole `solve_sdpa` on the CPU; under
+    EXACT_MODES with the port's bounds patched by `exact_bounds`."""
+    import pytest
+
+    import loraine_tpu as lt
+    import loraine_tpu_torch as ltt
+    import loraine_tpu_torch.ipm.step as tstep
+
+    with pytest.MonkeyPatch.context() as mp:
+        if modes is EXACT_MODES:
+            mp.setattr(tstep, "eig_bounds_jacobi", exact_bounds)
+        return (lt.solve_sdpa(path, dict(opts, **modes)),
+                ltt.solve_sdpa(path, opts, device="cpu"))
+
+
+def errs_agree(rj, rt, rtol, atol=1e-13):
+    """err1..err6 of two solves' histories per iteration while JAX's DIMACS
+    > 1e-4; ``atol`` covers errors at their floor (err1 ~ 4e-15 on tru3
+    with kit=0)."""
+    k = sum(1 for h in rj.history if h["dimacs"] > 1e-4)
+    assert k >= 8
+    for hj, ht in zip(rj.history[:k], rt.history[:k]):
+        for e in ("err1", "err2", "err3", "err4", "err5", "err6"):
+            assert abs(ht[e] - hj[e]) <= rtol * abs(hj[e]) + atol, (e, ht[e], hj[e])
+
+
+def assert_same_step(j, t, rtol=1e-10, atol=1e-13):
+    """Every StepStats field and the new iterate (X, S, y, X_lin, S_lin)
+    within rtol (atol for the errors at their rounding floor)."""
+    (new_j, stats_j), (new_t, stats_t) = j, t
+    for name in STEP_FIELDS:
+        a, b = float(getattr(stats_t, name)), float(np.asarray(getattr(stats_j, name)))
+        assert abs(a - b) <= rtol * abs(b) + atol, (name, a, b)
+    pairs = list(zip(new_t.X + new_t.S, new_j.X + new_j.S))
+    pairs.append((new_t.y, new_j.y))
+    if new_j.X_lin is not None:
+        pairs += [(new_t.X_lin, new_j.X_lin), (new_t.S_lin, new_j.S_lin)]
+    else:
+        assert new_t.X_lin is None and new_t.S_lin is None
+    for a, b in pairs:
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= rtol * np.abs(b).max()
