@@ -11,19 +11,30 @@ Phases:
   2. each Jacobi kernel against its plain PyTorch version on the card, at
      the solver's shapes (nb, m) in {(1, 16), (2, 16), (1, 56), (2, 56),
      (1, 144), (1, 152), (1, 800), (2, 800), (1, 808)} (tru3, vib3 and
-     control1, theta1, vib9's and tru9's groups, maxG11, thetaG11), on
-     clustered (IPM-like) and random spectra, with both times.
+     control1, theta1, vib9's and tru9's groups, maxG11, thetaG11) and at
+     the edges of the kernel's regimes, (1, 128), (4, 144), (1, 176),
+     (1, 192), (1, 912) and (1, 1000) (B1: "sm" below mp 144 or past one
+     wave of clusters, "cluster" to 912, then "rounds"; B2: "sm" below 192),
+     on clustered (IPM-like) and random spectra: the contracts, whether B1
+     equals the plain version bit for bit, the kernel's, the "rounds"
+     regime's (one launch per round), the plain version's and the library
+     call's times (torch.linalg.eigh / eigvalsh in f32 on the same tensor)
+     and the bound, and, where the other one-launch regime also fits, its
+     time; fails unless every regime of both kernels ran.
   3. SDPLIB theta1 (n=104, one 50x50 block) through ``solve_sdpa`` on the
      card: OPTIMAL at 23.0, and the same trajectory as the CPU run of the
      port (plain Jacobi versions) on the same input.
   4. SDPLIB maxG11 (n=800, one 800x800 block, rank-1 data) through
      ``solve_sdpa`` on the card: OPTIMAL at 629.1648.
-  5. kernel launch counts of phases 3-4.
+  5. kernel launch counts of phases 3-4 (every solve phase prints its
+     launches per kernel, per padded size mp, per regime and per
+     iteration).
   6. each CG kernel (B3 f64 min-residual, B4 f32) inside its refinement
      wrapper against its plain version on the card, at n in
      {21, 36, 104, 464, 1000} (control1, tru3/vib3, theta1, theta_G100): (a) identity preconditioner, kappa 1e3, tol 1e-10;
      (b) Mli = inv(chol(H + 1e-6 I)), kappa(H) 1e8, tol 1e-12 (B3) and 1e-9
-     (B4); body times at n = 464 and 1000.
+     (B4); body times at n = 464 and 1000, beside torch.linalg.solve on
+     the same system and the bound.
   7. SDPLIB control1 with the CG path (kit=1, `bench.py` options) on the
      card: OPTIMAL at 17.78463, beside the port's CPU run.
   8. theta1 with the CG path, materialized (B3) and matrix-free (SMW
@@ -80,8 +91,11 @@ TRU9_REF = (0.05975333, 22)
 VIB9_REF = (0.01276683, 34)
 THETAG11_REF = (400.00023146, 17)
 OBJ_RTOL = 1e-5
-SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 144), (1, 152), (1, 800), (2, 800),
-          (1, 808)]
+SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 128), (1, 144), (4, 144), (1, 152),
+          (1, 176), (1, 192), (1, 800), (2, 800), (1, 808), (1, 912), (1, 1000)]
+# published peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the
+# tensor cores, f64 on the tensor cores, HBM3
+PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
 PCG_SIZES = (21, 36, 104, 464, 1000)
 # bench.py:77-79 (control1-cg) and :93-95 (theta1-cg)
 CONTROL1_CG = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
@@ -132,6 +146,48 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def timed_call(fn):
+    """(fn's result, device ms of that one call by CUDA events)."""
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def bound_ms(flops: float, nbytes: float, peak: float):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def jacobi_bound(eigvecs: bool, nb: int, mp: int, sweeps: int):
+    """B1/B2: sweeps * (mp - 1) rounds of mp/2 disjoint rotations, 6 f32
+    flops per element of A (rows, then columns) and, for B1, 3 per element of
+    the eigenvector rows; the input read once, the outputs written once."""
+    flops = nb * sweeps * (mp - 1) * (6 + 3 * eigvecs) * mp * mp
+    nbytes = 4 * nb * (mp * mp + (mp * mp + mp if eigvecs else 2 * mp))
+    return bound_ms(flops, nbytes, PEAK_F32)
+
+
+def cg_bound(f64: bool, n: int, its: int):
+    """B3/B4: `its` CG iterations, each one matvec (2 n^2 flops) and ~10 n
+    vector flops; H and b read once, x written once."""
+    w = 8 if f64 else 4
+    return bound_ms(its * (2 * n * n + 10 * n), w * (n * n + 2 * n), PEAK_F64 if f64 else PEAK_F32)
+
+
+def regime_ms(tj, eigvecs: bool, Mn, sweeps: int, regime: str, reps: int) -> float:
+    """Device ms of one Jacobi call forced into ``regime`` (a comparison:
+    the wrappers choose the regime by shape alone)."""
+    nb, mp, _ = Mn.shape
+    vec = torch.empty((nb, mp), dtype=torch.float32, device=Mn.device)
+    outs = (torch.empty_like(Mn), vec) if eigvecs else (vec, torch.empty_like(vec))
+    return cuda_ms(lambda: tj._run(eigvecs, Mn, outs, sweeps, regime), reps)
+
+
 def seed_quality(A, lam, V, scale):
     """(max reconstruction error / scale, max orthogonality error) of an f32
     eigenpair seed, in f64."""
@@ -142,19 +198,29 @@ def seed_quality(A, lam, V, scale):
 
 
 def kernels_vs_plain(tj) -> dict:
-    """Phase 2. Returns per-kernel max errors and the times at the maxG11
-    shapes: B1 (1, 800), B2 (2, 800)."""
+    """Phase 2. Returns per-kernel max errors and, at the maxG11 shapes B1
+    (1, 800) and B2 (2, 800), the kernel's time, the plain version's, the
+    library call's and the bound."""
     err = {"eigh": 0.0, "bounds": 0.0}
     times = {}
+    regimes = {"B1": set(), "B2": set()}
     for nb, m in SHAPES:
-        for kind in ("clustered", "random"):
+        # the shapes past thetaG11's take seconds in the plain versions
+        for kind in ("clustered", "random") if m <= 808 else ("clustered",):
             A = torch.from_numpy(spectrum_matrix(kind, m, nb, seed=1000 * nb + m)).cuda()
             Mn, scale = tj._normalize_pad(A)
+            mp = Mn.shape[-1]
             s1, s2 = tj.jacobi_sweeps_for(m), tj.bound_sweeps_for(m)
-            lam_k, V_k = tj._sorted_eigh(*tj.jacobi_eigh_cuda(Mn, s1), m, scale)
-            lam_p, V_p = tj._sorted_eigh(*tj.jacobi_eigh_plain(Mn, s1), m, scale)
+            out_k = tj.jacobi_eigh_cuda(Mn, s1)
+            lam_k, V_k = tj._sorted_eigh(*out_k, m, scale)
+            out_p, pms_e = timed_call(lambda: tj.jacobi_eigh_plain(Mn, s1))
+            lam_p, V_p = tj._sorted_eigh(*out_p, m, scale)
+            # same operations, each rounded once: equal unless torch's ops
+            # round otherwise on this card (printed, not a contract)
+            bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
             lo_k, hi_k = tj._widened_bounds(*tj.jacobi_bounds_cuda(Mn, s2), m, scale, A.dtype)
-            lo_p, hi_p = tj._widened_bounds(*tj.jacobi_bounds_plain(Mn, s2), m, scale, A.dtype)
+            out_p, pms_b = timed_call(lambda: tj.jacobi_bounds_plain(Mn, s2))
+            lo_p, hi_p = tj._widened_bounds(*out_p, m, scale, A.dtype)
             torch.cuda.synchronize()
             ev = torch.linalg.eigvalsh(A)  # f64 reference
             sc = scale[:, None]
@@ -170,15 +236,37 @@ def kernels_vs_plain(tj) -> dict:
             reps = 10 if m < 100 else 3
             ms_e = cuda_ms(lambda: tj.jacobi_eigh_cuda(Mn, s1), reps)
             ms_b = cuda_ms(lambda: tj.jacobi_bounds_cuda(Mn, s2), reps)
-            # the plain versions already ran once above (warm)
-            pms_e = cuda_ms(lambda: tj.jacobi_eigh_plain(Mn, s1), 1, warmup=False)
-            pms_b = cuda_ms(lambda: tj.jacobi_bounds_plain(Mn, s2), 1, warmup=False)
+            # the library calls that compute the same functions (yardsticks
+            # only: the port never calls them)
+            lib_e = cuda_ms(lambda: torch.linalg.eigh(Mn), reps)
+            lib_b = cuda_ms(lambda: torch.linalg.eigvalsh(Mn), reps)
+            bnd_e, bnd_b = jacobi_bound(True, nb, mp, s1), jacobi_bound(False, nb, mp, s2)
+            # the one-launch-per-round regime at the same shape, and the
+            # one-launch regime the shape rule did not pick, where it fits
+            old_e = regime_ms(tj, True, Mn, s1, "rounds", reps)
+            old_b = regime_ms(tj, False, Mn, s2, "rounds", reps)
+            reg_e, reg_b = tj.regime_for(nb, mp, True), tj.regime_for(nb, mp, False)
+            for kname, eigvecs, reg, s in (("B1", True, reg_e, s1), ("B2", False, reg_b, s2)):
+                other = {"sm": "cluster", "cluster": "sm"}.get(reg)
+                # (a cluster needs two pairs a block: mp >= 64)
+                if other and mp >= 4 * tj.CLUSTER and \
+                        tj.smem_bytes(other, mp, eigvecs) <= tj.SMEM_LIMIT:
+                    print(f"phase 2 nb={nb} m={m} mp={mp} {kind}: {kname} {other} regime "
+                          f"instead of {reg}: ms={regime_ms(tj, eigvecs, Mn, s, other, reps):.4f}",
+                          flush=True)
+            regimes["B1"].add(reg_e)
+            regimes["B2"].add(reg_b)
             print(
-                f"phase 2 nb={nb} m={m} {kind}: B1 sweeps={s1} |lam-plain|/scale={e_plain:.2e} "
-                f"|lam-f64|/scale={e_f64:.2e} recon={recon:.2e} (plain {recon_p:.2e}) "
-                f"orth={orth:.2e} (plain {orth_p:.2e}) ms={ms_e:.3f} plain_ms={pms_e:.1f} | "
-                f"B2 sweeps={s2} |bound-plain|/scale={b_plain:.2e} slack/scale={slack:.2e} "
-                f"(plain {slack_p:.2e}) valid={valid} ms={ms_b:.3f} plain_ms={pms_b:.1f}",
+                f"phase 2 nb={nb} m={m} mp={mp} {kind}: B1 {reg_e} sweeps={s1} "
+                f"bitwise_equal_plain={bitwise} "
+                f"|lam-plain|/scale={e_plain:.2e} |lam-f64|/scale={e_f64:.2e} "
+                f"recon={recon:.2e} (plain {recon_p:.2e}) orth={orth:.2e} (plain {orth_p:.2e}) "
+                f"ms={ms_e:.4f} rounds_ms={old_e:.4f} plain_ms={pms_e:.1f} eigh_ms={lib_e:.4f} "
+                f"bound_ms={bnd_e[0]:.4f} ({bnd_e[1]}) | "
+                f"B2 {reg_b} sweeps={s2} |bound-plain|/scale={b_plain:.2e} slack/scale={slack:.2e} "
+                f"(plain {slack_p:.2e}) valid={valid} ms={ms_b:.4f} rounds_ms={old_b:.4f} "
+                f"plain_ms={pms_b:.1f} "
+                f"eigvalsh_ms={lib_b:.4f} bound_ms={bnd_b[0]:.4f} ({bnd_b[1]})",
                 flush=True,
             )
             # Kernel and plain version run the same rotations; FMA
@@ -203,9 +291,11 @@ def kernels_vs_plain(tj) -> dict:
             err["eigh"] = max(err["eigh"], e_plain)
             err["bounds"] = max(err["bounds"], b_plain)
             if kind == "clustered" and (nb, m) == (1, 800):
-                times["eigh"] = (ms_e, pms_e)
+                times["eigh"] = (ms_e, pms_e, lib_e, *bnd_e, reg_e)
             if kind == "clustered" and (nb, m) == (2, 800):
-                times["bounds"] = (ms_b, pms_b)
+                times["bounds"] = (ms_b, pms_b, lib_b, *bnd_b, reg_b)
+    for kname, seen in regimes.items():
+        check(seen == set(tj.REGIMES), f"{kname}: regimes {sorted(seen)} ran in phase 2")
     return {"err": err, "times": times}
 
 
@@ -267,9 +357,14 @@ def pcg_vs_plain(tp) -> dict:
                     ms = cuda_ms(lambda: kern(*args), 10)
                     plain(*args)  # warm
                     plain_ms = cuda_ms(lambda: plain(*args), 1, warmup=False)
-                    line += f" body ms={ms:.3f} plain_ms={plain_ms:.1f} (its {int(kern(*args)[1])})"
+                    # the library call that solves the same system (yardstick)
+                    lib_ms = cuda_ms(lambda: torch.linalg.solve(args[0], args[1]), 10)
+                    its = int(kern(*args)[1])
+                    bnd = cg_bound(k == "B3", n, its)
+                    line += (f" body ms={ms:.3f} plain_ms={plain_ms:.1f} (its {its}) "
+                             f"solve_ms={lib_ms:.4f} bound_ms={bnd[0]:.5f} ({bnd[1]})")
                     if n == 464:
-                        times[k] = (ms, plain_ms)
+                        times[k] = (ms, plain_ms, lib_ms, *bnd)
                 print(line, flush=True)
                 # same algorithm, other summation order: both meet the
                 # target, x agrees to kappa * tol * 10, iterations to 10% + 2
@@ -309,17 +404,23 @@ class Launches:
     def run(self, label: str, needs, solve):
         for fn in self.jacobi.values():
             fn.launches_by_mp.clear()
+            fn.launches_by_regime.clear()
         for fn in self.cg.values():
             fn.launches = 0
         r = solve()
-        # the Jacobi kernels' launches per padded size mp, of this solve
+        # the Jacobi kernels' launches per padded size mp and per regime, of
+        # this solve
         self.by_mp = {k: dict(sorted(fn.launches_by_mp.items())) for k, fn in self.jacobi.items()}
+        by_regime = {k: dict(sorted(fn.launches_by_regime.items())) for k, fn in self.jacobi.items()}
         got = {k: sum(v.values()) for k, v in self.by_mp.items()}
         got.update({k: fn.launches for k, fn in self.cg.items()})
         for k in KERNELS:
             self.total[k] += got[k]
+        per_it = " ".join(f"{k}={v / r.iterations:.2f}" for k, v in got.items())
         print(f"launches in {label}: " + " ".join(f"{k}={v}" for k, v in got.items())
-              + f" | by mp: B1 {self.by_mp['B1']} B2 {self.by_mp['B2']}", flush=True)
+              + f" | by mp: B1 {self.by_mp['B1']} B2 {self.by_mp['B2']}"
+              + f" | by regime: B1 {by_regime['B1']} B2 {by_regime['B2']}"
+              + f" | per iteration ({r.iterations}): {per_it}", flush=True)
         check(all(got[k] > 0 for k in needs), f"{label}: a kernel of its path was not launched")
         return r
 
@@ -537,20 +638,22 @@ def main() -> int:
     for key, kname, name, src, line in (
             ("eigh", "B1", "jacobi_eigh_f32", "jacobi", "jacobi_pallas.py:109"),
             ("bounds", "B2", "jacobi_bounds_f32", "jacobi", "jacobi_pallas.py:185")):
-        ms, plain_ms = k["times"][key]
+        ms, plain_ms, lib_ms, bnd, bound_by, regime = k["times"][key]
         rows.append({
             "name": name, "route": "cuda", "source": f"loraine_tpu_torch/csrc/{src}.cu",
             "replaces": f"loraine_tpu/ops/{line}",
             "launches": launches.total[kname], "max_abs_err": k["err"][key],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
+            "library_ms": lib_ms, "regime": regime,
         })
     for kname, name, line in (("B3", "cg_minres_f64", 327), ("B4", "cg_f32", 48)):
-        ms, plain_ms = kc["times"][kname]
+        ms, plain_ms, lib_ms, bnd, bound_by = kc["times"][kname]
         rows.append({
             "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/pcg.cu",
             "replaces": f"loraine_tpu/ops/pcg_pallas.py:{line}",
             "launches": launches.total[kname], "max_abs_err": kc["err"][kname],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
+            "library_ms": lib_ms,
         })
     print(json.dumps({"kernels": rows}))
     print(card)

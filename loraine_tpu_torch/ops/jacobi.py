@@ -13,6 +13,15 @@ dispatchers `jacobi_eigh_padded` / `jacobi_bounds_padded` take the plain
 version only for a tensor on the CPU; for a CUDA tensor they launch the
 kernel or raise, with no fallback.
 
+The kernel has three regimes, chosen by the shape alone (`regime_for`):
+"sm" (one block per matrix in shared memory), "cluster" (one 16-block
+thread block cluster per matrix; B1 adds a cluster for the eigenvector
+rows) and, past a cluster's capacity, "rounds" (one launch per round). In
+"sm" and "cluster" a call is one launch of the Jacobi kernel. Each regime
+rounds every operation once in the plain version's order, so on the card
+B1 equals the plain version bit for bit and B2 differs only by the order
+of the Gershgorin row sums.
+
 Algorithm (the Pallas kernel's, in index form): round-robin ("tournament")
 parallel ordering. The Pallas kernel keeps rows in tournament-position order,
 rotates the pairs of positions (i, i + mp/2) and then permutes the rows
@@ -49,6 +58,9 @@ __all__ = [
     "jacobi_bounds_plain",
     "jacobi_eigh_cuda",
     "jacobi_bounds_cuda",
+    "regime_for",
+    "smem_bytes",
+    "cluster_pairs",
 ]
 
 _SENTINEL = 2.0  # pad-diagonal value; real spectrum is normalized into [-1, 1]
@@ -191,15 +203,82 @@ def jacobi_bounds_plain(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, to
 # --------------------------------------------------------------------------
 
 
+# The kernel's regimes, chosen by the shape alone (csrc/jacobi.cu's note):
+# "sm", one block per matrix in shared memory; "cluster", one cluster of
+# CLUSTER blocks per matrix (B1 adds a second cluster for the eigenvector
+# rows); "rounds", one launch per round, beyond a cluster's capacity. The
+# index in REGIMES is the C side's regime code.
+REGIMES = ("rounds", "sm", "cluster")
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
+CLUSTER = 16  # blocks per cluster
+
+
+def _ceil_div(x: int, k: int) -> int:
+    return -(-x // k)
+
+
+def cluster_pairs(mp: int) -> list:
+    """[lo_b, hi_b) of the pair positions block b of a cluster owns (its rows
+    are the top positions lo_b..hi_b-1 and the bottom ones mp/2 + lo_b..);
+    csrc/jacobi.cu::pair_lo."""
+    half = mp // 2
+    return [(b * half // CLUSTER, (b + 1) * half // CLUSTER) for b in range(CLUSTER)]
+
+
+def smem_bytes(regime: str, mp: int, eigvecs: bool) -> int:
+    """Dynamic shared memory a block of ``regime`` needs (csrc/jacobi.cu's
+    sm_bytes and cluster_bytes): A's rows at stride mp + 1 ("sm") or mp + 4
+    ("cluster"), the eigenvector rows at stride mp; per pair a row record
+    (16 B) and an angle (8 B), both double buffered, and two label words; in
+    a cluster, two slot tables, two sets of 12 edge values and the
+    neighbours' slot numbers (16 B). B1's consumer blocks hold mp x
+    (ceil(mp/16) rounded up to even) eigenvector entries, the angles and the
+    labels."""
+    if regime == "sm":
+        return 4 * mp * (mp + 1) + 4 * mp * mp * eigvecs + 28 * mp
+    if regime == "cluster":
+        pairs = _ceil_div(mp // 2, CLUSTER)
+        slots = 2 * pairs + 2
+        rows = 32 * pairs + 12 * mp + 8 * slots + 112 + 4 * slots * (mp + 4)
+        cols = 4 * mp * 2 * _ceil_div(_ceil_div(mp, CLUSTER), 2) + 8 * mp
+        return max(rows, cols) if eigvecs else rows
+    if regime == "rounds":
+        return 0
+    raise ValueError(f"unknown regime {regime!r}")
+
+
+# Where both one-launch regimes fit, the cluster regime is the faster one
+# from these padded sizes on (B1, B2; chip_smoke.py phase 2 times both)...
+CLUSTER_FROM = {True: 144, False: 192}
+# ...while one wave of clusters holds every matrix: an H100 holds at least 6
+# clusters of 16 blocks at once (B1, two clusters a matrix, takes as long at
+# nb 3 as at nb 1, twice as long at nb 4). Past that the matrices run in
+# waves, and "sm", one block a matrix all at once, is the faster.
+CLUSTER_WAVE = 6
+
+
+def regime_for(nb: int, mp: int, eigvecs: bool) -> str:
+    """The regime of nb matrices at padded size mp: "sm" below CLUSTER_FROM
+    or past one wave of clusters, where its block fits SMEM_LIMIT (B1 to
+    mp 160, B2 to 224); else "cluster" where its blocks fit (to mp 912);
+    else "rounds"."""
+    if smem_bytes("sm", mp, eigvecs) <= SMEM_LIMIT and (
+            mp < CLUSTER_FROM[eigvecs] or nb * (1 + eigvecs) > CLUSTER_WAVE):
+        return "sm"
+    if smem_bytes("cluster", mp, eigvecs) <= SMEM_LIMIT:
+        return "cluster"
+    return "rounds"
+
+
 def _lib() -> ctypes.CDLL:
     from ..utils.cuda_build import load_library
 
     lib = load_library("jacobi")
     if not getattr(lib, "_lt_bound", False):
-        ptrs = [ctypes.c_void_p] * 5
-        ints = [ctypes.c_int] * 3
+        ints = [ctypes.c_int] * 4
+        lib.lt_jacobi_eigh_f32.argtypes = [ctypes.c_void_p] * 6 + ints + [ctypes.c_void_p]
+        lib.lt_jacobi_bounds_f32.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
         for fn in (lib.lt_jacobi_eigh_f32, lib.lt_jacobi_bounds_f32):
-            fn.argtypes = ptrs + ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._lt_bound = True
     return lib
@@ -212,15 +291,42 @@ def _check_padded(Mp: torch.Tensor) -> None:
         raise ValueError(f"mp must be a multiple of 16, got {Mp.shape[1]}")
 
 
-def _launch(fn, Mp: torch.Tensor, outs, sweeps: int) -> None:
+def _run(eigvecs: bool, Mp: torch.Tensor, outs, sweeps: int, regime: str) -> None:
+    """Launch B1 (eigvecs) or B2 on Mp in ``regime``, writing ``outs``
+    (B1: VT, lam; B2: g, h). Scratch comes from torch.empty; the kernel
+    allocates nothing. Raises on any launch error."""
     nb, mp, _ = Mp.shape
-    A = Mp.contiguous().clone()  # consumed by the kernel
-    A2 = torch.empty_like(A)
-    table = _table_on(mp, Mp.device, torch.int32)
+    nrounds = sweeps * (mp - 1)
+    A = Mp.contiguous()
+    a2 = table = log = None
+    if regime == "rounds":  # the round kernel works on two A buffers in turn
+        A = A.clone()
+        a2 = torch.empty_like(A)
+        table = _table_on(mp, Mp.device, torch.int32)
+    elif regime == "cluster" and eigvecs:  # the angle log: (c, flag, s, flag) entries
+        log = torch.zeros((nb, nrounds, mp // 2, 4), dtype=torch.int32, device=Mp.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
     with torch.cuda.device(Mp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(A.data_ptr(), A2.data_ptr(), *(o.data_ptr() for o in outs),
-                table.data_ptr(), nb, mp, sweeps * (mp - 1), stream)
+        if eigvecs:
+            fn = lib.lt_jacobi_eigh_f32
+            rc = fn(A.data_ptr(), ptr(a2), *(o.data_ptr() for o in outs), ptr(table), ptr(log),
+                    nb, mp, nrounds, REGIMES.index(regime), stream)
+        else:
+            fn = lib.lt_jacobi_bounds_f32
+            rc = fn(A.data_ptr(), ptr(a2), *(o.data_ptr() for o in outs), ptr(table),
+                    nb, mp, nrounds, REGIMES.index(regime), stream)
+    if rc == -1:
+        raise RuntimeError(
+            f"{fn.__name__}: no cluster of {CLUSTER} blocks with "
+            f"{smem_bytes(regime, mp, eigvecs)} bytes of shared memory each can be resident "
+            f"on this card{' in pairs' if eigvecs else ''} (cudaOccupancyMaxActiveClusters)")
+    if rc == -2:
+        raise RuntimeError(f"{fn.__name__}: mp={mp} does not fit regime {regime!r}")
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
 
@@ -229,10 +335,12 @@ def jacobi_eigh_cuda(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch
     """B1 on the card: same contract as `jacobi_eigh_plain`."""
     _check_padded(Mp)
     nb, mp, _ = Mp.shape
+    regime = regime_for(nb, mp, True)
     VT = torch.empty_like(Mp)
     lam = torch.empty((nb, mp), dtype=torch.float32, device=Mp.device)
-    _launch(_lib().lt_jacobi_eigh_f32, Mp, (VT, lam), sweeps)
+    _run(True, Mp, (VT, lam), sweeps, regime)
     jacobi_eigh_cuda.launches_by_mp[mp] += 1
+    jacobi_eigh_cuda.launches_by_regime[regime] += 1
     return lam, VT
 
 
@@ -240,17 +348,21 @@ def jacobi_bounds_cuda(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, tor
     """B2 on the card: same contract as `jacobi_bounds_plain`."""
     _check_padded(Mp)
     nb, mp, _ = Mp.shape
+    regime = regime_for(nb, mp, False)
     g = torch.empty((nb, mp), dtype=torch.float32, device=Mp.device)
     h = torch.empty_like(g)
-    _launch(_lib().lt_jacobi_bounds_f32, Mp, (g, h), sweeps)
+    _run(False, Mp, (g, h), sweeps, regime)
     jacobi_bounds_cuda.launches_by_mp[mp] += 1
+    jacobi_bounds_cuda.launches_by_regime[regime] += 1
     return g, h
 
 
 # launch counts per padded size mp (a problem with several block groups
-# launches each kernel at several mp in one iteration); the total is the sum
-jacobi_eigh_cuda.launches_by_mp = collections.Counter()
-jacobi_bounds_cuda.launches_by_mp = collections.Counter()
+# launches each kernel at several mp in one iteration; the total is the
+# sum) and per regime
+for _fn in (jacobi_eigh_cuda, jacobi_bounds_cuda):
+    _fn.launches_by_mp = collections.Counter()
+    _fn.launches_by_regime = collections.Counter()
 
 
 def _route(Mp: torch.Tensor, plain, cuda, sweeps: int):

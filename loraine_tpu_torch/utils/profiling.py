@@ -10,8 +10,10 @@ cuBLAS handles) and two timed solves; one solve with the step's phase
 functions wrapped in `torch.cuda.synchronize()` (ms per iteration of each;
 the syncs inflate the total); and a `torch.profiler` trace of two warm steps
 from the iterate halfway through the solve: the device kernels' time over
-the traced wall (busy share), the top kernels, and the Jacobi launches per
-padded size mp. Prints one JSON line per case; ``--out`` also writes all
+the traced wall (busy share), the top kernels, the device time and launches
+of the kernels of csrc/jacobi.cu (their share of device time), and the
+Jacobi wrappers' calls per padded size mp and per regime. Prints the card's
+name and power limit, then one JSON line per case; ``--out`` also writes all
 of them to FILE.
 """
 from __future__ import annotations
@@ -40,6 +42,9 @@ CASES = {
 # the functions `ipm/step.py` imports that the synced run times
 PHASES = ("nt_scale", "eig_bounds_jacobi", "schur_group", "schur_lp", "chol_reg", "tri_inv",
           "Aop", "Aadj")
+# the device kernels of csrc/jacobi.cu, as the trace names them
+JACOBI_KERNELS = ("sm_kernel<", "cluster_kernel<", "round_kernel", "gersh_kernel",
+                  "identity_kernel", "diag_kernel")
 
 
 def synced_phases(problem, opts):
@@ -76,6 +81,7 @@ def traced(problem, opts, state, steps: int = 2):
     torch.cuda.synchronize()
     for fn in (tj.jacobi_eigh_cuda, tj.jacobi_bounds_cuda):
         fn.launches_by_mp.clear()
+        fn.launches_by_regime.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -99,22 +105,27 @@ def traced(problem, opts, state, steps: int = 2):
         rows = [r for r in allrows if not r[0].startswith(("aten::", "cuda"))]
     rows.sort(key=lambda x: -x[1])
     busy = sum(r[1] for r in rows)
+    jac = [r for r in rows if any(k in r[0] for k in JACOBI_KERNELS)]
+    jac_ms = sum(r[1] for r in jac)
     return {"steps": steps, "wall_ms": 1e3 * wall, "device_ms": busy,
             "busy_share": busy / (1e3 * wall), "top": rows[:14],
+            "jacobi_device_ms": jac_ms, "jacobi_share": jac_ms / busy if busy else None,
+            "jacobi_kernel_launches": sum(r[2] for r in jac),
             "jacobi_launches_by_mp": {
                 "B1": dict(tj.jacobi_eigh_cuda.launches_by_mp),
-                "B2": dict(tj.jacobi_bounds_cuda.launches_by_mp)}}
+                "B2": dict(tj.jacobi_bounds_cuda.launches_by_mp)},
+            "jacobi_launches_by_regime": {
+                "B1": dict(tj.jacobi_eigh_cuda.launches_by_regime),
+                "B2": dict(tj.jacobi_bounds_cuda.launches_by_regime)}}
 
 
 def card() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            check=True, capture_output=True, text=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError):
-        return torch.cuda.get_device_name(0)
+    """The card's name and power limit, as nvidia-smi reports them; raises
+    where nvidia-smi fails, so that no number goes out without them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def profile_case(path: str, opts) -> dict:
@@ -146,6 +157,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
     out = {"card": card()}
+    print("card", out["card"], flush=True)
     for name in cases:
         out[name] = profile_case(*CASES[name])
         print(name, json.dumps(out[name], default=str), flush=True)

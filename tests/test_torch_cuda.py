@@ -13,23 +13,36 @@ from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
 from torch_cases import spectrum_matrix
 
 
+# one shape per regime of each kernel (B1, B2): (sm, sm), (sm, sm),
+# (cluster, cluster), (cluster, sm), (cluster, cluster), (rounds, rounds),
+# (sm, sm) past one wave of B1's clusters
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,m", [(1, 56), (2, 56), (1, 800)])
+@pytest.mark.parametrize("nb,m", [(1, 56), (2, 56), (1, 800), (1, 176), (1, 240), (1, 1000),
+                                  (4, 144)])
 def test_kernels_match_plain_on_card(nb, m):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     A = torch.from_numpy(spectrum_matrix("clustered", m, nb, seed=m)).cuda()
     Mn, scale = tj._normalize_pad(A)
+    mp = Mn.shape[-1]
     s1, s2 = tj.jacobi_sweeps_for(m), tj.bound_sweeps_for(m)
-    lam_k, V = tj._sorted_eigh(*tj.jacobi_eigh_cuda(Mn, s1), m, scale)
-    lam_p, _ = tj._sorted_eigh(*tj.jacobi_eigh_plain(Mn, s1), m, scale)
-    lo_k, hi_k = tj._widened_bounds(*tj.jacobi_bounds_cuda(Mn, s2), m, scale, A.dtype)
-    lo_p, hi_p = tj._widened_bounds(*tj.jacobi_bounds_plain(Mn, s2), m, scale, A.dtype)
+    kernels = ((tj.jacobi_eigh_cuda, True), (tj.jacobi_bounds_cuda, False))
+    before = [fn.launches_by_regime.copy() for fn, _ in kernels]
+    out_k = tj.jacobi_eigh_cuda(Mn, s1)
+    g_h = tj.jacobi_bounds_cuda(Mn, s2)
+    for (fn, eigvecs), old in zip(kernels, before):  # one launch, in the shape's regime
+        assert fn.launches_by_regime - old == {tj.regime_for(nb, mp, eigvecs): 1}
+    out_p = tj.jacobi_eigh_plain(Mn, s1)
     torch.cuda.synchronize()
-    # Unsorted outputs are label-ordered and legitimately differ on clustered
-    # spectra (FMA rounding decides which label lands on which eigenvalue), so
-    # compare the sorted seed and the certified bounds: the contracts of
-    # tests/test_jacobi_pallas.py.
+    # every regime rounds each operation once, in the plain version's order
+    # (csrc/jacobi.cu): B1 equals the plain version's tensor ops bit for bit
+    assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    # the contracts of tests/test_jacobi_pallas.py on the sorted seed and the
+    # certified bounds (B2's row sums add in another order than torch's)
+    lam_k, V = tj._sorted_eigh(*out_k, m, scale)
+    lam_p, _ = tj._sorted_eigh(*out_p, m, scale)
+    lo_k, hi_k = tj._widened_bounds(*g_h, m, scale, A.dtype)
+    lo_p, hi_p = tj._widened_bounds(*tj.jacobi_bounds_plain(Mn, s2), m, scale, A.dtype)
     ev = torch.linalg.eigvalsh(A)
     sc = scale[:, None]
     assert ((lam_k.double() - lam_p.double()).abs() / sc).max() < 5e-5

@@ -107,3 +107,152 @@ def test_cpu_tensors_take_the_plain_version():
     assert [sum(fn.launches_by_mp.values()) for fn in fns] == before
     with pytest.raises(ValueError):
         tj.jacobi_eigh_padded(torch.zeros((1, 16, 16), device="meta"), 1)
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel's regimes and its data movement, modelled in numpy
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb,mp,b1,b2", [
+    (1, 16, "sm", "sm"), (1, 64, "sm", "sm"), (1, 112, "sm", "sm"), (1, 128, "sm", "sm"),
+    (1, 144, "cluster", "sm"), (1, 160, "cluster", "sm"),  # shipped: tru3 .. tru9/vib9
+    (3, 160, "cluster", "sm"), (4, 144, "sm", "sm"),       # one wave of clusters, two
+    (1, 176, "cluster", "sm"), (1, 192, "cluster", "cluster"), (1, 224, "cluster", "cluster"),
+    (7, 224, "cluster", "sm"), (1, 240, "cluster", "cluster"),
+    (1, 800, "cluster", "cluster"), (2, 800, "cluster", "cluster"),  # maxG11
+    (1, 816, "cluster", "cluster"),                                  # thetaG11
+    (1, 912, "cluster", "cluster"), (1, 928, "rounds", "rounds"), (1, 1008, "rounds", "rounds"),
+])
+def test_regime_by_shape(nb, mp, b1, b2):
+    for eigvecs, want in ((True, b1), (False, b2)):
+        got = tj.regime_for(nb, mp, eigvecs)
+        assert got == want
+        assert tj.smem_bytes(got, mp, eigvecs) <= tj.SMEM_LIMIT
+        fits = {r: tj.smem_bytes(r, mp, eigvecs) <= tj.SMEM_LIMIT for r in ("sm", "cluster")}
+        if got == "rounds":  # only past both one-launch regimes
+            assert not any(fits.values())
+        if got == "cluster" and fits["sm"]:  # the faster, and all in one wave
+            assert mp >= tj.CLUSTER_FROM[eigvecs]
+            assert nb * (2 if eigvecs else 1) <= tj.CLUSTER_WAVE
+        if got == "sm":  # the slower one, or more matrices than a wave holds
+            assert mp < tj.CLUSTER_FROM[eigvecs] or nb * (1 + eigvecs) > tj.CLUSTER_WAVE
+
+
+def _label_src(i, half, mp):
+    """csrc/jacobi.cu::label_src."""
+    if i == 0:
+        return 0
+    if i == 1:
+        return half
+    if i < half:
+        return i - 1
+    if i < mp - 1:
+        return i + 1
+    return half - 1
+
+
+@pytest.mark.parametrize("mp", [16, 64, 160, 800, 816])
+def test_label_recurrence_is_pair_table(mp):
+    # the kernel's in-shared-memory labels: start at the identity, advance
+    # by label_src after every round
+    half = mp // 2
+    src = np.array([_label_src(i, half, mp) for i in range(mp)])
+    table = tj.pair_table(mp)
+    lab = np.arange(mp)
+    for r in range(2 * (mp - 1)):  # two sweeps: the table repeats
+        np.testing.assert_array_equal(lab[:half], table[r % (mp - 1), 0])
+        np.testing.assert_array_equal(lab[half:], table[r % (mp - 1), 1])
+        lab = lab[src]
+    np.testing.assert_array_equal(lab, np.arange(mp))
+
+
+def _next_slots(sl, b, K):
+    """csrc/jacobi.cu::cluster_kernel's slot table after the row move of
+    block b (K local pairs): local positions 0..2K-1, then the two free."""
+    f0, f1 = sl[2 * K], sl[2 * K + 1]
+    last = tj.CLUSTER - 1
+    new = []
+    for l in range(2 * K + 2):
+        if l < K:
+            if b == 0:
+                v = sl[0] if l == 0 else sl[K] if l == 1 else sl[l - 1]
+            else:
+                v = f0 if l == 0 else sl[l - 1]
+        elif l < 2 * K - 1:
+            v = sl[l + 1]
+        elif l == 2 * K - 1:
+            v = sl[K - 1] if b == last else f1
+        elif l == 2 * K:
+            v = f0 if b == 0 else f1 if b == last else sl[K - 1]
+        else:
+            v = sl[K - 1] if b == 0 else sl[K]
+        new.append(v)
+    return new
+
+
+class _ClusterModel:
+    """The rows of one matrix in a cluster: block b holds the rows of its
+    top and bottom pair positions in row slots, through a slot table, and
+    each round pulls one row from each neighbour into its free slots."""
+
+    def __init__(self, M):
+        self.mp = mp = M.shape[0]
+        self.half = half = mp // 2
+        self.split = tj.cluster_pairs(mp)
+        self.K = [hi - lo for lo, hi in self.split]
+        nslots = 2 * -(-half // tj.CLUSTER) + 2
+        self.rows = [np.zeros((nslots, mp), M.dtype) for _ in self.split]
+        self.sl = [list(range(2 * k + 2)) for k in self.K]
+        for b, (lo, _) in enumerate(self.split):
+            K = self.K[b]
+            for l in range(2 * K):
+                self.rows[b][l] = M[self.label0(b, l)]
+
+    def label0(self, b, l):
+        lo, K = self.split[b][0], self.K[b]
+        return lo + l if l < K else self.half + lo + l - K
+
+    def local(self, b):
+        """(top rows, bottom rows) of block b, as slot indices."""
+        K = self.K[b]
+        return self.sl[b][:K], self.sl[b][K:2 * K]
+
+    def move(self):
+        last = tj.CLUSTER - 1
+        for b, K in enumerate(self.K):
+            f0, f1 = self.sl[b][2 * K], self.sl[b][2 * K + 1]
+            # the free slots are not in use, the pulled rows are
+            assert {f0, f1}.isdisjoint(self.sl[b][:2 * K])
+            if b > 0:
+                self.rows[b][f0] = self.rows[b - 1][self.sl[b - 1][self.K[b - 1] - 1]]
+            if b < last:
+                self.rows[b][f1] = self.rows[b + 1][self.sl[b + 1][self.K[b + 1]]]
+        self.sl = [_next_slots(sl, b, K) for b, (sl, K) in enumerate(zip(self.sl, self.K))]
+        for sl in self.sl:
+            assert sorted(sl) == list(range(len(sl)))  # a permutation of the slots
+
+
+@pytest.mark.parametrize("mp", [64, 160, 800, 816, 912])
+def test_cluster_ownership_follows_pair_table(mp):
+    half = mp // 2
+    split = tj.cluster_pairs(mp)
+    # a contiguous split of the pair positions; block 0 holds positions 0, 1
+    assert split[0][0] == 0 and split[-1][1] == half
+    assert all(a[1] == b[0] for a, b in zip(split, split[1:]))
+    assert min(hi - lo for lo, hi in split) >= 2
+    # the kernel's owner formula for the angle exchange
+    for b, (lo, hi) in enumerate(split):
+        for k in range(lo, hi):
+            assert ((k + 1) * tj.CLUSTER - 1) // half == b
+    # each row carries its label; after every move, block b holds exactly
+    # the rows at its positions in pair_table's next round
+    M = np.arange(mp, dtype=np.float64)[:, None] * np.ones(mp)
+    model = _ClusterModel(M)
+    table = tj.pair_table(mp)
+    rounds = mp - 1 if mp <= 160 else 40
+    for r in range(rounds + 1):
+        for b, (lo, hi) in enumerate(split):
+            top, bot = model.local(b)
+            np.testing.assert_array_equal(model.rows[b][top, 0], table[r % (mp - 1), 0, lo:hi])
+            np.testing.assert_array_equal(model.rows[b][bot, 0], table[r % (mp - 1), 1, lo:hi])
+        model.move()
