@@ -29,19 +29,28 @@ Phases:
   5. kernel launch counts of phases 3-4 (every solve phase prints its
      launches per kernel, per padded size mp, per regime and per
      iteration).
-  6. each CG kernel (B3 f64 min-residual, B4 f32) inside its refinement
-     wrapper against its plain version on the card, at n in
-     {21, 36, 104, 464, 1000} (control1, tru3/vib3, theta1, theta_G100): (a) identity preconditioner, kappa 1e3, tol 1e-10;
-     (b) Mli = inv(chol(H + 1e-6 I)), kappa(H) 1e8, tol 1e-12 (B3) and 1e-9
-     (B4); body times at n = 464 and 1000, beside torch.linalg.solve on
-     the same system and the bound.
+  6. each CG kernel (B3 f64 min-residual, B4 f32, the f64 polish) in every
+     regime that fits ("block", "cluster" of 8 and of 16 blocks, "grid")
+     against its plain version on the card, at n in {21, 36, 104, 464,
+     1000} (control1, tru3/vib3, theta1, theta_G100; "grid" beyond): B3
+     and B4 inside their refinement wrappers, the polish on Hp u = Mli b;
+     (a) identity preconditioner, kappa 1e3, tol 1e-10; (b) Mli =
+     inv(chol(H + 1e-6 I)), kappa(H) 1e8, tol 1e-12 (B3, polish) and 1e-9
+     (B4); fails unless every regime of each kernel ran. Then one full
+     solve of each body in every regime that fits at n in {21, 36, 104,
+     128, 160, 256, 464, 512, 1000}, timed beside the plain version,
+     torch.linalg.solve on the same system and the bound ("grid" is the
+     kernel of the first port; beside the polish kernel, the eager f64
+     loop it replaced).
   7. SDPLIB control1 with the CG path (kit=1, `bench.py` options) on the
-     card: OPTIMAL at 17.78463, beside the port's CPU run.
-  8. theta1 with the CG path, materialized (B3) and matrix-free (SMW
-     H_alpha) routes: OPTIMAL at 23.0.
+     card: OPTIMAL at 17.78463, beside the port's CPU run; B3 in "block".
+  8. theta1 with the CG path, materialized (B3 in "block", and the polish
+     kernel) and matrix-free (SMW H_alpha) routes: OPTIMAL at 23.0.
   9. theta_G100, a Lovasz theta SDP at SDPLIB theta2's size (100 vertices,
-     463 edges from a seed, n=464, one 100x100 block), kit=1 and kit=0 on
-     the card: both OPTIMAL, objectives within 1e-5 relative.
+     463 edges from a seed, n=464, one 100x100 block), kit=1 (B3 in
+     "cluster") and kit=0 on the card: both OPTIMAL, objectives within 1e-5
+     relative; kit=1 prints the CG iterations of B3 and of the polish per
+     IPM iteration.
  10. control1 with the f32 CG kernel (cg_kernel='pallas', loose options).
  11. SDPLIB tru9 at full size (n=3240, one 145x145 block padded to 152,
      6480 LP variables; sparse COO storage by the auto rule; `bench.py`
@@ -50,14 +59,15 @@ Phases:
      and 144; Jacobi mp 160 and 144; 6480 LP variables; sparse): OPTIMAL at
      0.01276683 in 34 +- 2 iterations, with B1 and B2 launched at both mp.
  13. SDPLIB tru3 and vib3 (LP cone, n=36) with kit=0 and kit=1 (control1-cg
-     options, materialized route: B3) on the card beside the port's CPU
-     run: all OPTIMAL, iteration counts within one.
+     options, materialized route: B3 in "block" and the polish) on the
+     card beside the port's CPU run: all OPTIMAL, iteration counts within
+     one.
  14. the sparse adjoint and the sparse Schur assembly, each called twice on
      tru9's data on the card: bitwise-equal results.
  15. SDPLIB thetaG11 at full size (n=2401, one 801x801 block, rank-1 via
      `datarank=-1`; padded 808, Jacobi mp 816): OPTIMAL at 400.00023146 in
      17 +- 2 iterations.
- 16. launch counts of the four kernels over the solve phases.
+ 16. launch counts of the five kernels over the solve phases.
 
 The reference values of phases 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
@@ -68,6 +78,7 @@ name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -97,11 +108,10 @@ SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 128), (1, 144), (4, 144), (1, 
 # tensor cores, f64 on the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
 PCG_SIZES = (21, 36, 104, 464, 1000)
-# bench.py:77-79 (control1-cg) and :93-95 (theta1-cg)
-CONTROL1_CG = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
-               "initpoint": 1, "verb": 0}
-THETA1_CG = {"kit": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-5, "preconditioner": 1,
-             "initpoint": 1, "verb": 0}
+# the sizes phase 6 times the CG bodies at
+PCG_TIMED = (21, 36, 104, 128, 160, 256, 464, 512, 1000)
+# the sizes the time per CG iteration is fitted over
+FIT_SIZES = (104, 160, 256, 464, 512)
 # tests/test_pcg_pallas.py:76-82
 CONTROL1_F32 = {"kit": 1, "preconditioner": 1, "eDIMACS": 3e-3, "tol_cg_min": 1e-4,
                 "initpoint": 1, "verb": 0, "cg_kernel": "pallas", "maxit": 40}
@@ -110,7 +120,9 @@ LARGE_KIT0 = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "verb": 0}
 THETAG11_OPTS = dict(LARGE_KIT0, datarank=-1)
 # tests/test_torch_lp.py: kit=0 at eDIMACS 1e-7 (tests/test_ipm_e2e.py:54-60)
 LP_KIT0 = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
-KERNELS = ("B1", "B2", "B3", "B4")
+KERNELS = ("B1", "B2", "B3", "B4", "polish")
+# the kernels of the kit=1 materialized route (B3 and the polish after it)
+KIT1_NEEDS = ("B1", "B2", "B3", "polish")
 
 
 def check(cond: bool, what: str) -> None:
@@ -309,96 +321,210 @@ def cg_system(n: int, cond: float, seed: int):
     return H, torch.from_numpy(rng.standard_normal(n)).cuda()
 
 
+def cg_regimes(tp, n: int, dtype) -> list:
+    """(label, regime, blocks) of every regime of the CG kernel that fits an
+    n x n system in ``dtype``: "block", "cluster" at each cluster size,
+    "grid" (the first port's kernel)."""
+    out = [("block", "block", 1)] if tp._fits("block", n, dtype) else []
+    out += [(f"cluster{c}", "cluster", c) for c in tp.CLUSTER_SIZES
+            if tp._fits("cluster", n, dtype, c)]
+    return out + [("grid", "grid", 1)]
+
+
+def rule_label(tp, n: int, dtype) -> str:
+    """The label of the regime the wrappers pick for n (by shape alone)."""
+    reg = tp.regime_for_cg(n, dtype)
+    return f"cluster{tp.CLUSTER_BLOCKS}" if reg == "cluster" else reg
+
+
+# the CG kernels, by their names in `ops/pcg.py::_run`
+CG_KERNELS = ("B3", "B4", "polish")
+
+
+def forced(tp, kernel: str, regime: str, blocks: int):
+    """The body of ``kernel`` forced into one regime (a comparison: the
+    wrappers choose the regime by shape alone); not counted."""
+    if kernel == "B3":
+        return lambda Hp, b, tol2, maxiter, stall: tp._run("B3", Hp, b, tol2, maxiter, stall,
+                                                           regime, blocks)
+    return lambda Hp, b, tol2, maxiter: tp._run(kernel, Hp, b, tol2, maxiter, 0, regime, blocks)
+
+
 def pcg_vs_plain(tp) -> dict:
-    """Phase 6. Each CG kernel inside its refinement wrapper against the
-    wrapper around its plain version, on the same inputs. Returns per-kernel
-    max |x_kernel - x_plain| / max |x_plain| and the body times at n = 464."""
-    err = {"B3": 0.0, "B4": 0.0}
-    times = {}
+    """Phase 6. Each CG kernel, in every regime that fits, against its plain
+    version on the same inputs: B3 and B4 inside their refinement wrappers,
+    the polish kernel on the split-preconditioned system Hp u = Mli b with
+    ||r|| <= tol ||Mli b||. Returns per-kernel max |x - x_plain| /
+    max |x_plain|."""
+    from loraine_tpu_torch.ops.linalg import sym
+
+    err = dict.fromkeys(CG_KERNELS, 0.0)
+    ran = {k: set() for k in CG_KERNELS}
     bodies = {
-        "B3": (tp.pcg_kernel_ff, tp.cg_minres_f64_cuda, tp.cg_minres_plain),
-        "B4": (tp.pcg_kernel_mixed, tp.cg_f32_cuda, tp.cg_f32_plain),
+        "B3": (tp.pcg_kernel_ff, tp.cg_minres_plain, torch.float64),
+        "B4": (tp.pcg_kernel_mixed, tp.cg_f32_plain, torch.float32),
     }
     for n in PCG_SIZES:
         for case in ("a", "b"):
             eye = torch.eye(n, dtype=torch.float64, device="cuda")
             if case == "a":
-                kappa, tols = 1e3, {"B3": 1e-10, "B4": 1e-10}
+                kappa, tols = 1e3, {"B3": 1e-10, "B4": 1e-10, "polish": 1e-10}
                 H, b = cg_system(n, kappa, seed=n)
                 Mli = eye
             else:
                 # b = H x_true: with a normal b, x ~ kappa |b| and the f64
                 # residual b - H x itself is only accurate to ~u kappa ~ 1e-8
-                kappa, tols = 1e8, {"B3": 1e-12, "B4": 1e-9}
+                kappa, tols = 1e8, {"B3": 1e-12, "B4": 1e-9, "polish": 1e-12}
                 H, x_true = cg_system(n, kappa, seed=n + 1)
                 b = H @ x_true
                 L = torch.linalg.cholesky(H + 1e-6 * eye)
                 Mli = torch.linalg.solve_triangular(L, eye, upper=False)
-            for k, (wrapper, kern, plain) in bodies.items():
+            Hp = sym(Mli @ H @ Mli.mT)
+            rhs = Mli @ b
+            for k in CG_KERNELS:
                 tol = tols[k]
-                xk, ik = wrapper(H, Mli, b, tol, 10000, body=kern)
-                xp, ip = wrapper(H, Mli, b, tol, 10000, body=plain)
-                torch.cuda.synchronize()
-                nb = float(torch.linalg.norm(b))
-                res_k = float(torch.linalg.norm(b - H @ xk)) / nb
-                res_p = float(torch.linalg.norm(b - H @ xp)) / nb
-                dx = float((xk - xp).abs().max() / xp.abs().max())
-                ik, ip = int(ik), int(ip)
-                line = (f"phase 6 {k} n={n} ({case}) tol={tol:.0e}: res={res_k:.2e} "
-                        f"(plain {res_p:.2e}) |x-plain|/|x|={dx:.2e} its={ik} (plain {ip})")
-                if case == "a" and n in (464, 1000):
-                    # one full solve of the body: the wrapper's first pass
-                    tol2 = torch.tensor((0.25 * tol) ** 2, dtype=torch.float64, device="cuda")
-                    rhs = b / torch.linalg.norm(b)
-                    if k == "B3":
-                        args = (H, rhs, tol2, 4 * n + 128, tp.stall_limit(n))
+                if k == "polish":
+                    # the polish's own system; its condition number sets
+                    # how far two solutions within tol may lie apart
+                    A, rhs_k, kap = Hp, rhs, float(torch.linalg.cond(Hp))
+                    tol2 = (tol * torch.linalg.norm(rhs)) ** 2
+                    xp, ip = tp.cg_f64_plain(Hp, rhs, tol2, 10000)
+                else:
+                    wrapper, plain, dtype = bodies[k]
+                    A, rhs_k, kap = H, b, kappa
+                    xp, ip = wrapper(H, Mli, b, tol, 10000, body=plain)
+                nrm = float(torch.linalg.norm(rhs_k))
+                res_p = float(torch.linalg.norm(rhs_k - A @ xp)) / nrm
+                ip = int(ip)
+                dtype = torch.float32 if k == "B4" else torch.float64
+                for label, regime, blocks in cg_regimes(tp, n, dtype):
+                    body = forced(tp, k, regime, blocks)
+                    if k == "polish":
+                        xk, ik = body(Hp, rhs, tol2, 10000)
                     else:
-                        args = (H.float(), rhs.float(), tol2.float(), 2 * n + 64)
-                    ms = cuda_ms(lambda: kern(*args), 10)
-                    plain(*args)  # warm
-                    plain_ms = cuda_ms(lambda: plain(*args), 1, warmup=False)
-                    # the library call that solves the same system (yardstick)
-                    lib_ms = cuda_ms(lambda: torch.linalg.solve(args[0], args[1]), 10)
-                    its = int(kern(*args)[1])
-                    bnd = cg_bound(k == "B3", n, its)
-                    line += (f" body ms={ms:.3f} plain_ms={plain_ms:.1f} (its {its}) "
-                             f"solve_ms={lib_ms:.4f} bound_ms={bnd[0]:.5f} ({bnd[1]})")
-                    if n == 464:
-                        times[k] = (ms, plain_ms, lib_ms, *bnd)
-                print(line, flush=True)
-                # same algorithm, other summation order: both meet the
-                # target, x agrees to kappa * tol * 10, iterations to 10% + 2
-                check(res_k <= tol and res_p <= tol, f"{k} n={n} ({case}) residual")
-                check(dx <= kappa * tol * 10, f"{k} n={n} ({case}) x vs plain")
-                check(abs(ik - ip) <= 0.1 * ip + 2, f"{k} n={n} ({case}) iterations vs plain")
-                err[k] = max(err[k], dx)
-    return {"err": err, "times": times}
+                        xk, ik = bodies[k][0](H, Mli, b, tol, 10000, body=body)
+                    torch.cuda.synchronize()
+                    res_k = float(torch.linalg.norm(rhs_k - A @ xk)) / nrm
+                    dx = float((xk - xp).abs().max() / xp.abs().max())
+                    ik = int(ik)
+                    print(f"phase 6 {k} {label} n={n} ({case}) tol={tol:.0e}: res={res_k:.2e} "
+                          f"(plain {res_p:.2e}) |x-plain|/|x|={dx:.2e} its={ik} (plain {ip})"
+                          + (f" cond(Hp)={kap:.3e}" if k == "polish" else ""), flush=True)
+                    # same algorithm, other summation order: both meet the
+                    # target, x agrees to kappa * tol * 10, iterations to
+                    # 10% + 2
+                    what = f"{k} {label} n={n} ({case})"
+                    check(res_k <= tol and res_p <= tol, f"{what} residual")
+                    check(dx <= kap * tol * 10, f"{what} x vs plain")
+                    check(abs(ik - ip) <= 0.1 * ip + 2, f"{what} iterations vs plain")
+                    err[k] = max(err[k], dx)
+                    ran[k].add(regime)
+    for k, seen in ran.items():
+        check(seen == set(tp.CG_REGIMES), f"{k}: regimes {sorted(seen)} ran in phase 6")
+    return {"err": err}
 
 
-def theta_g100(ltt):
-    """Lovasz theta SDP at SDPLIB theta2's size: 100 vertices, edges with
-    probability 0.1 from seed 2 (463 edges), n = 464, dense storage
-    (`loraine_tpu.models.theta.lovasz_theta_problem` builds the same data)."""
-    rng = np.random.default_rng(2)
-    nv = 100
-    E = [(i, j) for i in range(nv) for j in range(i + 1, nv) if rng.random() < 0.1]
-    n = 1 + len(E)
-    A = np.zeros((n, nv, nv))
-    A[0] = np.eye(nv)
-    for k, (i, j) in enumerate(E):
-        A[k + 1, i, j] = A[k + 1, j, i] = 0.5
-    b = np.zeros(n)
-    b[0] = 1.0
-    return ltt.problem_from_dense([A], [-np.ones((nv, nv))], b, storage="dense", device="cuda")
+def pcg_times(tp) -> dict:
+    """Phase 6, times. One full solve of each CG body (the wrapper's first
+    pass; the polish at the same tolerance) on the kappa = 1e3 system at
+    every n of PCG_TIMED, in every regime that fits ("grid" is the first
+    port's kernel): the times, the plain version's, the library call that
+    solves the same system, the bound; beside the polish kernel the eager
+    f64 `cg_plain` loop it replaced (one host read per CG iteration).
+    Returns, per kernel, the times at n = 464. Last, per kernel and regime,
+    the least-squares fit of the time per CG iteration over n in FIT_SIZES
+    as a fixed cost plus a cost per row of Hp a block holds (n in "block",
+    ceil(n / C) in a cluster of C blocks; n for "grid")."""
+    from loraine_tpu_torch.ops.cg import cg_plain
+
+    times = {}
+    per_it = {}  # (kernel, label) -> {n: us per CG iteration}
+    for n in PCG_TIMED:
+        H, b = cg_system(n, 1e3, seed=n)
+        rhs = b / torch.linalg.norm(b)
+        tol = 0.25e-10
+        tol2 = torch.tensor(tol * tol, dtype=torch.float64, device="cuda")
+        for k in CG_KERNELS:
+            if k == "B3":
+                args, plain = (H, rhs, tol2, 4 * n + 128, tp.stall_limit(n)), tp.cg_minres_plain
+            elif k == "B4":
+                args, plain = (H.float(), rhs.float(), tol2.float(), 2 * n + 64), tp.cg_f32_plain
+            else:
+                args, plain = (H, rhs, tol2, 4 * n + 128), tp.cg_f64_plain
+            dtype = args[0].dtype
+            reps = 20 if n < 200 else 10
+            ms, its = {}, {}
+            for label, regime, blocks in cg_regimes(tp, n, dtype):
+                body = forced(tp, k, regime, blocks)
+                ms[label] = cuda_ms(lambda: body(*args), reps)
+                its[label] = int(body(*args)[1])
+                per_it.setdefault((k, label), {})[n] = 1e3 * ms[label] / max(its[label], 1)
+            rule = rule_label(tp, n, dtype)
+            plain(*args)  # warm
+            plain_ms = cuda_ms(lambda: plain(*args), 1, warmup=False)
+            # the library call that solves the same system (yardstick)
+            lib_ms = cuda_ms(lambda: torch.linalg.solve(args[0], args[1]), reps)
+            bnd = cg_bound(dtype == torch.float64, n, its[rule])
+            line = (f"phase 6 time {k} n={n}: {rule} ms={ms[rule]:.4f} its={its[rule]} | "
+                    + " ".join(f"{lab} ms={v:.4f} us_per_it={1e3 * v / max(its[lab], 1):.3f} "
+                               f"its={its[lab]};" for lab, v in ms.items())
+                    + f" | plain_ms={plain_ms:.1f} solve_ms={lib_ms:.4f} "
+                    f"bound_ms={bnd[0]:.5f} ({bnd[1]})")
+            if k == "polish":
+                eager = lambda: cg_plain(lambda v: H @ v, rhs, tol, 4 * n + 128)  # noqa: E731
+                ms_e = cuda_ms(eager, 1)
+                line += f" | eager cg_plain ms={ms_e:.3f} its={int(eager()[1])}"
+            print(line, flush=True)
+            if n == 464:
+                times[k] = {"ms": ms[rule], "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bnd[0], "bound_by": bnd[1], "regime": rule,
+                            "regime_ms": ms}
+    for (k, label), us in per_it.items():
+        sizes = [n for n in FIT_SIZES if n in us]
+        if len(sizes) < 2:
+            continue
+        blocks = int(label[len("cluster"):]) if label.startswith("cluster") else 1
+        rows = np.array([-(-n // blocks) if label != "grid" else n for n in sizes], float)
+        (fixed, per_row), *_ = np.linalg.lstsq(np.stack([np.ones_like(rows), rows], 1),
+                                               np.array([us[n] for n in sizes]), rcond=None)
+        unit = "n" if label == "grid" else "rows of Hp a block holds"
+        print(f"phase 6 fit {k} {label} over n={sizes}: us per CG iteration = "
+              f"{fixed:.3f} + {per_row:.4f} x {unit}", flush=True)
+    return times
+
+
+@contextlib.contextmanager
+def cg_iteration_log(S):
+    """Records the CG iteration counts of each call of the B3 wrapper and of
+    the polish in `ipm/step.py` (as device tensors: no host read during the
+    solve)."""
+    log = {"pcg_kernel_ff": [], "_polish": []}
+    orig = {k: getattr(S, k) for k in log}
+
+    def wrap(name):
+        def g(*a, **kw):
+            out = orig[name](*a, **kw)
+            log[name].append(out[1])
+            return out
+        return g
+
+    for k in log:
+        setattr(S, k, wrap(k))
+    try:
+        yield log
+    finally:
+        for k in log:
+            setattr(S, k, orig[k])
 
 
 class Launches:
-    """The four kernels' launch counters (the Jacobi kernels count per padded
-    size mp): reset before each solve, read after, summed over the solves."""
+    """The kernels' launch counters (the Jacobi kernels count per padded
+    size mp, every kernel per regime): reset before each solve, read after,
+    summed over the solves."""
 
     def __init__(self, tj, tp):
         self.jacobi = {"B1": tj.jacobi_eigh_cuda, "B2": tj.jacobi_bounds_cuda}
-        self.cg = {"B3": tp.cg_minres_f64_cuda, "B4": tp.cg_f32_cuda}
+        self.cg = {"B3": tp.cg_minres_f64_cuda, "B4": tp.cg_f32_cuda, "polish": tp.cg_f64_cuda}
         self.total = dict.fromkeys(KERNELS, 0)
 
     def run(self, label: str, needs, solve):
@@ -407,11 +533,13 @@ class Launches:
             fn.launches_by_regime.clear()
         for fn in self.cg.values():
             fn.launches = 0
+            fn.launches_by_regime.clear()
         r = solve()
-        # the Jacobi kernels' launches per padded size mp and per regime, of
-        # this solve
+        # the Jacobi kernels' launches per padded size mp, and every
+        # kernel's per regime, of this solve
         self.by_mp = {k: dict(sorted(fn.launches_by_mp.items())) for k, fn in self.jacobi.items()}
-        by_regime = {k: dict(sorted(fn.launches_by_regime.items())) for k, fn in self.jacobi.items()}
+        self.by_regime = {k: dict(sorted(fn.launches_by_regime.items()))
+                          for k, fn in {**self.jacobi, **self.cg}.items()}
         got = {k: sum(v.values()) for k, v in self.by_mp.items()}
         got.update({k: fn.launches for k, fn in self.cg.items()})
         for k in KERNELS:
@@ -419,10 +547,16 @@ class Launches:
         per_it = " ".join(f"{k}={v / r.iterations:.2f}" for k, v in got.items())
         print(f"launches in {label}: " + " ".join(f"{k}={v}" for k, v in got.items())
               + f" | by mp: B1 {self.by_mp['B1']} B2 {self.by_mp['B2']}"
-              + f" | by regime: B1 {by_regime['B1']} B2 {by_regime['B2']}"
+              + " | by regime: " + " ".join(f"{k} {v}" for k, v in self.by_regime.items() if v)
               + f" | per iteration ({r.iterations}): {per_it}", flush=True)
         check(all(got[k] > 0 for k in needs), f"{label}: a kernel of its path was not launched")
         return r
+
+
+def check_b3_regime(launches, label: str, regime: str) -> None:
+    """The solve just run launched B3 in ``regime`` only."""
+    got = launches.by_regime["B3"]
+    check(set(got) == {regime}, f"{label}: B3 ran in regimes {got}, expected {regime!r}")
 
 
 def solve_line(phase: str, r) -> str:
@@ -495,8 +629,10 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     import loraine_tpu_torch as ltt
+    import loraine_tpu_torch.ipm.step as S
     from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
     from loraine_tpu_torch.utils.cuda_build import BUILD_DIR, build_libraries
+    from loraine_tpu_torch.utils.profiling import CONTROL1_CG, THETA1_CG, theta_g100
 
     # ---- phase 1: setup + build
     print(f"phase 1 python {sys.version.split()[0]} torch {torch.__version__} "
@@ -550,45 +686,57 @@ def main() -> int:
 
     # ---- phase 6: CG kernels vs plain versions on the card
     kc = pcg_vs_plain(tp)
+    kc["times"] = pcg_times(tp)
 
     # ---- phase 7: control1 on the CG path, card beside the port's CPU run
     ref = ltt.solve_sdpa(CONTROL1, CONTROL1_CG, device="cpu")
-    r = launches.run("phase 7", ("B1", "B2", "B3"),
+    r = launches.run("phase 7", KIT1_NEEDS,
                      lambda: ltt.solve_sdpa(CONTROL1, CONTROL1_CG, device="cuda"))
     print(solve_line("7 control1-cg cuda", r) + f" | cpu: {ref.status_name} "
           f"obj={ref.objective!r} it={ref.iterations} cg_it={ref.cg_iterations}", flush=True)
+    check_b3_regime(launches, "phase 7", "block")
     check(r.status == 1, "control1-cg not OPTIMAL")
     check(abs(r.objective - CONTROL1_OPT) <= OBJ_RTOL * CONTROL1_OPT, "control1-cg objective")
     check(r.dimacs < CONTROL1_CG["eDIMACS"], "control1-cg DIMACS")
 
     # ---- phase 8: theta1 on the CG path, materialized and matrix-free
-    for route, extra, needs in (("materialized", {}, ("B1", "B2", "B3")),
+    for route, extra, needs in (("materialized", {}, KIT1_NEEDS),
                                 ("matrix-free", {"cg_materialize": "never"}, ("B1", "B2"))):
         o = dict(THETA1_CG, **extra)
         r = launches.run(f"phase 8 ({route})", needs,
                          lambda: ltt.solve_sdpa(THETA1, o, device="cuda"))
         print(solve_line(f"8 theta1-cg {route} cuda", r), flush=True)
+        if route == "materialized":
+            check_b3_regime(launches, "phase 8", "block")
         check(r.status == 1, f"theta1-cg {route} not OPTIMAL")
         check(abs(r.objective - THETA1_OPT) <= OBJ_RTOL * THETA1_OPT, f"theta1-cg {route} objective")
 
     # ---- phase 9: theta_G100 at full size, kit=1 against kit=0
-    p = theta_g100(ltt)
+    p = theta_g100("cuda")
     res = {}
-    for kit, o, needs in ((1, THETA1_CG, ("B1", "B2", "B3")),
+    for kit, o, needs in ((1, THETA1_CG, KIT1_NEEDS),
                           (0, {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}, ("B1", "B2"))):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        r = launches.run(f"phase 9 (kit={kit})", needs, lambda: ltt.solve(p, o, device="cuda"))
+        with cg_iteration_log(S) as log:
+            r = launches.run(f"phase 9 (kit={kit})", needs, lambda: ltt.solve(p, o, device="cuda"))
         wall = time.perf_counter() - t0
         print(solve_line(f"9 theta_G100 n={p.n} kit={kit} cuda", r) + f" wall={wall:.3f} s "
               f"peak_mem_MiB={torch.cuda.max_memory_allocated() / 2**20:.1f}", flush=True)
+        if kit == 1:
+            # two solves (predictor, corrector) an IPM iteration
+            per_it = {k_: [int(a) + int(b_) for a, b_ in zip(v[::2], v[1::2])]
+                      for k_, v in log.items()}
+            print(f"phase 9 kit=1 CG iterations per IPM iteration: B3 {per_it['pcg_kernel_ff']} "
+                  f"polish {per_it['_polish']}", flush=True)
+            check_b3_regime(launches, "phase 9", "cluster")
         check(r.status == 1, f"theta_G100 kit={kit} not OPTIMAL")
         check(r.X[0].shape == (100, 100) and bool(np.isfinite(r.X[0]).all()), "theta_G100 primal block")
         res[kit] = r.objective
     check(abs(res[1] - res[0]) <= OBJ_RTOL * abs(res[0]), "theta_G100 kit=1 vs kit=0 objective")
 
     # ---- phase 10: the f32 CG kernel end to end
-    r = launches.run("phase 10", ("B1", "B2", "B4"),
+    r = launches.run("phase 10", ("B1", "B2", "B4", "polish"),
                      lambda: ltt.solve_sdpa(CONTROL1, CONTROL1_F32, device="cuda"))
     print(solve_line("10 control1 cg_kernel=pallas cuda", r), flush=True)
     check(r.status == 1, "control1 with the f32 CG kernel not OPTIMAL")
@@ -610,7 +758,7 @@ def main() -> int:
     # ---- phase 13: tru3 and vib3 (LP cone), kit=0 and kit=1, card vs CPU
     for name in ("tru3", "vib3"):
         path = f"tests/data/{name}.dat-s"
-        for kit, o, needs in ((0, LP_KIT0, ("B1", "B2")), (1, CONTROL1_CG, ("B1", "B2", "B3"))):
+        for kit, o, needs in ((0, LP_KIT0, ("B1", "B2")), (1, CONTROL1_CG, KIT1_NEEDS)):
             ref = ltt.solve_sdpa(path, o, device="cpu")
             r = launches.run(f"phase 13 ({name} kit={kit})", needs,
                              lambda: ltt.solve_sdpa(path, o, device="cuda"))
@@ -621,6 +769,8 @@ def main() -> int:
             check(abs(r.objective - ref.objective) <= o["eDIMACS"] * abs(ref.objective),
                   f"{name} kit={kit} objective vs CPU")
             check(r.X_lin.shape == (72,) and bool((r.X_lin > 0).all()), f"{name} LP variables")
+            if kit == 1:
+                check_b3_regime(launches, f"phase 13 ({name})", "block")
 
     # ---- phase 14: the sparse contractions are bitwise reproducible
     sparse_determinism(ltt)
@@ -629,7 +779,7 @@ def main() -> int:
     large_case(launches, "15", THETAG11, THETAG11_OPTS, THETAG11_REF, ltt)
     check(launches.by_mp["B1"].get(816, 0) > 0, "thetaG11: B1 not launched at mp 816")
 
-    # ---- phase 16: the solves went through all four kernels
+    # ---- phase 16: the solves went through all five kernels
     print("phase 16 launches in the solve phases: "
           + " ".join(f"{k_}={v}" for k_, v in launches.total.items()), flush=True)
     check(all(v > 0 for v in launches.total.values()), "a kernel was not launched")
@@ -646,14 +796,17 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
             "library_ms": lib_ms, "regime": regime,
         })
-    for kname, name, line in (("B3", "cg_minres_f64", 327), ("B4", "cg_f32", 48)):
-        ms, plain_ms, lib_ms, bnd, bound_by = kc["times"][kname]
+    for kname, name, replaces in (
+            ("B3", "cg_minres_f64", "loraine_tpu/ops/pcg_pallas.py:327"),
+            ("B4", "cg_f32", "loraine_tpu/ops/pcg_pallas.py:48"),
+            ("polish", "cg_f64", "loraine_tpu/ipm/step.py:832")):
+        t = kc["times"][kname]  # n = 464
         rows.append({
             "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/pcg.cu",
-            "replaces": f"loraine_tpu/ops/pcg_pallas.py:{line}",
-            "launches": launches.total[kname], "max_abs_err": kc["err"][kname],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
-            "library_ms": lib_ms,
+            "replaces": replaces, "launches": launches.total[kname],
+            "max_abs_err": kc["err"][kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "n": 464, "regime": t["regime"], "regime_ms": t["regime_ms"],
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -28,7 +28,7 @@ from ..ops.cg import cg_plain, pcg
 from ..ops.jacobi import eig_bounds_jacobi
 from ..ops.linalg import btrace, chol_reg, cho_solve_inv, sym, tri_inv
 from ..ops.nt_scaling import NTScaling, nt_scale
-from ..ops.pcg import pcg_kernel_ff, pcg_kernel_mixed
+from ..ops.pcg import cg_f64, pcg_kernel_ff, pcg_kernel_mixed
 from ..ops.precond import prep_alpha, prep_beta
 from ..ops.schur import Aadj, Aop, lp_weight, schur_group, schur_lp
 from ..problem import SDPProblem
@@ -144,6 +144,24 @@ def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor]) -> torch.Tenso
     return sym(H)
 
 
+def _polish(Hp: torch.Tensor, rp: torch.Tensor, target: torch.Tensor, maxiter: int):
+    """The f64 polish of the kernel route: CG on Hp u = rp from u = 0 until
+    ||r|| <= target (`loraine_tpu/ipm/step.py:820-835`). Returns (u,
+    iterations).
+
+    On a CUDA tensor it is one launch of the polish kernel (`ops.pcg.cg_f64`)
+    with tol2 = target^2 on the device: no host read per CG iteration. That
+    is `cg_plain`'s threshold tol^2 (rp . rp) with tol = target / ||rp||,
+    the same stopping rule; the kernel differs only by the pAp / rr zero
+    guards, which act only where `cg_plain` would produce inf or NaN. On a
+    CPU tensor it is `cg_plain`, as in the JAX package."""
+    if rp.device.type == "cuda":
+        return cg_f64(Hp, rp, target * target, maxiter)
+    nrm = torch.linalg.norm(rp)
+    tol = target / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    return cg_plain(lambda v: Hp @ v, rp, tol, maxiter)
+
+
 def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Options,
                tol_cg: float, precond_kind: int):
     """The kit=1 Schur solve, rhs -> (dely, CG iterations), for one IPM
@@ -209,12 +227,8 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
             x, it = kernel_fn(Hcg, Mli, rhs, target / torch.where(nrm > 0, nrm, 1.0),
                               opts.cg_maxiter, Hp=Hp)
             # guaranteed finish: polish any kernel shortfall (a stalled pass
-            # returns its best iterate) with the f64 split-preconditioned
-            # CG; a converged solve costs one host read here
-            rp = Mli @ (rhs - Hcg @ x)
-            nrm_rp = torch.linalg.norm(rp)
-            tol_fb = target / torch.where(nrm_rp > 0, nrm_rp, torch.ones_like(nrm_rp))
-            u, it2 = cg_plain(lambda v: Hp @ v, rp, tol_fb, opts.cg_maxiter)
+            # returns its best iterate) with the f64 split-preconditioned CG
+            u, it2 = _polish(Hp, Mli @ (rhs - Hcg @ x), target, opts.cg_maxiter)
             return x + MliT @ u, it + it2
     elif mat_cg and Mli is not None:
         # split-preconditioned f64 CG: solve (Mli H Mli^T) u = Mli b,

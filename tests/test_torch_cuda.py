@@ -73,16 +73,27 @@ def _cg_case(n):
     return H, torch.from_numpy(rng.standard_normal(n)).cuda()
 
 
+# one n per regime of the CG kernels, in f64 and in f32: "block", "cluster",
+# "grid"
+CG_SIZES = [21, 464, 1000]
+
+
+def _one_launch(fn, n, dtype):
+    """(counter snapshot, the regime the shape rule picks)."""
+    return fn.launches_by_regime.copy(), tp.regime_for_cg(n, dtype)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [21, 464])
+@pytest.mark.parametrize("n", CG_SIZES)
 def test_b3_matches_plain_on_card(n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     H, b = _cg_case(n)
     eye = torch.eye(n, dtype=torch.float64, device="cuda")
-    before = tp.cg_minres_f64_cuda.launches
+    before, regime = _one_launch(tp.cg_minres_f64_cuda, n, torch.float64)
     xk, ik = tp.pcg_kernel_ff(H, eye, b, 1e-10, 10000)  # routed: the kernel
-    assert tp.cg_minres_f64_cuda.launches == before + 2  # two refinement passes
+    # two refinement passes, each one launch in the shape's regime
+    assert tp.cg_minres_f64_cuda.launches_by_regime - before == {regime: 2}
     xp, ip = tp.pcg_kernel_ff(H, eye, b, 1e-10, 10000, body=tp.cg_minres_plain)
     torch.cuda.synchronize()
     # same f64 algorithm, other summation order (chip_smoke.py phase 6)
@@ -93,21 +104,71 @@ def test_b3_matches_plain_on_card(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [21, 464])
+@pytest.mark.parametrize("n", CG_SIZES)
 def test_b4_matches_plain_on_card(n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     H, b = _cg_case(n)
     eye = torch.eye(n, dtype=torch.float64, device="cuda")
-    before = tp.cg_f32_cuda.launches
+    before, regime = _one_launch(tp.cg_f32_cuda, n, torch.float32)
     xk, ik = tp.pcg_kernel_mixed(H, eye, b, 1e-10, 10000)  # routed: the kernel
-    assert tp.cg_f32_cuda.launches == before + 3  # three refinement passes
+    assert tp.cg_f32_cuda.launches_by_regime - before == {regime: 3}  # three passes
     xp, ip = tp.pcg_kernel_mixed(H, eye, b, 1e-10, 10000, body=tp.cg_f32_plain)
     torch.cuda.synchronize()
     for x in (xk, xp):
         assert torch.linalg.norm(b - H @ x) <= 1e-10 * torch.linalg.norm(b)
     assert (xk - xp).abs().max() <= 1e3 * 1e-10 * 10 * xp.abs().max()
     assert abs(int(ik) - int(ip)) <= 0.1 * int(ip) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CG_SIZES)
+def test_polish_kernel_matches_cg_plain_on_card(n):
+    """The kit=1 route's polish (`ipm/step.py::_polish`) on a CUDA tensor is
+    one launch of the f64 kernel; `ops.cg.cg_plain` runs the same CG with
+    the same stopping rule, one host read an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from loraine_tpu_torch.ipm.step import _polish
+    from loraine_tpu_torch.ops.cg import cg_plain
+
+    H, b = _cg_case(n)
+    tol = 1e-10
+    target = tol * torch.linalg.norm(b)
+    before, regime = _one_launch(tp.cg_f64_cuda, n, torch.float64)
+    xk, ik = _polish(H, b, target, 10000)
+    assert tp.cg_f64_cuda.launches_by_regime - before == {regime: 1}
+    xp, ip = cg_plain(lambda v: H @ v, b, tol, 10000)
+    torch.cuda.synchronize()
+    for x in (xk, xp):
+        assert torch.linalg.norm(b - H @ x) <= tol * torch.linalg.norm(b)
+    assert (xk - xp).abs().max() <= 1e3 * tol * 10 * xp.abs().max()
+    assert abs(int(ik) - int(ip)) <= 0.1 * int(ip) + 2
+
+
+@pytest.mark.cuda
+def test_kernel_route_never_reads_the_host_per_cg_iteration(monkeypatch):
+    """theta1 on the materialized CG route on the card: B3 and the polish
+    kernel, never the eager `cg_plain` loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import loraine_tpu_torch as ltt
+    import loraine_tpu_torch.ipm.step as S
+
+    eager = S.cg_plain
+
+    def cpu_only(matvec, b, tol, maxiter):
+        if b.device.type == "cuda":
+            raise AssertionError("cg_plain called on a CUDA tensor")
+        return eager(matvec, b, tol, maxiter)
+
+    monkeypatch.setattr(S, "cg_plain", cpu_only)
+    before = tp.cg_f64_cuda.launches
+    r = ltt.solve_sdpa("tests/data/theta1.dat-s",
+                       {"kit": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-5, "preconditioner": 1,
+                        "initpoint": 1, "verb": 0}, device="cuda")
+    assert r.status_name == "OPTIMAL" and abs(r.objective - 23.0) <= 1e-5 * 23.0
+    assert tp.cg_f64_cuda.launches - before == 2 * r.iterations  # predictor, corrector
 
 
 @pytest.mark.cuda
