@@ -25,7 +25,8 @@ Phases:
      card: OPTIMAL at 23.0, and the same trajectory as the CPU run of the
      port (plain Jacobi versions) on the same input.
   4. SDPLIB maxG11 (n=800, one 800x800 block, rank-1 data) through
-     ``solve_sdpa`` on the card: OPTIMAL at 629.1648.
+     ``solve_sdpa`` on the card: OPTIMAL at 629.16479325 in 14 +- 2
+     iterations (the JAX package's CPU run).
   5. kernel launch counts of phases 3-4 (every solve phase prints its
      launches per kernel, per padded size mp, per regime and per
      iteration).
@@ -68,11 +69,30 @@ Phases:
      `datarank=-1`; padded 808, Jacobi mp 816): OPTIMAL at 400.00023146 in
      17 +- 2 iterations.
  16. launch counts of the five kernels over the solve phases.
+ 17. exactness of the double-double arithmetic on the card (precision
+     'dd'/'dd2', `ops/dd.py`, `ops/ozaki.py`): two_sum, two_prod, dd_add,
+     dd_sum, slice_operand and acc_matmul on seeded inputs (cancellations,
+     spreads of 2^+-300, contractions k = 800 and 2500) equal the CPU's
+     results bit for bit, and every Ozaki partial GEMM A_p @ B_q (cuBLAS
+     f64, the tensor cores) equals the CPU's and, at a few entries, the
+     exact rational value.
+ 18. theta1 at precision='dd', kit=0: OPTIMAL at eDIMACS 1e-11, objective
+     within 1e-9 of 23 and of the dual objective, beside the port's CPU run
+     (iterations within one).
+ 19. dd2: theta1 (dense storage) with err1 < 1e-18 and err3 < 1e-15; tru3
+     forced sparse with err1, err3 < 1e-18; the LP synthetic of
+     tests/test_precision.py:76-96 below DIMACS 1e-13.
+ 20. theta1 on the CG path (kit=1) at 'dd' (DIMACS < 1e-9) and 'dd2'
+     (< 1e-10): no CG kernel runs under the precision tiers.
+ 21. maxG11 at full size at precision='dd', eDIMACS 1e-8: OPTIMAL, objective
+     within 1e-6 relative of 629.16479325; wall time, median time per
+     iteration and peak memory beside phase 4's f64 run.
 
-The reference values of phases 11, 12 and 15 are the JAX package's CPU
+The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
-15) runs with the launch counts set to 0 just before it and read just
-after, and fails if a kernel of its path was not launched. The line before
+15, 18-21) runs with the launch counts set to 0 just before it and read
+just after, and fails if a kernel of its path was not launched (B1 and B2
+in every precision-tier solve). The line before
 the last two is a JSON object with one entry per kernel; then the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -101,6 +121,7 @@ CONTROL1_OPT = 17.78463  # SDPLIB optimum
 TRU9_REF = (0.05975333, 22)
 VIB9_REF = (0.01276683, 34)
 THETAG11_REF = (400.00023146, 17)
+MAXG11_REF = (629.16479325, 14)
 OBJ_RTOL = 1e-5
 SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 128), (1, 144), (4, 144), (1, 152),
           (1, 176), (1, 192), (1, 800), (2, 800), (1, 808), (1, 912), (1, 1000)]
@@ -120,6 +141,8 @@ LARGE_KIT0 = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "verb": 0}
 THETAG11_OPTS = dict(LARGE_KIT0, datarank=-1)
 # tests/test_torch_lp.py: kit=0 at eDIMACS 1e-7 (tests/test_ipm_e2e.py:54-60)
 LP_KIT0 = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
+MAXG11_OPTS = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "datarank": -1, "verb": 0}
+MAXG11_DD = dict(MAXG11_OPTS, eDIMACS=1e-8, precision="dd")
 KERNELS = ("B1", "B2", "B3", "B4", "polish")
 # the kernels of the kit=1 materialized route (B3 and the polish after it)
 KIT1_NEEDS = ("B1", "B2", "B3", "polish")
@@ -567,8 +590,10 @@ def solve_line(phase: str, r) -> str:
 
 def large_case(launches, phase: str, path: str, opts, ref, ltt, problem=None):
     """One full-size solve on the card against the JAX package's CPU
-    reference (objective within OBJ_RTOL, iterations within 2); prints the
-    wall time, the median time per iteration and the peak device memory."""
+    reference (objective within OBJ_RTOL, iterations within 2 unless ref[1]
+    is None, as for another eDIMACS than the reference's); prints the
+    wall time, the median time per iteration and the peak device memory.
+    Returns (result, wall s, peak MiB)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if problem is None:
@@ -578,17 +603,17 @@ def large_case(launches, phase: str, path: str, opts, ref, ltt, problem=None):
         r = launches.run(f"phase {phase}", ("B1", "B2"),
                          lambda: ltt.solve(problem, opts, device="cuda"))
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
     print(solve_line(f"{phase} {path.split('/')[-1]} cuda", r)
-          + f" wall(load+solve)={wall:.3f} s "
-          f"peak_mem_MiB={torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          + f" wall(load+solve)={wall:.3f} s peak_mem_MiB={peak:.1f} "
           f"| JAX CPU: obj={ref[0]} it={ref[1]}", flush=True)
     name = path.split("/")[-1]
     check(r.status == 1, f"{name} not OPTIMAL")
     check(abs(r.objective - ref[0]) <= OBJ_RTOL * abs(ref[0]), f"{name} objective")
-    check(abs(r.iterations - ref[1]) <= 2, f"{name} iterations")
+    check(ref[1] is None or abs(r.iterations - ref[1]) <= 2, f"{name} iterations")
     check(math.isfinite(r.dimacs) and r.dimacs < opts["eDIMACS"], f"{name} DIMACS")
     check(all(bool(np.isfinite(X).all()) for X in r.X), f"{name} primal blocks")
-    return r
+    return r, wall, peak
 
 
 def sparse_determinism(ltt) -> None:
@@ -614,6 +639,142 @@ def sparse_determinism(ltt) -> None:
     check(torch.equal(adj[0], adj[1]), "sparse Aadj not bitwise reproducible")
     check(torch.equal(H[0], H[1]), "sparse Schur assembly not bitwise reproducible")
     check(bool(torch.isfinite(H[0]).all()), "sparse Schur assembly not finite")
+
+
+def _spread(rng, shape, lo=-300, hi=300):
+    """Normals scaled by 2^[lo, hi): spreads of 2^+-300."""
+    return rng.standard_normal(shape) * 2.0 ** rng.integers(lo, hi, shape)
+
+
+def _bitwise(name: str, card, cpu) -> None:
+    """The card's tensors (a tensor or a tuple of them) equal the CPU's
+    bit for bit."""
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    check(same, f"phase 17: {name} differs between the card and the CPU")
+
+
+def exactness_probe() -> dict:
+    """Phase 17. The error-free transforms and the Ozaki GEMM on the card
+    against the same calls on the CPU (bit for bit), and each Ozaki partial
+    GEMM against its exact rational value at a few entries. Returns the
+    number of partial GEMMs checked and the largest |card - exact|."""
+    from fractions import Fraction
+
+    from loraine_tpu_torch.ops import dd as D, ozaki as Z
+
+    rng = np.random.default_rng(17)
+    T = lambda x: torch.from_numpy(x)  # noqa: E731
+    # adversarial elementwise inputs: spreads of 2^+-300, exact cancellations
+    a = _spread(rng, (64, 1001))
+    b = _spread(rng, (64, 1001))
+    b[:, ::3] = -a[:, ::3] * (1 + 2.0**-52 * rng.standard_normal((64, 334)).round())
+    for name, f in (("two_sum", D.two_sum), ("two_prod", D.two_prod)):
+        _bitwise(name, f(T(a).cuda(), T(b).cuda()), f(T(a), T(b)))
+    x = D.DD(T(a), T(b) * 2.0**-60)
+    y = D.DD(T(b), T(a) * 2.0**-60)
+    xc, yc = (D.DD(v.hi.cuda(), v.lo.cuda()) for v in (x, y))
+    _bitwise("dd_add", D.dd_add(xc, yc), D.dd_add(x, y))
+    _bitwise("dd_sum", D.dd_sum(xc, -1), D.dd_sum(x, -1))
+    _bitwise("dd_sum axis 0", D.dd_sum(yc, 0), D.dd_sum(y, 0))
+    # the Ozaki GEMM at the maxG11 contraction (k = 800, beta 21, 6 slices)
+    # and at k = 2500 (beta 20), on spread and on cancelling data
+    n_parts, worst = 0, 0.0
+    for (m, k, n), spread in (((800, 800, 800), 8), ((96, 2500, 64), 300)):
+        A = _spread(rng, (m, k), -spread, spread)
+        B = _spread(rng, (k, n), -spread, spread)
+        A[:, 1::2] = -A[:, ::2][:, : A[:, 1::2].shape[1]]  # exact cancellation pairs
+        beta, nsl = Z._slice_params(k, 106)
+        As, Bs = Z.slice_operand(T(A), -1, beta, nsl), Z.slice_operand(T(B), -2, beta, nsl)
+        Asc = Z.slice_operand(T(A).cuda(), -1, beta, nsl)
+        Bsc = Z.slice_operand(T(B).cuda(), -2, beta, nsl)
+        _bitwise(f"slice_operand k={k}", tuple(Asc + Bsc), tuple(As + Bs))
+        _bitwise(f"acc_matmul k={k}", tuple(Z.acc_matmul(T(A).cuda(), T(B).cuda())),
+                 tuple(Z.acc_matmul(T(A), T(B))))
+        entries = [(0, 0), (m // 2, n // 3), (m - 1, n - 1)]
+        for t in range(2 * nsl - 1):
+            if (t + 2) * beta > 106 + 2 * beta:  # acc_matmul's truncation
+                break
+            for p_ in range(max(0, t - nsl + 1), min(t, nsl - 1) + 1):
+                q = t - p_
+                part = (Asc[p_] @ Bsc[q]).cpu()
+                _bitwise(f"partial GEMM ({p_},{q}) k={k}", part, As[p_] @ Bs[q])
+                for i, j in entries:
+                    exact = sum((Fraction(float(u)) * Fraction(float(v))
+                                 for u, v in zip(As[p_][i].tolist(), Bs[q][:, j].tolist())),
+                                Fraction(0))
+                    worst = max(worst, abs(float(Fraction(float(part[i, j])) - exact)))
+                    check(Fraction(float(part[i, j])) == exact,
+                          f"phase 17: partial GEMM ({p_},{q}) k={k} at {(i, j)} is not exact")
+                n_parts += 1
+    print(f"phase 17 exactness: two_sum two_prod dd_add dd_sum slice_operand acc_matmul "
+          f"bitwise equal card/CPU; {n_parts} Ozaki partial GEMMs (k=800, 2500) equal the "
+          f"CPU's and exact at 3 entries each (max |card - exact| {worst:.1e})", flush=True)
+    return {"partials": n_parts, "worst": worst}
+
+
+def tier_line(label: str, r) -> str:
+    errs = " ".join(f"{k}={v:.2e}" for k, v in r.errs.items())
+    return solve_line(label, r) + f" obj-dual={r.objective - r.dual_objective:.2e} {errs}"
+
+
+def precision_tiers(launches, ltt, maxg11_f64) -> None:
+    """Phases 18-21: the precision tiers end to end on the card, with the
+    options of tests/test_precision.py (kept in `utils/profiling.py`)."""
+    from loraine_tpu_torch.utils.profiling import (CASES, CG_DD, CG_DD2, DD, DD2, lp_synthetic,
+                                                   tru3_sparse)
+
+    tru3_dd2, lp_dd2 = CASES["tru3-sparse-dd2"][1], CASES["lp-dd2"][1]
+    # ---- phase 18: theta1 'dd', card beside the port's CPU run
+    ref = ltt.solve_sdpa(THETA1, DD, device="cpu")
+    r = launches.run("phase 18", ("B1", "B2"), lambda: ltt.solve_sdpa(THETA1, DD, device="cuda"))
+    print(tier_line("18 theta1 dd cuda", r) + f" | cpu: {ref.status_name} obj={ref.objective!r} "
+          f"it={ref.iterations} dimacs={ref.dimacs:.3e}", flush=True)
+    check(r.status == 1 and r.dimacs < DD["eDIMACS"], "theta1 dd not OPTIMAL at 1e-11")
+    check(abs(r.objective - THETA1_OPT) < 1e-9, "theta1 dd objective")
+    check(abs(r.objective - r.dual_objective) < 1e-9, "theta1 dd primal-dual gap")
+    check(abs(r.iterations - ref.iterations) <= 1, "theta1 dd iterations vs CPU")
+
+    # ---- phase 19: dd2 floors (theta1 dense, tru3 forced sparse, LP)
+    r = launches.run("phase 19 (theta1 dd2)", ("B1", "B2"),
+                     lambda: ltt.solve_sdpa(THETA1, DD2, device="cuda"))
+    print(tier_line("19 theta1 dd2 cuda", r), flush=True)
+    check(r.status == 1 and abs(r.objective - THETA1_OPT) < 1e-9, "theta1 dd2")
+    check(r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-15, "theta1 dd2 residual floors")
+    check(r.final_state.X_lo is not None, "theta1 dd2 without tails")
+    p = tru3_sparse("cuda")
+    check(all(g.is_sparse for g in p.groups), "tru3 not sparse")
+    r = launches.run("phase 19 (tru3 sparse dd2)", ("B1", "B2"),
+                     lambda: ltt.solve(p, tru3_dd2, device="cuda"))
+    print(tier_line("19 tru3 sparse dd2 cuda", r), flush=True)
+    check(r.status == 1 and abs(r.objective - 0.0625018) < 1e-5, "tru3 sparse dd2")
+    check(r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-18, "tru3 sparse dd2 residual floors")
+    p = lp_synthetic("cuda")
+    r = launches.run("phase 19 (LP synthetic dd2)", ("B1", "B2"),
+                     lambda: ltt.solve(p, lp_dd2, device="cuda"))
+    print(tier_line("19 LP synthetic dd2 cuda", r), flush=True)
+    check(r.status == 1 and r.dimacs < lp_dd2["eDIMACS"], "LP synthetic dd2 DIMACS")
+
+    # ---- phase 20: theta1 on the CG path under dd and dd2: no CG kernel
+    for prec, o in (("dd", CG_DD), ("dd2", CG_DD2)):
+        r = launches.run(f"phase 20 (theta1 kit=1 {prec})", ("B1", "B2"),
+                         lambda: ltt.solve_sdpa(THETA1, o, device="cuda"))
+        print(tier_line(f"20 theta1-cg {prec} cuda", r), flush=True)
+        check(r.status == 1 and r.dimacs < o["eDIMACS"], f"theta1 kit=1 {prec}")
+        check(abs(r.objective - THETA1_OPT) <= 1e-8 * THETA1_OPT, f"theta1 kit=1 {prec} objective")
+        ran = {k: sum(v.values()) for k, v in launches.by_regime.items() if k in CG_KERNELS}
+        check(not any(ran.values()), f"theta1 kit=1 {prec}: a CG kernel ran {ran}")
+
+    # ---- phase 21: maxG11 at full size in dd, beside phase 4's f64 run
+    r, wall, peak = large_case(launches, "21", MAXG11, MAXG11_DD, (MAXG11_REF[0], None), ltt)
+    r64, wall64, peak64 = maxg11_f64
+    med, med64 = (1e3 * float(np.median(x.iteration_times)) for x in (r, r64))
+    print(f"phase 21 maxG11 dd vs f64: it {r.iterations} vs {r64.iterations}, dimacs "
+          f"{r.dimacs:.3e} vs {r64.dimacs:.3e}, wall {wall:.3f} vs {wall64:.3f} s, solve "
+          f"{r.solve_time:.3f} vs {r64.solve_time:.3f} s, median_iter_ms {med:.2f} vs {med64:.2f} "
+          f"(ratio {med / med64:.2f}), peak_mem_MiB {peak:.1f} vs {peak64:.1f}", flush=True)
+    check(abs(r.objective - MAXG11_REF[0]) <= 1e-6 * MAXG11_REF[0], "maxG11 dd objective")
 
 
 def main() -> int:
@@ -663,22 +824,10 @@ def main() -> int:
     check(r.iterations == ref.iterations, "theta1 iterations differ from the CPU run")
     check(abs(r.objective - ref.objective) <= 1e-7 * abs(ref.objective), "theta1 vs CPU run")
 
-    # ---- phase 4: maxG11 at full size
-    opts = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "datarank": -1, "verb": 0}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    r = launches.run("phase 4", ("B1", "B2"), lambda: ltt.solve_sdpa(MAXG11, opts, device="cuda"))
-    wall = time.perf_counter() - t0
-    X = r.X[0]
-    print(f"phase 4 maxG11 cuda: {r.status_name} obj={r.objective!r} it={r.iterations} "
-          f"wall(load+solve)={wall:.3f} s solve={r.solve_time:.3f} s "
-          f"it/s={r.iterations / r.solve_time:.3f} "
-          f"median_iter_ms={1e3 * float(np.median(r.iteration_times)):.2f} dimacs={r.dimacs:.3e} "
-          f"peak_mem_MiB={torch.cuda.max_memory_allocated() / 2**20:.1f}", flush=True)
-    check(r.status == 1, "maxG11 not OPTIMAL")
-    check(abs(r.objective - MAXG11_OPT) <= OBJ_RTOL * MAXG11_OPT, "maxG11 objective")
-    check(X.shape == (800, 800) and bool(np.isfinite(X).all()), "maxG11 primal block")
-    check(math.isfinite(r.dimacs) and r.dimacs < opts["eDIMACS"], "maxG11 DIMACS")
+    # ---- phase 4: maxG11 at full size, against the JAX package's CPU run
+    r, wall, peak = large_case(launches, "4", MAXG11, MAXG11_OPTS, MAXG11_REF, ltt)
+    check(r.X[0].shape == (800, 800), "maxG11 primal block")
+    maxg11_f64 = (r, wall, peak)
 
     # ---- phase 5: the kit=0 path went through both Jacobi kernels
     print(f"phase 5 launches in phases 3-4: B1={launches.total['B1']} "
@@ -783,6 +932,10 @@ def main() -> int:
     print("phase 16 launches in the solve phases: "
           + " ".join(f"{k_}={v}" for k_, v in launches.total.items()), flush=True)
     check(all(v > 0 for v in launches.total.values()), "a kernel was not launched")
+
+    # ---- phases 17-21: the precision tiers
+    exactness_probe()
+    precision_tiers(launches, ltt, maxg11_f64)
 
     rows = []
     for key, kname, name, src, line in (

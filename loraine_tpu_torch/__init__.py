@@ -4,8 +4,10 @@ A primal-dual predictor-corrector interior-point solver for linear SDPs,
 ported from the JAX package `loraine_tpu` (which stays the reference) to
 PyTorch, with its Pallas TPU kernels rewritten as CUDA kernels for Hopper.
 
-The port runs the direct (kit=0) and the CG (kit=1) f64 paths on dense and
-rank-1 data. Its kernels are the two Jacobi kernels of `ops/jacobi.py`
+The port runs the direct (kit=0) and the CG (kit=1) paths on dense, rank-1
+and sparse COO data with the LP cone, at precision 'f64' and in the
+double-double tiers 'dd' and 'dd2' (`ops/dd.py`, `ops/ozaki.py`). Its
+kernels are the two Jacobi kernels of `ops/jacobi.py`
 (CUDA C++ in `csrc/jacobi.cu`) and the two single-launch CG kernels of
 `ops/pcg.py` (`csrc/pcg.cu`), built with nvcc at first use. The device is
 explicit and defaults to ``"cuda"``; pass ``device="cpu"`` to run the

@@ -5,14 +5,20 @@ mirrors Loraine.jl `src/Solvers.jl:169-302`). Every value the JAX package
 accepts is accepted here too; `require_ported` then names the values this
 port does not run yet, and `Solver` raises `NotImplementedError` for them.
 
-What the port runs: ``kit`` 0 and 1, ``precision='f64'``,
-``dtype='float64'``, ``nt_method='eigh'``, ``eigh_backend``/``step_eig`` in
+What the port runs: ``kit`` 0 and 1, ``precision`` 'f64', 'dd' and 'dd2'
+(both paths, every storage, the LP cone), ``dtype='float64'``, ``nt_method='eigh'``, ``eigh_backend``/``step_eig`` in
 'auto'/'pallas', ``chol_backend`` 'auto'/'f64', ``gemm_backend='f64'``,
 ``assembly_precision='f64'``, and every ``cg_kernel`` / ``cg_materialize``
 value. In the port 'pallas' means the hand-written Jacobi kernels of
 `ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto' resolves to them
 on every device; on a CPU tensor they run their plain PyTorch version, so
 CPU and card runs take the same algorithmic path.
+
+``nt_precision``: 'auto' resolves to the f64 NT scaling on every device
+(the JAX package's 'auto' picks the native dd NT scaling on the TPU only,
+`loraine_tpu/ipm/step.py:364-370`); 'dd' is not ported (ROADMAP Queue A
+item 12e). Under 'dd'/'dd2' the kit=1 path runs f64 `pcg` inside dd
+refinement and takes no CG kernel, whatever ``cg_kernel`` says.
 
 ``cg_kernel`` (materialized CG route only, `resolve_cg_kernel`): 'ff' is the
 single-launch f64 CG kernel B3 and 'pallas' the f32 CG kernel B4
@@ -134,7 +140,7 @@ class Options:
 # option -> (values the port runs, ROADMAP item that ports the rest)
 _PORTED = {
     "kit": ((0, 1), "Queue A item 11 (CG path)"),
-    "precision": (("f64",), "Queue A item 12 (precision tiers)"),
+    "precision": (("f64", "dd", "dd2"), "Queue A item 12 (precision tiers)"),
     "dtype": (("float64",), "Queue A item 13 (remaining option values)"),
     "nt_method": (("eigh",), "Queue A item 13 (remaining option values)"),
     "eigh_backend": (("auto", "pallas"), "Queue A item 13 (remaining option values)"),
@@ -142,7 +148,7 @@ _PORTED = {
     "chol_backend": (("auto", "f64"), "'Not carried over' (f32-panel Cholesky)"),
     "gemm_backend": (("f64",), "'Not carried over' (int8 Ozaki GEMM)"),
     "assembly_precision": (("f64",), "Queue A item 13 (remaining option values)"),
-    "nt_precision": (("auto", "f64"), "Queue A item 12 (precision tiers)"),
+    "nt_precision": (("auto", "f64"), "Queue A item 12 (precision tiers, 12e dd NT)"),
     "profile_dir": (("",), "Queue A item 15 (diagnostics)"),
 }
 

@@ -77,14 +77,24 @@ def state_from_numpy(
     device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.float64,
 ) -> IPMState:
-    """The port's IPMState from a host copy of a `loraine_tpu` IPMState
-    (the f64 fields X, S, y, X_lin, S_lin, sigma)."""
+    """The port's IPMState from a host copy of a `loraine_tpu` IPMState: the
+    f64 fields X, S, y, X_lin, S_lin, sigma and, where the source has them
+    (precision='dd2'), the tails X_lo, S_lo, y_lo, X_lin_lo, S_lin_lo."""
     device = resolve_device(device)
+
+    def blocks(xs):
+        return None if xs is None else tuple(_tensor(x, device, dtype) for x in xs)
+
     return IPMState(
-        X=tuple(_tensor(X, device, dtype) for X in src.X),
-        S=tuple(_tensor(S, device, dtype) for S in src.S),
+        X=blocks(src.X),
+        S=blocks(src.S),
         y=_tensor(src.y, device, dtype),
         X_lin=_tensor(src.X_lin, device, dtype),
         S_lin=_tensor(src.S_lin, device, dtype),
         sigma=_tensor(src.sigma, device, dtype),
+        X_lo=blocks(getattr(src, "X_lo", None)),
+        S_lo=blocks(getattr(src, "S_lo", None)),
+        y_lo=_tensor(getattr(src, "y_lo", None), device, dtype),
+        X_lin_lo=_tensor(getattr(src, "X_lin_lo", None), device, dtype),
+        S_lin_lo=_tensor(getattr(src, "S_lin_lo", None), device, dtype),
     )

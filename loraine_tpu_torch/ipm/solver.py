@@ -73,7 +73,7 @@ class Result:
     solve_time: float
     iteration_times: List[float]  # per iteration, device work included
     timer: PhaseTimer
-    final_state: Optional[IPMState] = None  # for warm-start / checkpointing
+    final_state: Optional[IPMState] = None  # for warm-start; dd2: with its tails
     history: Optional[List[Dict[str, float]]] = None  # per-iteration stats
 
 
@@ -110,6 +110,34 @@ class Solver:
             elif o.erank >= max(g.m for g in p.groups) - 1:
                 warnings.warn("Switching to a direct solver, erank bigger than matrix size")
                 o.kit = 0
+
+    def _normalize_tails(self, state: IPMState) -> IPMState:
+        """Reconcile the state's dd2 tails with the requested precision
+        (`loraine_tpu/ipm/solver.py:128-151`): under 'dd2' a state without
+        tails gets zero tails (exact: the f64 iterate is hi + 0), and at
+        any other precision the tails are dropped (the hi words are the
+        correctly rounded f64 iterate).
+
+        The dd2 sparse setup of the JAX package (`ensure_dd_aadj`, `:239-247`)
+        has no counterpart: the sparse dd adjoint reduces over the
+        `AdjLayout` every sparse group carries from load time."""
+        if self.opts.precision == "dd2":
+            if state.X_lo is None:
+                def zeros(x):
+                    return None if x is None else torch.zeros_like(x)
+
+                state = dataclasses.replace(
+                    state,
+                    X_lo=tuple(torch.zeros_like(X) for X in state.X),
+                    S_lo=tuple(torch.zeros_like(S) for S in state.S),
+                    y_lo=torch.zeros_like(state.y),
+                    X_lin_lo=zeros(state.X_lin),
+                    S_lin_lo=zeros(state.S_lin),
+                )
+        elif state.X_lo is not None:
+            state = dataclasses.replace(state, X_lo=None, S_lo=None, y_lo=None,
+                                        X_lin_lo=None, S_lin_lo=None)
+        return state
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -160,6 +188,7 @@ class Solver:
 
         with self.timer.phase("initial point"):
             state = self.initial_state if self.initial_state is not None else initial_point(p, o)
+            state = self._normalize_tails(state)
 
         status = 0
         it = 0

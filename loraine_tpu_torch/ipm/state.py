@@ -1,6 +1,5 @@
 """Solver iterate state and per-iteration statistics. Port of
-`loraine_tpu/ipm/state.py` (the f64 fields; the dd2 tails are not ported,
-see ROADMAP.md Queue A item 12).
+`loraine_tpu/ipm/state.py`, with the dd2 tails.
 
 The persistent iterate is (X, S, y, LP variables, sigma); directions,
 scaling and residuals are local to one step (the reference keeps them as
@@ -22,6 +21,14 @@ class IPMState:
     X_lin: Optional[torch.Tensor]  # [nlin] or None
     S_lin: Optional[torch.Tensor]
     sigma: torch.Tensor  # scalar
+    # double-double tails (precision='dd2': the iterates are hi+lo pairs,
+    # the stand-in for the reference's Float64x4-class solver,
+    # `src/Solvers.jl:18`); None in every other mode
+    X_lo: Optional[Tuple[torch.Tensor, ...]] = None
+    S_lo: Optional[Tuple[torch.Tensor, ...]] = None
+    y_lo: Optional[torch.Tensor] = None
+    X_lin_lo: Optional[torch.Tensor] = None
+    S_lin_lo: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass

@@ -1,7 +1,8 @@
-"""One predictor-corrector IPM iteration. Port of the f64 kit=0 and kit=1
-branches of `loraine_tpu/ipm/step.py:build_step`, LP cone included (no
-dd/dd2 tiers, no mixed assembly, no sharding: ROADMAP.md Queue A items 12,
-13, 14).
+"""One predictor-corrector IPM iteration. Port of the kit=0 and kit=1
+branches of `loraine_tpu/ipm/step.py:build_step` at precision 'f64', 'dd'
+and 'dd2', LP cone included (the NT scaling stays f64: no native dd NT
+scaling, no mixed assembly, no sharding: ROADMAP.md Queue A items 12e, 13,
+14).
 
 Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
 `check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
@@ -15,6 +16,19 @@ both steplengths (`ipm/step.py:189-200, 426-433`).
 
 Convergence-error convention (reference): err1/err3 use the residuals at
 the start of the iteration, err2/4/5/6 the updated iterate.
+
+precision='dd' (the stand-in for the reference's Float64xN solver,
+`README.md:37-54`): the residuals, the right-hand sides, the Schur matrix
+(`ops/schur.py` dd operators, Ozaki-exact GEMMs) and the Schur solve's
+refinement run in double-double, the solve returns dely as a dd pair, and
+the directions are feasibility-exact, delX = -T + W Aadj(dely) W (+ U) with
+the same T and U as the right-hand sides. No predictor identity there: B2
+bounds the concatenated [scaleX; scaleS], as the JAX package's dd mode does.
+precision='dd2' also keeps the iterates as dd pairs (the state's ``*_lo``
+tails), with mu, the dual residuals, the LP scaling, sigma*mu, the iterate
+updates and the complementarity errors in dd. On kit=1 both tiers wrap f64
+`pcg` in two dd refinement passes; the CG kernels (B3, B4, the polish) are
+not taken, as the JAX package turns its fused CG kernel off in dd mode.
 """
 from __future__ import annotations
 
@@ -25,12 +39,16 @@ import torch
 
 from ..config import Options, resolve_cg_kernel
 from ..ops.cg import cg_plain, pcg
+from ..ops.dd import DD, dd_add, dd_mul_f64, dd_neg, dd_sum, dd_to_f64, two_prod, two_sum
+from ..ops.dd_linalg import dd_const, dd_div, dd_mul
 from ..ops.jacobi import eig_bounds_jacobi
 from ..ops.linalg import btrace, chol_reg, cho_solve_inv, sym, tri_inv
 from ..ops.nt_scaling import NTScaling, nt_scale
+from ..ops.ozaki import acc_matmul, acc_matvec
 from ..ops.pcg import cg_f64, pcg_kernel_ff, pcg_kernel_mixed
 from ..ops.precond import prep_alpha, prep_beta
-from ..ops.schur import Aadj, Aop, lp_weight, schur_group, schur_lp
+from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, lp_weight, schur_group, schur_group_dd,
+                         schur_lp, schur_lp_dd)
 from ..problem import SDPProblem
 from .initial import EXPON, TAU
 from .state import IPMState, StepStats
@@ -58,11 +76,58 @@ def _gersh_violation(M: torch.Tensor) -> torch.Tensor:
     return (-gersh).clamp_min(0.0)
 
 
+# ---- double-double helpers (`loraine_tpu/ipm/step.py:80-100`)
+
+
+def _dd0(x: torch.Tensor) -> DD:
+    return DD(x, torch.zeros_like(x))
+
+
+def _sandwich_dd(L: torch.Tensor, M: torch.Tensor, R: torch.Tensor) -> DD:
+    """L M R in dd for batched [nb, m, m] operands (Ozaki GEMMs plus the f64
+    lo-part correction)."""
+    T1 = acc_matmul(L, M)
+    T = acc_matmul(T1.hi, R)
+    s = two_sum(T.hi, T1.lo @ R)
+    return DD(s.hi, s.lo + T.lo)
+
+
+def _trace_dot_dd(A: torch.Tensor, B: torch.Tensor) -> DD:
+    """sum over all entries of A * B in dd."""
+    return dd_sum(two_prod(A.reshape(-1), B.reshape(-1)))
+
+
+def _dd_dot(a: torch.Tensor, b: torch.Tensor) -> DD:
+    return dd_sum(two_prod(a, b))
+
+
+def _dd_inner(A: DD, B: DD) -> DD:
+    """<A, B> over all entries of two dd tensors: dd on hi x hi, the cross
+    terms in f64 (`ipm/step.py:490-500`)."""
+    t = _trace_dot_dd(A.hi, B.hi)
+    s = two_sum(t.hi, (A.hi * B.lo).sum() + (A.lo * B.hi).sum())
+    return DD(s.hi, s.lo + t.lo)
+
+
+def _cmatvec_dd(M: torch.Tensor, v: DD) -> DD:
+    """M @ v for a dd vector: Ozaki-exact on the hi word, plain f64 on the
+    lo correction."""
+    r = acc_matvec(M, v.hi)
+    s = two_sum(r.hi, M @ v.lo)
+    return DD(s.hi, s.lo + r.lo)
+
+
+def _dd_sym(x: DD) -> DD:
+    return DD(sym(x.hi), sym(x.lo))
+
+
 class _GroupDirs(NamedTuple):
     delX: torch.Tensor
     delS: torch.Tensor
     alpha: torch.Tensor  # [nb]
     beta: torch.Tensor  # [nb]
+    delX_lo: Optional[torch.Tensor] = None  # dd2: direction tails
+    delS_lo: Optional[torch.Tensor] = None
 
 
 def _group_dirs(
@@ -70,25 +135,58 @@ def _group_dirs(
     nt: NTScaling,
     Rd: torch.Tensor,
     X: torch.Tensor,
-    dely: torch.Tensor,
+    dely,
     *,
     predict: bool,
     sig_mu: Optional[torch.Tensor] = None,
     RNT: Optional[torch.Tensor] = None,
+    T_dd: Optional[DD] = None,
+    U_dd: Optional[DD] = None,
+    Rd_dd: Optional[DD] = None,
 ) -> _GroupDirs:
     """Directions and per-block steplengths (`find_step`,
-    `src/predictor_corrector.jl:248-293`; `ipm/step.py:_group_dirs`)."""
+    `src/predictor_corrector.jl:248-293`; `ipm/step.py:_group_dirs`).
+
+    dd mode (``T_dd`` given, ``dely`` a DD pair): the feasibility-exact
+    delX = -T + W Aadj(dely) W (+ U on the corrector), where dely.lo's
+    sandwich keeps A(delX) = Rp past dely's f64 resolution. dd2 (``Rd_dd``
+    given): delS from the dd adjoint, and both directions come back with
+    their dd tails."""
+    dd_mode = T_dd is not None
+    dd2 = Rd_dd is not None
     GT = nt.G.mT
-    delS = Rd - Aadj(g, dely)
-    Xi = nt.W @ delS @ nt.W
-    if predict:
-        delX = sym(-X - Xi)
+    if dd_mode:
+        if dd2:
+            adj = Aadj_dd(g, dely)
+            delS_dd = _dd_sym(dd_add(Rd_dd, dd_neg(adj)))
+            delS = delS_dd.hi
+            # the dd adjoint's hi is the correctly rounded leading word
+            WAW = _sandwich_dd(nt.W, adj.hi, nt.W)
+            WAW = DD(WAW.hi, WAW.lo + nt.W @ adj.lo @ nt.W)
+        else:
+            adj = Aadj(g, dely.hi)
+            delS = Rd - adj
+            WAW = _sandwich_dd(nt.W, adj, nt.W)
+            WAW = DD(WAW.hi, WAW.lo + nt.W @ Aadj(g, dely.lo) @ nt.W)
+        acc = dd_add(dd_neg(T_dd), WAW)
+        if not predict:
+            acc = dd_add(acc, U_dd)
+        if dd2:
+            delX_dd = _dd_sym(acc)
+            delX = delX_dd.hi
+        else:
+            delX = sym(dd_to_f64(acc))
     else:
-        delX = sym(sig_mu * nt.Si - X - Xi + nt.G @ RNT @ GT)
+        delS = Rd - Aadj(g, dely)
+        Xi = nt.W @ delS @ nt.W
+        if predict:
+            delX = sym(-X - Xi)
+        else:
+            delX = sym(sig_mu * nt.Si - X - Xi + nt.G @ RNT @ GT)
 
     delSb = GT @ delS @ nt.G
     scaleS = sym(nt.DDsi[:, :, None] * delSb * nt.DDsi[:, None, :])
-    if predict:
+    if predict and not dd_mode:
         # Predictor identity: with Gi X Gi^T = D and DDsi = D^{-1/2},
         # scaleX = -I - scaleS, so lambda_min(scaleX) = -1 - lambda_max(scaleS)
         lo, hi = eig_bounds_jacobi(scaleS)
@@ -101,6 +199,9 @@ def _group_dirs(
         ev = eig_bounds_jacobi(torch.cat([scaleX, scaleS], dim=0))[0]
         alpha = _steplen(ev[:nb])
         beta = _steplen(ev[nb:])
+    if dd2:
+        return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta,
+                          delX_lo=delX_dd.lo, delS_lo=delS_dd.lo)
     return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta)
 
 
@@ -133,6 +234,29 @@ def _lin_dirs(
     return _LinDirs(delX=delX, delS=delS, alpha=_steplen(mX), beta=_steplen(mS))
 
 
+def _lin_dirs_dd(
+    problem: SDPProblem,
+    Xl: DD,
+    Sl: DD,
+    lpw: DD,
+    Rd_lin: DD,
+    dely: DD,
+    *,
+    predict: bool,
+    U_lin: Optional[DD] = None,
+) -> _LinDirs:
+    """LP-cone directions at dd resolution (dd2; `ipm/step.py:_lin_dirs_dd`):
+    delX and delS come back as DD pairs. ``U_lin`` = sig_mu*Si + RNT_lin,
+    the same term the corrector's right-hand side used."""
+    delS = dd_add(Rd_lin, dd_neg(_cmatvec_dd(problem.C_lin.mT, dely)))
+    delX = dd_neg(dd_add(Xl, dd_mul(lpw, delS)))
+    if not predict:
+        delX = dd_add(delX, U_lin)
+    mX = (delX.hi / Xl.hi).min()
+    mS = (delS.hi / Sl.hi).min()
+    return _LinDirs(delX=delX, delS=delS, alpha=_steplen(mX), beta=_steplen(mS))
+
+
 def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor]) -> torch.Tensor:
     """The symmetrized Schur matrix H = sum over groups of schur_group, plus
     the LP block C_lin diag(lpw) C_lin^T."""
@@ -142,6 +266,21 @@ def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor]) -> torch.Tenso
     if problem.nlin:
         H = H + schur_lp(problem.C_lin, lpw)
     return sym(H)
+
+
+def _schur_dd(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
+              lpw_dd: Optional[DD]) -> DD:
+    """The symmetrized Schur matrix in dd (`ipm/step.py:642-657`): the dd
+    group contributions, and the LP block in dd under dd2 (``lpw_dd``) or
+    the f64 one under dd."""
+    zero = torch.zeros((problem.n, problem.n), dtype=problem.b.dtype, device=problem.device)
+    H = DD(zero, zero)
+    for g, nt in zip(problem.groups, nts):
+        H = dd_add(H, schur_group_dd(g, nt.W, nt.G))
+    if problem.nlin:
+        H = dd_add(H, schur_lp_dd(problem.C_lin, lpw_dd) if lpw_dd is not None
+                   else _dd0(schur_lp(problem.C_lin, lpw)))
+    return _dd_sym(H)
 
 
 def _polish(Hp: torch.Tensor, rp: torch.Tensor, target: torch.Tensor, maxiter: int):
@@ -163,7 +302,7 @@ def _polish(Hp: torch.Tensor, rp: torch.Tensor, target: torch.Tensor, maxiter: i
 
 
 def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Options,
-               tol_cg: float, precond_kind: int):
+               tol_cg: float, precond_kind: int, dd_mode: bool = False):
     """The kit=1 Schur solve, rhs -> (dely, CG iterations), for one IPM
     iteration (`loraine_tpu/ipm/step.py:716-853`).
 
@@ -173,7 +312,9 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     followed by the f64 `cg_plain` polish of any shortfall, or the f64
     `cg_plain` on Hp. Matrix-free route: `pcg` with the operator
     Aop(W Aadj(x) W) + C_lin (lpw * C_lin^T x) and the SMW H_alpha /
-    diagonal H_beta."""
+    diagonal H_beta. Under dd/dd2 (``dd_mode``) every route is `pcg` on the
+    route's f64 operator and preconditioner (`ipm/step.py:802-807, 887-899`):
+    the caller refines its solution in dd."""
     n = problem.n
     mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
     if mat_cg:
@@ -202,6 +343,11 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
         precond = pb.apply
         # beta is diagonal: its inverse-Cholesky factor is diag(1/sqrt(d))
         Mli = torch.diag(1.0 / torch.sqrt(pb.diag)) if mat_cg else None
+
+    if dd_mode:
+        def solve(rhs):
+            return pcg(matvec, rhs, precond, tol_cg, opts.cg_maxiter)
+        return solve
 
     cg_kernel = resolve_cg_kernel(opts.cg_kernel, n, problem.device)
     use_kernel = mat_cg and cg_kernel in ("ff", "pallas")
@@ -242,6 +388,27 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     return solve
 
 
+def _matvec_dd(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], lpw_dd: Optional[DD],
+               x: DD) -> DD:
+    """The Schur operator applied in dd to a dd vector, matrix-free
+    (`ipm/step.py:863-885`): Aop_dd(W Aadj(x) W) per group, the sandwich in
+    dd with x.lo's first-order term, plus the LP block (in dd under dd2)."""
+    acc = None
+    for g, nt in zip(problem.groups, nts):
+        T = _sandwich_dd(nt.W, Aadj(g, x.hi), nt.W)
+        T = DD(T.hi, T.lo + nt.W @ Aadj(g, x.lo) @ nt.W)
+        r = Aop_dd(g, T.hi, T.lo)
+        acc = r if acc is None else dd_add(acc, r)
+    if problem.nlin:
+        C = problem.C_lin
+        if lpw_dd is not None:
+            r = _cmatvec_dd(C, dd_mul(lpw_dd, _cmatvec_dd(C.mT, x)))
+        else:
+            r = acc_matvec(C, lpw * (C.mT @ x.hi + C.mT @ x.lo))
+        acc = r if acc is None else dd_add(acc, r)
+    return acc
+
+
 def step(
     problem: SDPProblem,
     st: IPMState,
@@ -254,21 +421,43 @@ def step(
     kit=1 only: ``tol_cg`` is the CG tolerance of this iteration (default
     ``opts.tol_cg``; the solver tightens it after every iteration) and
     ``precond_kind`` the preconditioner (default ``opts.preconditioner``;
-    the solver's hybrid 4 -> 1 switch changes it between iterations)."""
+    the solver's hybrid 4 -> 1 switch changes it between iterations).
+    precision='dd2' needs the state's tails (`Solver` adds zero tails)."""
     dtype, device = problem.b.dtype, problem.device
     nlin = problem.nlin
+    ngroups = len(problem.groups)
     denom = problem.sum_msizes + nlin
     zero = torch.zeros((), dtype=dtype, device=device)
+    dd_mode = opts.precision in ("dd", "dd2")
+    dd2 = opts.precision == "dd2"
+    C_lin = problem.C_lin
+
+    # dd2: the iterates as DD pairs (hi = st.X etc., lo = the stored tails)
+    if dd2:
+        X_dds = tuple(DD(X, Xl) for X, Xl in zip(st.X, st.X_lo))
+        S_dds = tuple(DD(S, Sl) for S, Sl in zip(st.S, st.S_lo))
+        y_dd = DD(st.y, st.y_lo)
+        Xl_dd = DD(st.X_lin, st.X_lin_lo) if nlin else None
+        Sl_dd = DD(st.S_lin, st.S_lin_lo) if nlin else None
 
     # ---- mu (`find_mu`, src/Solvers.jl:480-494)
-    tr = zero
-    for X, S in zip(st.X, st.S):
-        tr = tr + btrace(X, S)
-    if nlin:
-        tr = tr + torch.dot(st.X_lin, st.S_lin)
-    mu = tr / denom
+    if dd2:
+        # <X, S> in dd: near the dd2 floor it cancels over ~20 digits
+        tr_dd = _dd0(zero)
+        for Xd, Sd in zip(X_dds, S_dds):
+            tr_dd = dd_add(tr_dd, _dd_inner(Xd, Sd))
+        if nlin:
+            tr_dd = dd_add(tr_dd, _dd_inner(Xl_dd, Sl_dd))
+        mu = dd_to_f64(tr_dd) / denom
+    else:
+        tr = zero
+        for X, S in zip(st.X, st.S):
+            tr = tr + btrace(X, S)
+        if nlin:
+            tr = tr + torch.dot(st.X_lin, st.S_lin)
+        mu = tr / denom
 
-    # ---- NT scaling (prepare_W)
+    # ---- NT scaling (prepare_W), f64 on the hi words
     nts = tuple(
         nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend)
         for X, S in zip(st.X, st.S)
@@ -278,59 +467,152 @@ def step(
     for nt in nts:
         nt_ok = nt_ok & nt.ok
         nt_suspect = nt_suspect | nt.shifted | nt.s_indef
-    Si_lin = (1.0 / st.S_lin) if nlin else None
-    lpw = lp_weight(st.X_lin, Si_lin) if nlin else None
+    Si_lin_dd = lpw_dd = None
+    if nlin and dd2:
+        # Si = 1/S and lpw = X/S at dd resolution (`ipm/step.py:531-539`)
+        Si_lin_dd = dd_div(dd_const(1.0, st.S_lin), Sl_dd)
+        lpw_dd = dd_mul(Xl_dd, Si_lin_dd)
+        Si_lin, lpw = Si_lin_dd.hi, lpw_dd.hi
+    else:
+        Si_lin = (1.0 / st.S_lin) if nlin else None
+        lpw = lp_weight(st.X_lin, Si_lin) if nlin else None
 
     # ---- residuals (`predictor`, src/predictor_corrector.jl:8-22)
-    Rp = problem.b
-    for g, X in zip(problem.groups, st.X):
-        Rp = Rp - Aop(g, X)
-    if nlin:
-        Rp = Rp - problem.C_lin @ st.X_lin
-    Rds = tuple(sym(g.C - S - Aadj(g, st.y)) for g, S in zip(problem.groups, st.S))
-    Rd_lin = (problem.d_lin - st.S_lin - problem.C_lin.mT @ st.y) if nlin else None
+    if dd_mode:
+        Rp_dd = _dd0(problem.b)
+        for gi, (g, X) in enumerate(zip(problem.groups, st.X)):
+            Rp_dd = dd_add(Rp_dd, dd_neg(Aop_dd(g, X, X_dds[gi].lo if dd2 else None)))
+        if nlin:
+            lin = _cmatvec_dd(C_lin, Xl_dd) if dd2 else acc_matvec(C_lin, st.X_lin)
+            Rp_dd = dd_add(Rp_dd, dd_neg(lin))
+        Rp = dd_to_f64(Rp_dd)
+    else:
+        Rp = problem.b
+        for g, X in zip(problem.groups, st.X):
+            Rp = Rp - Aop(g, X)
+        if nlin:
+            Rp = Rp - C_lin @ st.X_lin
+    Rd_dds = (None,) * ngroups
+    Rd_lin_dd = None
+    if dd2:
+        # Rd = C - S - Aadj(y) at dd resolution (f64 would pin err3 at
+        # u64 ||C||)
+        Rd_dds = []
+        for g, Sd in zip(problem.groups, S_dds):
+            t = two_sum(g.C, -Sd.hi)
+            Rd_dds.append(_dd_sym(dd_add(DD(t.hi, t.lo - Sd.lo), dd_neg(Aadj_dd(g, y_dd)))))
+        Rds = tuple(r.hi for r in Rd_dds)
+    else:
+        Rds = tuple(sym(g.C - S - Aadj(g, st.y)) for g, S in zip(problem.groups, st.S))
+    if nlin and dd2:
+        t = two_sum(problem.d_lin, -Sl_dd.hi)
+        Rd_lin_dd = dd_add(DD(t.hi, t.lo - Sl_dd.lo), dd_neg(_cmatvec_dd(C_lin.mT, y_dd)))
+        Rd_lin = Rd_lin_dd.hi
+    else:
+        Rd_lin = (problem.d_lin - st.S_lin - C_lin.mT @ st.y) if nlin else None
 
     # ---- predictor RHS (`makeRHS`, src/makeBBBB.jl:221-228)
-    h = Rp
-    for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
-        h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
-    if nlin:
-        h = h + problem.C_lin @ (lpw * Rd_lin + st.X_lin)
+    T_dds = (None,) * ngroups
+    if dd_mode:
+        # T = W (Rd + S) W per group, in dd, reused verbatim in the
+        # direction formula so that the feasibility identity cancels exactly
+        if dd2:
+            T_dds = []
+            for nt, Rdd, Sd in zip(nts, Rd_dds, S_dds):
+                M_dd = dd_add(Rdd, Sd)
+                T = _sandwich_dd(nt.W, M_dd.hi, nt.W)
+                T_dds.append(DD(T.hi, T.lo + nt.W @ M_dd.lo @ nt.W))
+            T_dds = tuple(T_dds)
+        else:
+            T_dds = tuple(_sandwich_dd(nt.W, Rd + S, nt.W) for nt, Rd, S in zip(nts, Rds, st.S))
+        h_dd = Rp_dd
+        for g, T in zip(problem.groups, T_dds):
+            h_dd = dd_add(h_dd, Aop_dd(g, T.hi, T.lo))
+        if nlin:
+            if dd2:
+                v = dd_add(dd_mul(lpw_dd, Rd_lin_dd), Xl_dd)
+                h_dd = dd_add(h_dd, _cmatvec_dd(C_lin, v))
+            else:
+                h_dd = dd_add(h_dd, acc_matvec(C_lin, lpw * Rd_lin + st.X_lin))
+    else:
+        h = Rp
+        for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
+            h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
+        if nlin:
+            h = h + C_lin @ (lpw * Rd_lin + st.X_lin)
 
     # ---- predictor solve
     if opts.kit == 0:
         # Schur assembly + regularized Cholesky (absolute 1e-4 shift,
         # `src/predictor_corrector.jl:74`) + explicit inverse factor
-        H = _schur(problem, nts, lpw)
+        if dd_mode:
+            Hs_dd = _schur_dd(problem, nts, lpw, lpw_dd)
+            H = Hs_dd.hi
+        else:
+            H = _schur(problem, nts, lpw)
         hc = chol_reg(H, 1e-4, 1000)
         h_shifts, h_ok = hc.shifts, hc.ok
         Hli = tri_inv(hc.L)
         cg_pre = cg_cor = torch.zeros((), dtype=torch.int32, device=device)
 
-        def solve(rhs):
-            # one step of iterative refinement (the reference carries it
-            # commented out at src/predictor_corrector.jl:98-115)
-            x = cho_solve_inv(Hli, rhs)
-            return x + cho_solve_inv(Hli, rhs - H @ x), cg_pre
+        if dd_mode:
+            def solve(rhs_dd):
+                # mixed-precision refinement: f64 factor, dd residuals, the
+                # solution returned in dd (`ipm/step.py:685-703`)
+                x = cho_solve_inv(Hli, rhs_dd.hi)
+                xlo = torch.zeros_like(x)
+                for _ in range(3):
+                    Hx = acc_matvec(Hs_dd.hi, x)
+                    s = two_sum(Hx.hi, Hs_dd.lo @ x + Hs_dd.hi @ xlo)
+                    r = dd_add(rhs_dd, dd_neg(DD(s.hi, s.lo + Hx.lo)))
+                    snew = two_sum(x, cho_solve_inv(Hli, dd_to_f64(r)))
+                    x, xlo = snew.hi, snew.lo + xlo
+                return DD(x, xlo), cg_pre
+        else:
+            def solve(rhs):
+                # one step of iterative refinement (the reference carries it
+                # commented out at src/predictor_corrector.jl:98-115)
+                x = cho_solve_inv(Hli, rhs)
+                return x + cho_solve_inv(Hli, rhs - H @ x), cg_pre
     else:
         # the corrector re-solves with the same operator and preconditioner
-        solve = _cg_solver(
+        solve_f64 = _cg_solver(
             problem, nts, lpw, opts,
             opts.tol_cg if tol_cg is None else tol_cg,
             opts.preconditioner if precond_kind is None else precond_kind,
+            dd_mode=dd_mode,
         )
         h_shifts, h_ok = 0, True
+        if dd_mode:
+            def solve(rhs_dd):
+                # f64 PCG + two dd refinement passes, the solution
+                # accumulated in dd (`ipm/step.py:887-899`)
+                x, iters = solve_f64(rhs_dd.hi)
+                xlo = torch.zeros_like(x)
+                for _ in range(2):
+                    r = dd_add(rhs_dd, dd_neg(_matvec_dd(problem, nts, lpw, lpw_dd, DD(x, xlo))))
+                    d, itr = solve_f64(dd_to_f64(r))
+                    iters = iters + itr
+                    snew = two_sum(x, d)
+                    x, xlo = snew.hi, snew.lo + xlo
+                return DD(x, xlo), iters
+        else:
+            solve = solve_f64
 
-    dely, cg_pre = solve(h)
+    dely, cg_pre = solve(h_dd if dd_mode else h)
 
     # ---- predictor directions + steplengths
     dirs = tuple(
-        _group_dirs(g, nt, Rd, X, dely, predict=True)
-        for g, nt, Rd, X in zip(problem.groups, nts, Rds, st.X)
+        _group_dirs(g, nt, Rd, X, dely, predict=True, T_dd=T, Rd_dd=Rdd)
+        for g, nt, Rd, X, T, Rdd in zip(problem.groups, nts, Rds, st.X, T_dds, Rd_dds)
     )
     one = torch.ones((), dtype=dtype, device=device)
     if nlin:
-        ld = _lin_dirs(problem, st, Si_lin, Rd_lin, dely, predict=True)
+        if dd2:
+            ld = _lin_dirs_dd(problem, Xl_dd, Sl_dd, lpw_dd, Rd_lin_dd, dely, predict=True)
+        else:
+            ld = _lin_dirs(problem, st, Si_lin, Rd_lin, dely.hi if dd_mode else dely,
+                           predict=True)
         alpha_min, beta_min = ld.alpha, ld.beta
     else:
         alpha_min, beta_min = one, one
@@ -342,20 +624,37 @@ def step(
     # src/predictor_corrector.jl:302-310)
     trXnSn_mat = zero
     RNTs = []
-    for nt, d, X, S in zip(nts, dirs, st.X, st.S):
-        Xn = X + d.alpha[:, None, None] * d.delX
-        Sn = S + d.beta[:, None, None] * d.delS
-        trXnSn_mat = trXnSn_mat + btrace(Xn, Sn)
+    for gi, (nt, d, X, S) in enumerate(zip(nts, dirs, st.X, st.S)):
+        if dd2:
+            # the trial trace in dd: at mu ~ 1e-18 the f64 product noise
+            # would swamp it
+            Xn = dd_add(X_dds[gi], dd_mul_f64(DD(d.delX, d.delX_lo), d.alpha[:, None, None]))
+            Sn = dd_add(S_dds[gi], dd_mul_f64(DD(d.delS, d.delS_lo), d.beta[:, None, None]))
+            t = _trace_dot_dd(Xn.hi, Sn.hi)
+            trXnSn_mat = trXnSn_mat + t.hi + (t.lo + ((Xn.hi * Sn.lo).sum() + (Xn.lo * Sn.hi).sum()))
+        else:
+            Xn = X + d.alpha[:, None, None] * d.delX
+            Sn = S + d.beta[:, None, None] * d.delS
+            trXnSn_mat = trXnSn_mat + btrace(Xn, Sn)
         deed = nt.D[:, :, None] + nt.D[:, None, :]
         N = nt.Gi @ d.delX @ d.delS @ nt.G
         RNTs.append(-(N + N.mT) / deed)
     trXnSn = trXnSn_mat
-    RNT_lin = None
+    RNT_lin = RNT_lin_dd = None
     if nlin:
-        Xn_lin = st.X_lin + ld.alpha * ld.delX
-        Sn_lin = st.S_lin + ld.beta * ld.delS
-        trXnSn = trXnSn + torch.dot(Xn_lin, Sn_lin)
-        RNT_lin = -(ld.delX * ld.delS) * Si_lin
+        if dd2:
+            Xn_l = dd_add(Xl_dd, dd_mul_f64(ld.delX, ld.alpha))
+            Sn_l = dd_add(Sl_dd, dd_mul_f64(ld.delS, ld.beta))
+            t = _dd_dot(Xn_l.hi, Sn_l.hi)
+            trXnSn = trXnSn + t.hi + (t.lo + (torch.dot(Xn_l.hi, Sn_l.lo)
+                                              + torch.dot(Xn_l.lo, Sn_l.hi)))
+            RNT_lin_dd = dd_neg(dd_mul(dd_mul(ld.delX, ld.delS), Si_lin_dd))
+            RNT_lin = RNT_lin_dd.hi
+        else:
+            Xn_lin = st.X_lin + ld.alpha * ld.delX
+            Sn_lin = st.S_lin + ld.beta * ld.delS
+            trXnSn = trXnSn + torch.dot(Xn_lin, Sn_lin)
+            RNT_lin = -(ld.delX * ld.delS) * Si_lin
 
     # ---- sigma update (`sigma_update`, src/predictor_corrector.jl:148-179)
     step_pred = torch.minimum(alpha_min, beta_min)
@@ -377,26 +676,62 @@ def step(
         torch.clamp(_safe_pow(ratio, expon_used), max=1.0),
     )
     sig_mu = sigma * mu
+    if dd2:
+        # the centrality target sigma*mu at dd resolution
+        sig_mu_dd = dd_mul_f64(dd_div(tr_dd, dd_const(float(denom), tr_dd.hi)), sigma)
 
     # ---- corrector RHS (`corrector`, src/predictor_corrector.jl:183-192)
-    h2 = Rp
-    for g, nt, Rd, RNT in zip(problem.groups, nts, Rds, RNTs):
-        GT = nt.G.mT
-        inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
-        h2 = h2 + Aop(g, nt.G @ inner @ GT)
-    if nlin:
-        tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
-        h2 = h2 + problem.C_lin @ (lpw * Rd_lin + st.X_lin + tmp)
-    dely2, cg_cor = solve(h2)
+    U_dds = (None,) * ngroups
+    U_lin_dd = None
+    if dd_mode:
+        # the reference's G[G'RdG + D - sig*mu/D - RNT]G' written as T - U
+        # with U = G[sig*mu/D + RNT]G' (exact NT identities), so the same T
+        # and U feed the corrector direction (`ipm/step.py:1013-1058`)
+        U_dds = tuple(
+            _sandwich_dd(nt.G, torch.diag_embed(sig_mu / nt.D) + RNT, nt.G.mT)
+            for nt, RNT in zip(nts, RNTs)
+        )
+        h2_dd = Rp_dd
+        for g, T, U in zip(problem.groups, T_dds, U_dds):
+            h2_dd = dd_add(h2_dd, Aop_dd(g, T.hi, T.lo))
+            h2_dd = dd_add(h2_dd, dd_neg(Aop_dd(g, U.hi, U.lo)))
+        if nlin:
+            if dd2:
+                # U_lin = sig_mu*Si + RNT_lin, reused verbatim in the
+                # corrector direction
+                sgv = DD(sig_mu_dd.hi.expand_as(Si_lin_dd.hi), sig_mu_dd.lo.expand_as(Si_lin_dd.hi))
+                U_lin_dd = dd_add(dd_mul(sgv, Si_lin_dd), RNT_lin_dd)
+                arg = dd_add(dd_add(dd_mul(lpw_dd, Rd_lin_dd), Xl_dd), dd_neg(U_lin_dd))
+                h2_dd = dd_add(h2_dd, _cmatvec_dd(C_lin, arg))
+            else:
+                tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
+                h2_dd = dd_add(h2_dd, acc_matvec(C_lin, lpw * Rd_lin + st.X_lin + tmp))
+        dely2, cg_cor = solve(h2_dd)
+    else:
+        h2 = Rp
+        for g, nt, Rd, RNT in zip(problem.groups, nts, Rds, RNTs):
+            GT = nt.G.mT
+            inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
+            h2 = h2 + Aop(g, nt.G @ inner @ GT)
+        if nlin:
+            tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
+            h2 = h2 + C_lin @ (lpw * Rd_lin + st.X_lin + tmp)
+        dely2, cg_cor = solve(h2)
 
     # ---- corrector directions + final update
     dirs2 = tuple(
-        _group_dirs(g, nt, Rd, X, dely2, predict=False, sig_mu=sig_mu, RNT=RNT)
-        for g, nt, Rd, X, RNT in zip(problem.groups, nts, Rds, st.X, RNTs)
+        _group_dirs(g, nt, Rd, X, dely2, predict=False, sig_mu=sig_mu, RNT=RNT,
+                    T_dd=T, U_dd=U, Rd_dd=Rdd)
+        for g, nt, Rd, X, RNT, T, U, Rdd in zip(problem.groups, nts, Rds, st.X, RNTs,
+                                               T_dds, U_dds, Rd_dds)
     )
     if nlin:
-        ld2 = _lin_dirs(problem, st, Si_lin, Rd_lin, dely2, predict=False,
-                        sig_mu=sig_mu, RNT_lin=RNT_lin)
+        if dd2:
+            ld2 = _lin_dirs_dd(problem, Xl_dd, Sl_dd, lpw_dd, Rd_lin_dd, dely2, predict=False,
+                               U_lin=U_lin_dd)
+        else:
+            ld2 = _lin_dirs(problem, st, Si_lin, Rd_lin, dely2.hi if dd_mode else dely2,
+                            predict=False, sig_mu=sig_mu, RNT_lin=RNT_lin)
         amin, bmin = ld2.alpha, ld2.beta
     else:
         amin, bmin = one, one
@@ -404,21 +739,46 @@ def step(
         amin = torch.minimum(amin, d.alpha.min())
         bmin = torch.minimum(bmin, d.beta.min())
 
-    y_new = st.y + bmin * dely2
-    X_new = tuple(sym(X + amin * d.delX) for X, d in zip(st.X, dirs2))
-    S_new = tuple(sym(S + bmin * d.delS) for S, d in zip(st.S, dirs2))
-    X_lin_new = (st.X_lin + amin * ld2.delX) if nlin else None
-    S_lin_new = (st.S_lin + bmin * ld2.delS) if nlin else None
+    Xl_new_dd = Sl_new_dd = None
+    if dd2:
+        # iterate updates at dd resolution (`ipm/step.py:1138-1166`)
+        y_new_dd = dd_add(y_dd, dd_mul_f64(dely2, bmin))
+        X_new_dds = tuple(_dd_sym(dd_add(Xd, dd_mul_f64(DD(d.delX, d.delX_lo), amin)))
+                          for Xd, d in zip(X_dds, dirs2))
+        S_new_dds = tuple(_dd_sym(dd_add(Sd, dd_mul_f64(DD(d.delS, d.delS_lo), bmin)))
+                          for Sd, d in zip(S_dds, dirs2))
+        y_new = y_new_dd.hi
+        X_new = tuple(x.hi for x in X_new_dds)
+        S_new = tuple(s_.hi for s_ in S_new_dds)
+        if nlin:
+            Xl_new_dd = dd_add(Xl_dd, dd_mul_f64(ld2.delX, amin))
+            Sl_new_dd = dd_add(Sl_dd, dd_mul_f64(ld2.delS, bmin))
+        X_lin_new = Xl_new_dd.hi if nlin else None
+        S_lin_new = Sl_new_dd.hi if nlin else None
+    else:
+        y_new = st.y + bmin * (dd_to_f64(dely2) if dd_mode else dely2)
+        X_new = tuple(sym(X + amin * d.delX) for X, d in zip(st.X, dirs2))
+        S_new = tuple(sym(S + bmin * d.delS) for S, d in zip(st.S, dirs2))
+        X_lin_new = (st.X_lin + amin * ld2.delX) if nlin else None
+        S_lin_new = (st.S_lin + bmin * ld2.delS) if nlin else None
 
     # ---- DIMACS errors (`check_convergence`, src/Solvers.jl:496-524).
     # The iterates are feasible by construction (steplengths from certified
     # lower bounds), so err2/err4 are zero unless the NT scaling itself was
     # regularized; then report the Gershgorin violation of the new iterate.
     normb = torch.linalg.norm(problem.b)
-    by = torch.dot(problem.b, y_new)
+    if dd_mode:
+        by_dd = _dd_dot(problem.b, y_new)
+        if dd2:
+            s2 = two_sum(by_dd.hi, torch.dot(problem.b, y_new_dd.lo))
+            by_dd = DD(s2.hi, s2.lo + by_dd.lo)
+        by = dd_to_f64(by_dd)
+        trCX_dd = _dd0(zero)
+    else:
+        by = torch.dot(problem.b, y_new)
     err1 = torch.linalg.norm(Rp) / (1.0 + normb)
     err2, err3, err4, err6, trCX = zero, zero, zero, zero, zero
-    for g, X, S, Rd in zip(problem.groups, X_new, S_new, Rds):
+    for gi, (g, X, S, Rd) in enumerate(zip(problem.groups, X_new, S_new, Rds)):
         normC = torch.sqrt((g.C**2).sum((-1, -2)))  # [nb]
         viol = _gersh_violation(torch.cat([X, S], dim=0))
         viol = torch.where(nt_suspect, viol, torch.zeros_like(viol))
@@ -428,7 +788,23 @@ def step(
         err4 = err4 + (violS / (1.0 + normC)).sum()
         CX = (g.C * X).sum((-1, -2))
         trCX = trCX + CX.sum()
-        SX = (S * X).sum((-1, -2))
+        if dd_mode:
+            t = _trace_dot_dd(g.C, X)
+            if dd2:
+                s2 = two_sum(t.hi, (g.C * X_new_dds[gi].lo).sum())
+                t = DD(s2.hi, s2.lo + t.lo)
+            trCX_dd = dd_add(trCX_dd, t)
+        if dd2:
+            # per-block <S, X> in dd: near the floor the f64 product noise
+            # exceeds the true barrier value
+            Xd2, Sd2 = X_new_dds[gi], S_new_dds[gi]
+            nb_ = X.shape[0]
+            p = two_prod(Sd2.hi.reshape(nb_, -1), Xd2.hi.reshape(nb_, -1))
+            t = dd_sum(p, axis=-1)  # [nb]
+            cross = (Sd2.hi * Xd2.lo + Sd2.lo * Xd2.hi).reshape(nb_, -1).sum(-1)
+            SX = t.hi + (t.lo + cross)
+        else:
+            SX = (S * X).sum((-1, -2))
         err6 = err6 + (SX / (1.0 + CX.abs() + by.abs())).sum()
     if nlin:
         dX = torch.dot(problem.d_lin, X_lin_new)
@@ -436,10 +812,25 @@ def step(
         err2 = err2 + (-X_lin_new.min()).clamp_min(0.0) / (1.0 + normb)
         err3 = err3 + torch.linalg.norm(Rd_lin) / (1.0 + normd)
         err4 = err4 + (-S_lin_new.min()).clamp_min(0.0) / (1.0 + normd)
-        err5 = (trCX + dX - by) / (1.0 + trCX.abs() + by.abs())
-        err6 = err6 + torch.dot(S_lin_new, X_lin_new) / (1.0 + dX.abs() + by.abs())
+        if dd_mode:
+            ddX = _dd_dot(problem.d_lin, X_lin_new)
+            if dd2:
+                s2 = two_sum(ddX.hi, torch.dot(problem.d_lin, Xl_new_dd.lo))
+                ddX = DD(s2.hi, s2.lo + ddX.lo)
+            gap = dd_to_f64(dd_add(dd_add(trCX_dd, ddX), dd_neg(by_dd)))
+        else:
+            gap = trCX + dX - by
+        err5 = gap / (1.0 + trCX.abs() + by.abs())
+        if dd2:
+            t = _dd_dot(Sl_new_dd.hi, Xl_new_dd.hi)
+            cross = torch.dot(Sl_new_dd.hi, Xl_new_dd.lo) + torch.dot(Sl_new_dd.lo, Xl_new_dd.hi)
+            SXl = t.hi + (t.lo + cross)
+        else:
+            SXl = torch.dot(S_lin_new, X_lin_new)
+        err6 = err6 + SXl / (1.0 + dX.abs() + by.abs())
     else:
-        err5 = (trCX - by) / (1.0 + trCX.abs() + by.abs())
+        gap = dd_to_f64(dd_add(trCX_dd, dd_neg(by_dd))) if dd_mode else trCX - by
+        err5 = gap / (1.0 + trCX.abs() + by.abs())
 
     dimacs = err2 + err3 + err4 + err5.abs() + err6
     if problem.nlmi > 0:
@@ -447,6 +838,14 @@ def step(
 
     new_state = IPMState(X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new,
                          sigma=sigma)
+    if dd2:
+        new_state = IPMState(
+            X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new, sigma=sigma,
+            X_lo=tuple(x.lo for x in X_new_dds), S_lo=tuple(s_.lo for s_ in S_new_dds),
+            y_lo=y_new_dd.lo,
+            X_lin_lo=None if Xl_new_dd is None else Xl_new_dd.lo,
+            S_lin_lo=None if Sl_new_dd is None else Sl_new_dd.lo,
+        )
     stats = StepStats(
         obj=-by + problem.b_const,
         mu=mu,

@@ -20,14 +20,25 @@ The sparse `Aadj` is a scatter-add in the JAX package. Here it sums over
 the per-cell layout `problem.AdjLayout` (gathers and fixed-shape sums, then
 a collision-free placement), so its result is the same bit for bit from run
 to run on a card, where a scatter-add would be float atomics.
+
+The double-double counterparts for precision 'dd'/'dd2' (`Aop_dd`,
+`Aadj_dd`, `schur_group_dd` with `_schur_sparse_dd`, `schur_lp_dd`) run
+every GEMM as an Ozaki-sliced exact product (`ops/ozaki.py`) and every
+accumulation in dd, as the JAX package does. The sparse `Aadj_dd` reduces
+each cell's entries in dd over the same two-level layout.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..problem import BlockGroup
+from .dd import DD, dd_add, dd_sum, two_prod, two_sum
+from .ozaki import acc_matmul, acc_matvec
 
-__all__ = ["Aop", "Aadj", "schur_group", "lp_weight", "schur_lp"]
+__all__ = ["Aop", "Aadj", "schur_group", "lp_weight", "schur_lp", "Aop_dd", "Aadj_dd",
+           "schur_group_dd", "schur_lp_dd"]
 
 # above this many elements of the [nb, n, m, m] temporary T = W A W the
 # dense assembly runs in constraint chunks (`schur.py:173`)
@@ -132,3 +143,176 @@ def lp_weight(X_lin: torch.Tensor, S_lin_inv: torch.Tensor) -> torch.Tensor:
 def schur_lp(C_lin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[n, n] <- C_lin diag(w) C_lin^T."""
     return (C_lin * w[None, :]) @ C_lin.T
+
+
+# ---- double-double operators (precision 'dd' and 'dd2')
+
+
+def _dd_renorm(hi: torch.Tensor, lo: torch.Tensor) -> DD:
+    s = hi + lo
+    t = (s - hi) + 0.0 * lo  # fold-blocker of the JAX package: see ops/dd.py
+    return DD(s, lo - t)
+
+
+def _flat_data(group: BlockGroup) -> torch.Tensor:
+    """The dense data stack as [n, nb*m*m] (constraint-major rows)."""
+    nb, n, m, _ = group.A.shape
+    return group.A.movedim(1, 0).reshape(n, nb * m * m)
+
+
+def Aop_dd(group: BlockGroup, M: torch.Tensor, Mlo: Optional[torch.Tensor] = None) -> DD:
+    """Aop in double-double: [n] <- sum_b <A_j, M_b> with dd accumulation
+    (`schur.py:Aop_dd`); ``Mlo`` is an optional low part of M, entering as
+    a plain f64 first-order term. Dense: an Ozaki-exact matvec against the
+    flattened stack; rank-1 and sparse: TwoProd and dd tree sums."""
+    if group.is_rank1:
+        p = two_prod(group.B @ M, group.B)  # f64 inner product, then exact
+        vals = dd_sum(p, axis=-1)  # [nb, n]
+        w = dd_sum(DD(vals.hi * group.Bsgn, vals.lo * group.Bsgn), axis=0)
+        if Mlo is not None:
+            corr = (group.Bsgn * ((group.B @ Mlo) * group.B).sum(-1)).sum(0)
+            s = two_sum(w.hi, corr)
+            w = DD(s.hi, s.lo + w.lo)
+        return w
+    if group.is_sparse:
+        bidx = torch.arange(group.nb, device=M.device)[:, None, None]
+        p = two_prod(group.Avals, M[bidx, group.Arows, group.Acols])  # [nb, n, s]
+        n = p.hi.shape[1]
+        w = dd_sum(DD(p.hi.movedim(1, 0).reshape(n, -1), p.lo.movedim(1, 0).reshape(n, -1)))
+        if Mlo is not None:
+            corr = (group.Avals * Mlo[bidx, group.Arows, group.Acols]).sum((0, 2))
+            s = two_sum(w.hi, corr)
+            w = DD(s.hi, s.lo + w.lo)
+        return w
+    Af = _flat_data(group)
+    r = acc_matvec(Af, M.reshape(-1))
+    if Mlo is not None:
+        s = two_sum(r.hi, Af @ Mlo.reshape(-1))
+        r = DD(s.hi, s.lo + r.lo)
+    return r
+
+
+def Aadj_dd(group: BlockGroup, y: DD) -> DD:
+    """Aadj at double-double accuracy: [nb, m, m] <- sum_j y_j A_j with the
+    contraction in dd and y.lo folded in (`schur.py:Aadj_dd`).
+
+      dense:  Ozaki-exact matvec against the flattened stack;
+      rank-1: u_j = (sgn_j y_j) b_j by TwoProd (the sign product is exact),
+              then sum_j u_j b_j^T as an Ozaki-exact GEMM;
+      sparse: TwoProd per entry and a dd sum per target cell over the
+              two-level `AdjLayout` (each level a dd tree sum, the pad slots
+              exact zeros), then placement at the unique cells.
+    """
+    if group.is_rank1:
+        w = group.Bsgn * y.hi[None, :]  # sgn in {-1, 0, 1}: exact product
+        wlo = group.Bsgn * y.lo[None, :]
+        u = two_prod(group.B, w[:, :, None])  # [nb, n, m]
+        P = acc_matmul(u.hi.mT, group.B)  # [nb, m, m]
+        corr = (u.lo + group.B * wlo[:, :, None]).mT @ group.B
+        s = two_sum(P.hi, corr)
+        return DD(s.hi, s.lo + P.lo)
+    if group.is_sparse:
+        L, m = group.adj, group.m
+        nb = L.cells.shape[0]
+        p = two_prod(L.v, y.hi[L.j])
+        t = dd_sum(DD(p.hi, p.lo + L.v * y.lo[L.j]), axis=-1)  # [nb, R] row sums
+        pad = t.hi.new_zeros((nb, 1))  # slot R: the pad zero
+        rows = L.rows.reshape(nb, -1)
+
+        def gather(x):
+            return torch.gather(torch.cat([x, pad], dim=1), 1, rows).reshape(L.rows.shape)
+
+        cell = dd_sum(DD(gather(t.hi), gather(t.lo)), axis=-1)  # [nb, ncell]
+
+        def place(v):
+            out = v.new_zeros((nb, m * m + 1)).scatter_(1, L.cells, v)
+            return out[:, : m * m].reshape(nb, m, m)
+
+        return DD(place(cell.hi), place(cell.lo))
+    nb, n, m, _ = group.A.shape
+    AfT = _flat_data(group).mT  # [nb*m*m, n]
+    r = acc_matvec(AfT, y.hi)
+    s = two_sum(r.hi, AfT @ y.lo)
+    return DD(s.hi.reshape(nb, m, m), (s.lo + r.lo).reshape(nb, m, m))
+
+
+def _schur_sparse_dd(group: BlockGroup, W: torch.Tensor) -> DD:
+    """Sparse-data Schur contribution in double-double (`schur.py:
+    _schur_sparse_dd`): the gather pipeline of `_schur_sparse` with each COO
+    slot's outer product v_t (W e_{r_t})(W e_{c_t})^T entering T2 as TwoProd
+    pairs summed in dd, and the contraction against Avals as TwoProd plus dd
+    sums; the block axis is summed in dd. Chunks of J constraints with the
+    JAX package's rule J = min(n, max(4, 2^21 // (nb m^2)))."""
+    nb, n, s = group.Avals.shape
+    m = group.m
+    J = int(min(n, max(4, (1 << 21) // max(1, nb * m * m))))
+    flatk = (group.Arows * m + group.Acols).reshape(nb, 1, n * s)
+    bidx = torch.arange(nb, device=W.device)[:, None, None]
+    his, los = [], []
+    for j0 in range(0, n, J):
+        r_c, c_c = group.Arows[:, j0 : j0 + J], group.Acols[:, j0 : j0 + J]
+        v_c = group.Avals[:, j0 : j0 + J]
+        Wa, Wc = W[bidx, r_c], W[bidx, c_c]  # [nb, Jc, s, m]
+        Jc = v_c.shape[1]
+        acc = DD(W.new_zeros((nb, Jc, m, m)), W.new_zeros((nb, Jc, m, m)))
+        for t in range(s):
+            av = two_prod(Wa[:, :, t, :], v_c[:, :, t, None])  # [nb, Jc, m]
+            wc = Wc[:, :, t, None, :]
+            outer = two_prod(av.hi[..., :, None], wc)
+            acc = dd_add(acc, DD(outer.hi, outer.lo + av.lo[..., :, None] * wc))
+        idx = flatk.expand(nb, Jc, n * s)
+        Ghi = torch.gather(acc.hi.reshape(nb, Jc, m * m), 2, idx).reshape(nb, Jc, n, s)
+        Glo = torch.gather(acc.lo.reshape(nb, Jc, m * m), 2, idx).reshape(nb, Jc, n, s)
+        hrow = DD(W.new_zeros((nb, Jc, n)), W.new_zeros((nb, Jc, n)))
+        for t in range(s):
+            av = group.Avals[:, None, :, t]
+            p = two_prod(Ghi[..., t], av)
+            hrow = dd_add(hrow, DD(p.hi, p.lo + Glo[..., t] * av))
+        out = dd_sum(hrow, axis=0)  # [Jc, n]
+        his.append(out.hi)
+        los.append(out.lo)
+    return DD(torch.cat(his, dim=0), torch.cat(los, dim=0))
+
+
+def schur_group_dd(group: BlockGroup, W: torch.Tensor, G: torch.Tensor) -> DD:
+    """Schur contribution in double-double (`schur.py:schur_group_dd`; the
+    W_lo/G_lo tail terms of the native dd NT scaling are not ported, ROADMAP
+    item 12e): every GEMM an Ozaki-sliced exact product, accumulations dd.
+
+      rank-1: BG = B G exact, P = BG BG^T exact plus the BG.lo cross terms,
+              then the elementwise square in dd and the signed block sum;
+      sparse: `_schur_sparse_dd`;
+      dense:  T = W A W in dd, then H = A_flat T_flat^T in dd."""
+    if group.is_rank1:
+        BG = acc_matmul(group.B, G)  # [nb, n, m]
+        GT = BG.hi.mT
+        P = acc_matmul(BG.hi, GT)  # [nb, n, n]
+        # lo-part cross terms BG.lo BG.hi^T and its transpose (BG.lo BG.lo^T
+        # is below dd resolution)
+        cross = BG.lo @ GT
+        P = _dd_renorm(P.hi, P.lo + cross + cross.mT)
+        sq = two_prod(P.hi, P.hi)
+        Psq = _dd_renorm(sq.hi, sq.lo + 2.0 * P.hi * P.lo)
+        sgn = group.Bsgn[:, :, None] * group.Bsgn[:, None, :]
+        return dd_sum(DD(Psq.hi * sgn, Psq.lo * sgn), axis=0)
+    if group.is_sparse:
+        return _schur_sparse_dd(group, W)
+    nb, n, m, _ = group.A.shape
+    WA = acc_matmul(W[:, None], group.A)  # [nb, n, m, m]
+    T = acc_matmul(WA.hi, W[:, None])
+    T = _dd_renorm(T.hi, T.lo + WA.lo @ W[:, None])
+    Af = _flat_data(group)
+    Thf = T.hi.movedim(1, 0).reshape(n, -1)
+    Tlf = T.lo.movedim(1, 0).reshape(n, -1)
+    H = acc_matmul(Af, Thf.mT)
+    return _dd_renorm(H.hi, H.lo + Af @ Tlf.mT)
+
+
+def schur_lp_dd(C_lin: torch.Tensor, w: DD) -> DD:
+    """schur_lp at dd accuracy (`schur.py:schur_lp_dd`): the C*w scaling by
+    TwoProd, the big product Ozaki-exact, the w.lo first-order term a plain
+    f64 GEMM."""
+    p = two_prod(C_lin, w.hi[None, :])
+    H = acc_matmul(p.hi, C_lin.mT)
+    s = two_sum(H.hi, (p.lo + C_lin * w.lo[None, :]) @ C_lin.mT)
+    return _dd_renorm(s.hi, s.lo + H.lo)

@@ -3,9 +3,15 @@
 Run from the root of a checkout on a CUDA machine:
 
     python3 -m loraine_tpu_torch.utils.profiling [CASE ...] [--out FILE]
+    python3 -m loraine_tpu_torch.utils.profiling --quick CASE ... [--out FILE]
+    python3 -m loraine_tpu_torch.utils.profiling --once [--plain-b1] CASE ...
 
-CASE is one of tru9, vib9, thetaG11, maxG11 (kit=0) and control1-cg,
-theta_G100 (kit=1, the materialized CG route); default: the first three.
+CASE is one of tru9, vib9, thetaG11, maxG11, theta1 (kit=0), control1-cg,
+theta_G100, theta1-cg (kit=1, the materialized CG route), tru9-cg, vib9-cg (kit=1 with
+control1-cg's options, the matrix-free route at n = 3240), and the precision
+tiers theta1-dd, theta1-dd2, tru3-sparse, tru3-sparse-dd2, lp, lp-dd2,
+theta1-cg-dd, theta1-cg-dd2, maxG11-dd (`chip_smoke.py` phases 18-21's
+options); default: tru9, vib9, thetaG11.
 For each case, on the card: the problem load; one warm solve (kernel build,
 cuBLAS handles) and two timed solves; one solve with the step's phase
 functions wrapped in `torch.cuda.synchronize()` (ms per iteration of each;
@@ -16,9 +22,17 @@ trace of two warm steps from the iterate halfway through the solve: the
 device kernels' time over the traced wall (busy share), the top kernels,
 the device time and launches of the kernels of csrc/jacobi.cu and of
 csrc/pcg.cu (their shares of device time, and those of B3, B4 and the
-polish apart), and the wrappers' calls per padded size mp and per regime.
-Prints the card's name and power limit,
-then one JSON line per case; ``--out`` also writes all of them to FILE.
+polish apart), the wrappers' calls per padded size mp and per regime, and
+the device kernels launched per step. Prints the card's name and power
+limit, then one JSON line per case; ``--out`` also writes all of them to
+FILE. ``--quick`` times one solve after the warm one and leaves out the
+synced run (for the slow precision-tier cases).
+
+``--once`` solves each case once and prints its status, objective,
+iterations, CG iterations, solve time and median time per iteration; with
+``--plain-b1`` the Jacobi seed B1 runs its plain PyTorch version on the
+card instead of the kernel (B2 stays the kernel), to tell whether a
+trajectory's difference comes from the seed's rounding.
 """
 from __future__ import annotations
 
@@ -44,6 +58,24 @@ THETA1_CG = {"kit": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-5, "preconditioner": 1,
              "initpoint": 1, "verb": 0}
 
 
+def lp_synthetic(device="cuda"):
+    """The mixed PSD + LP problem of tests/test_precision.py:76-96 (seed 5)."""
+    rng = np.random.default_rng(5)
+    n, m = 6, 5
+    A = rng.standard_normal((n, m, m))
+    A = (A + A.transpose(0, 2, 1)) / 2
+    b = rng.standard_normal(n) * 0.1
+    C_lin = rng.standard_normal((n, 4))
+    d_lin = np.abs(rng.standard_normal(4)) + 1.0
+    return ltt.problem_from_dense([A], [np.eye(m)], b, C_lin=C_lin, d_lin=d_lin,
+                                  storage="dense", device=device)
+
+
+def tru3_sparse(device="cuda"):
+    """SDPLIB tru3 forced to sparse storage (tests/test_precision.py:158-160)."""
+    return ltt.problem_from_sdpa("tests/data/tru3.dat-s", storage="sparse", device=device)
+
+
 def theta_g100(device="cuda"):
     """Lovasz theta SDP at SDPLIB theta2's size: 100 vertices, edges with
     probability 0.1 from seed 2 (463 edges), n = 464, dense storage
@@ -61,14 +93,41 @@ def theta_g100(device="cuda"):
     return ltt.problem_from_dense([A], [-np.ones((nv, nv))], b, storage="dense", device=device)
 
 
+THETA1 = "tests/data/theta1.dat-s"
+# the precision tiers: tests/test_precision.py's options (chip_smoke.py
+# phases 18-21); the f64 rows beside them at the f64 solver's eDIMACS
+THETA1_KIT0 = {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}
+DD = {"kit": 0, "eDIMACS": 1e-11, "initpoint": 1, "verb": 0, "precision": "dd", "maxit": 30}
+DD2 = dict(DD, eDIMACS=5e-13, precision="dd2", datasparsity=0)
+CG_DD = {"precision": "dd", "kit": 1, "preconditioner": 1, "eDIMACS": 1e-9, "tol_cg_min": 1e-9,
+         "initpoint": 1, "verb": 0, "maxit": 40}
+CG_DD2 = dict(CG_DD, precision="dd2", eDIMACS=1e-10, tol_cg_min=1e-10, datasparsity=0)
+
 # name -> (SDPA file or a function of the device that builds the problem, options)
 CASES = {
     "tru9": ("tests/data/tru9.dat-s", KIT0),
     "vib9": ("tests/data/vib9.dat-s", KIT0),
     "thetaG11": ("tests/data/thetaG11.dat-s", dict(KIT0, datarank=-1)),
     "maxG11": ("tests/data/maxG11.dat-s", dict(KIT0, datarank=-1)),
+    "theta1": (THETA1, THETA1_KIT0),
     "control1-cg": ("tests/data/control1.dat-s", CONTROL1_CG),
     "theta_G100": (theta_g100, THETA1_CG),
+    "theta1-cg": (THETA1, THETA1_CG),
+    # verb=1: the iteration log shows how far a solve got if a time limit
+    # stops it
+    "tru9-cg": ("tests/data/tru9.dat-s", dict(CONTROL1_CG, verb=1)),
+    "vib9-cg": ("tests/data/vib9.dat-s", dict(CONTROL1_CG, verb=1)),
+    "theta1-dd": (THETA1, DD),
+    "theta1-dd2": (THETA1, DD2),
+    "tru3-sparse": (tru3_sparse, dict(KIT0, eDIMACS=1e-7)),
+    "tru3-sparse-dd2": (tru3_sparse, {"kit": 0, "eDIMACS": 1e-9, "initpoint": 1, "verb": 0,
+                                       "precision": "dd2"}),
+    "lp": (lp_synthetic, {"eDIMACS": 1e-7, "verb": 0}),
+    "lp-dd2": (lp_synthetic, {"eDIMACS": 1e-13, "verb": 0, "precision": "dd2", "maxit": 40}),
+    "theta1-cg-dd": (THETA1, CG_DD),
+    "theta1-cg-dd2": (THETA1, CG_DD2),
+    "maxG11-dd": ("tests/data/maxG11.dat-s", dict(KIT0, datarank=-1, eDIMACS=1e-8,
+                                                  precision="dd")),
 }
 # the functions `ipm/step.py` imports or defines that the synced run times
 # (those a version of the step does not have are left out)
@@ -181,11 +240,13 @@ def traced(problem, opts, state, done: int, steps: int = 2):
         wall = time.perf_counter() - t0
     rows = _device_rows(prof)
     busy = sum(r[1] for r in rows)
+    launched = sum(r[2] for r in rows)
     jac_ms, jac_share, jac_n = _share(rows, JACOBI_KERNELS, busy)
     cg_ms, cg_share, cg_n = _share(rows, PCG_KERNELS, busy)
     cg_rows = [r for r in rows if any(k in r[0] for k in PCG_KERNELS)]
     return {"steps": steps, "wall_ms": 1e3 * wall, "device_ms": busy,
-            "busy_share": busy / (1e3 * wall), "top": rows[:14],
+            "busy_share": busy / (1e3 * wall), "device_launches_per_step": launched / steps,
+            "top": rows[:14],
             "jacobi_device_ms": jac_ms, "jacobi_share": jac_share,
             "jacobi_kernel_launches": jac_n,
             "jacobi_launches_by_mp": {
@@ -210,13 +271,29 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def profile_case(src, opts) -> dict:
+def _load(src, opts):
+    return src("cuda") if callable(src) else ltt.load_problem(src, opts, device="cuda")
+
+
+def solve_once(name: str, src, opts) -> dict:
+    """One solve of a case on the card (``--once``)."""
+    p = _load(src, opts)
+    torch.cuda.reset_peak_memory_stats()
+    r = ltt.solve(p, opts, device="cuda")
+    return {"case": name, "status": r.status_name, "objective": r.objective,
+            "iterations": r.iterations, "cg_iterations": r.cg_iterations, "dimacs": r.dimacs,
+            "solve_s": r.solve_time,
+            "median_iter_ms": 1e3 * float(np.median(r.iteration_times)),
+            "peak_mem_MiB": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def profile_case(src, opts, quick: bool = False) -> dict:
     t0 = time.perf_counter()
-    p = src("cuda") if callable(src) else ltt.load_problem(src, opts, device="cuda")
+    p = _load(src, opts)
     load_s = time.perf_counter() - t0
     r = ltt.solve(p, opts, device="cuda")  # warm
-    runs = [ltt.solve(p, opts, device="cuda") for _ in range(2)]
-    phases, ms_it, cg_its = synced_phases(p, opts)
+    runs = [ltt.solve(p, opts, device="cuda") for _ in range(1 if quick else 2)]
+    phases, ms_it, cg_its = ({}, None, {}) if quick else synced_phases(p, opts)
     done = r.iterations // 2
     mid = ltt.solve(p, dict(opts, maxit=done), device="cuda").final_state
     return {
@@ -234,6 +311,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("cases", nargs="*", metavar="CASE", help=f"one of {', '.join(CASES)}")
     ap.add_argument("--out", help="write the results of all cases to this JSON file")
+    ap.add_argument("--once", action="store_true", help="one solve per case, no profile")
+    ap.add_argument("--quick", action="store_true",
+                    help="one timed solve after the warm one and no synced run")
+    ap.add_argument("--plain-b1", action="store_true",
+                    help="with --once: B1's plain version on the card instead of the kernel")
     args = ap.parse_args(argv)
     cases = args.cases or ["tru9", "vib9", "thetaG11"]
     unknown = sorted(set(cases) - set(CASES))
@@ -243,8 +325,12 @@ def main(argv=None) -> int:
         raise SystemExit("profiling needs a CUDA card")
     out = {"card": card()}
     print("card", out["card"], flush=True)
+    if args.plain_b1:
+        # `jacobi_eigh_padded` looks the kernel's wrapper up at each call
+        tj.jacobi_eigh_cuda = tj.jacobi_eigh_plain
     for name in cases:
-        out[name] = profile_case(*CASES[name])
+        out[name] = (solve_once(name, *CASES[name]) if args.once
+                     else profile_case(*CASES[name], quick=args.quick))
         print(name, json.dumps(out[name], default=str), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

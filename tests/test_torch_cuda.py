@@ -195,3 +195,31 @@ def test_sparse_contractions_reproducible_on_card():
         outs[dev] = [x.cpu().numpy() for x in runs[0]]
     for c, k in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_allclose(k, c, rtol=1e-12, atol=1e-12 * np.abs(c).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [800, 2500])
+def test_dd_arithmetic_card_equals_cpu(k):
+    """The precision tiers' arithmetic (ops/dd.py, ops/ozaki.py) rounds each
+    operation once on the card too: two_sum, two_prod, dd_add, dd_sum and
+    acc_matmul (its partial GEMMs exact under cuBLAS f64) equal the CPU's
+    results bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: compares the card's arithmetic with the CPU's")
+    from loraine_tpu_torch.ops import dd as D, ozaki as Z
+
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((8, k)) * 2.0 ** rng.integers(-300, 300, (8, k)))
+    b = torch.from_numpy(rng.standard_normal((8, k)) * 2.0 ** rng.integers(-300, 300, (8, k)))
+    b[:, ::2] = -a[:, ::2]
+    x, y = D.DD(a, b * 2.0**-60), D.DD(b, a * 2.0**-60)
+    on = lambda t: D.DD(t.hi.cuda(), t.lo.cuda())  # noqa: E731
+    for card, cpu in ((D.two_sum(a.cuda(), b.cuda()), D.two_sum(a, b)),
+                      (D.two_prod(a.cuda(), b.cuda()), D.two_prod(a, b)),
+                      (D.dd_add(on(x), on(y)), D.dd_add(x, y)),
+                      (D.dd_sum(on(x)), D.dd_sum(x))):
+        assert all(torch.equal(u.cpu(), v) for u, v in zip(card, cpu))
+    A = torch.from_numpy(rng.standard_normal((64, k)) * np.exp(rng.uniform(-8, 8, (64, k))))
+    B = torch.from_numpy(rng.standard_normal((k, 48)) * np.exp(rng.uniform(-8, 8, (k, 48))))
+    card = Z.acc_matmul(A.cuda(), B.cuda())
+    assert all(torch.equal(u.cpu(), v) for u, v in zip(card, Z.acc_matmul(A, B)))

@@ -152,8 +152,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("opts,item", [
-    ({"kit": 1, "precision": "dd"}, "item 12"),
-    ({"precision": "dd"}, "item 12"),
+    ({"precision": "dd2", "nt_precision": "dd"}, "item 12"),
+    ({"dtype": "float32"}, "item 13"),
     ({"nt_method": "svd"}, "item 13"),
     ({"eigh_backend": "jacobi"}, "item 13"),
     ({"step_eig": "exact"}, "item 13"),
