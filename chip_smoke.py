@@ -87,12 +87,42 @@ Phases:
  21. maxG11 at full size at precision='dd', eDIMACS 1e-8: OPTIMAL, objective
      within 1e-6 relative of 629.16479325; wall time, median time per
      iteration and peak memory beside phase 4's f64 run.
+ 22. maxG11 at full size under the modes the JAX package's CPU 'auto'
+     resolves to at m = 800 (eigh_backend='mixed': the library's f32 eigh as
+     the NT seed; step_eig='exact': eigenvalues of `eigh_mixed`): OPTIMAL,
+     objective within 1e-5 relative of 629.16479325, iterations within 2 of
+     14, neither Jacobi kernel launched; then with step_eig='pallas' (B2's
+     bounds, the same seed): the iterations of both beside phase 4's (B1
+     seed, B2 bounds), which tells which mode moves the count.
+ 23. theta1 under eigh_backend 'jacobi' (the eager f64 Jacobi) and 'xla'
+     (the library's f64 eigh), step_eig='exact', each beside the port's CPU
+     run under the same modes: same iterations, objectives within 1e-9; no
+     Jacobi kernel launched.
+ 24. theta1 and control1 (kit=0) under step_eig 'chol' and 'lanczos' (B1
+     seeds the NT scaling, B2 is not launched), and theta1 under
+     nt_method='svd' with eigh_backend='xla' (no B1, B2 for the steps): all
+     OPTIMAL but control1 under 'lanczos', which stops at the iteration
+     limit (40 here) as the JAX package's CPU run does (its uncertified
+     bound oversteps on control1's padded blocks).
+ 25. dtype='float32': theta1 with tests/test_robustness.py:11's options,
+     objective within 5e-2 of 23, B1 and B2 launched on f32 data; theta1
+     on the CG path (theta1-cg options, eDIMACS 5e-3): OPTIMAL within 1e-3
+     of 23 through B3 and the polish (on f64 copies of the f32 operator).
+ 26. assembly_precision='f32' on theta1, and 'auto' on tru3 (n = 36 < 512:
+     'auto' stays f64) and on tru9 at full size (the LP block in f32, the
+     sparse group exact): OPTIMAL, iterations within 2 of the f64 runs of
+     phases 3, 13 and 11; the handover iteration to the f64 assembly.
+ 27. ms per call (CUDA events) and device launches per call (torch.profiler)
+     of `eigh_jacobi`, `eigh_mixed` with the library seed and with B1's,
+     f64 `torch.linalg.eigh`, `eigmin_lanczos` and `eigmin_chol`, beside the
+     B1 and B2 wrappers, at (nb, m) = (2, 50) and (2, 800).
 
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
-15, 18-21) runs with the launch counts set to 0 just before it and read
+15, 18-26) runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched (B1 and B2
-in every precision-tier solve). The line before
+in every precision-tier solve) or, in phases 22-24, if a Jacobi kernel ran
+where its mode does not resolve to it. The line before
 the last two is a JSON object with one entry per kernel; then the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -146,6 +176,15 @@ MAXG11_DD = dict(MAXG11_OPTS, eDIMACS=1e-8, precision="dd")
 KERNELS = ("B1", "B2", "B3", "B4", "polish")
 # the kernels of the kit=1 materialized route (B3 and the polish after it)
 KIT1_NEEDS = ("B1", "B2", "B3", "polish")
+# what the JAX package's CPU 'auto' resolves to at maxG11's m = 800
+MAXG11_JAX_CPU = dict(MAXG11_OPTS, eigh_backend="mixed", step_eig="exact")
+THETA1_K0 = {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}
+CONTROL1_K0 = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "verb": 0}
+# tests/test_robustness.py:11
+THETA1_F32 = {"kit": 0, "eDIMACS": 5e-3, "initpoint": 1, "verb": 0, "dtype": "float32",
+              "maxit": 50}
+# the shapes phase 27 times the eigen routines at (theta1's and maxG11's m)
+MODE_SHAPES = ((2, 50), (2, 800))
 
 
 def check(cond: bool, what: str) -> None:
@@ -588,7 +627,8 @@ def solve_line(phase: str, r) -> str:
             f"median_iter_ms={1e3 * float(np.median(r.iteration_times)):.2f} dimacs={r.dimacs:.3e}")
 
 
-def large_case(launches, phase: str, path: str, opts, ref, ltt, problem=None):
+def large_case(launches, phase: str, path: str, opts, ref, ltt, problem=None,
+               needs=("B1", "B2")):
     """One full-size solve on the card against the JAX package's CPU
     reference (objective within OBJ_RTOL, iterations within 2 unless ref[1]
     is None, as for another eDIMACS than the reference's); prints the
@@ -597,10 +637,10 @@ def large_case(launches, phase: str, path: str, opts, ref, ltt, problem=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if problem is None:
-        r = launches.run(f"phase {phase}", ("B1", "B2"),
+        r = launches.run(f"phase {phase}", needs,
                          lambda: ltt.solve_sdpa(path, opts, device="cuda"))
     else:
-        r = launches.run(f"phase {phase}", ("B1", "B2"),
+        r = launches.run(f"phase {phase}", needs,
                          lambda: ltt.solve(problem, opts, device="cuda"))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -777,6 +817,155 @@ def precision_tiers(launches, ltt, maxg11_f64) -> None:
     check(abs(r.objective - MAXG11_REF[0]) <= 1e-6 * MAXG11_REF[0], "maxG11 dd objective")
 
 
+def jacobi_launched(launches) -> dict:
+    """B1's and B2's launches in the solve just run."""
+    return {k: sum(v.values()) for k, v in launches.by_mp.items()}
+
+
+def check_jacobi(launches, label: str, b1: bool, b2: bool) -> None:
+    """The solve just run launched B1 iff ``b1`` and B2 iff ``b2``."""
+    got = jacobi_launched(launches)
+    check((got["B1"] > 0) == b1 and (got["B2"] > 0) == b2,
+          f"{label}: Jacobi launches {got}, expected B1 {b1} B2 {b2}")
+
+
+def jax_cpu_modes(launches, ltt, maxg11_f64) -> None:
+    """Phases 22-23: maxG11 and theta1 under the JAX CPU run's own modes."""
+    # ---- phase 22: maxG11 under eigh_backend='mixed', step_eig='exact'
+    r, _, _ = large_case(launches, "22 (mixed, exact)", MAXG11, MAXG11_JAX_CPU, MAXG11_REF, ltt,
+                         needs=())
+    check_jacobi(launches, "phase 22 (mixed, exact)", False, False)
+    o = dict(MAXG11_JAX_CPU, step_eig="pallas")
+    r2, _, _ = large_case(launches, "22 (mixed, pallas)", MAXG11, o, (MAXG11_REF[0], None), ltt,
+                          needs=("B2",))
+    check_jacobi(launches, "phase 22 (mixed, pallas)", False, True)
+    r4 = maxg11_f64[0]
+    med = " / ".join(f"{1e3 * float(np.median(x.iteration_times)):.2f}" for x in (r, r2, r4))
+    print(f"phase 22 maxG11 iterations: seed library f32 eigh + exact eigenvalues (the JAX "
+          f"CPU modes) {r.iterations} (JAX CPU {MAXG11_REF[1]}) | seed library f32 eigh + B2 "
+          f"bounds {r2.iterations} | seed B1 + B2 bounds (phase 4) {r4.iterations}; "
+          f"steplength mode moves {r2.iterations - r.iterations:+d}, seed moves "
+          f"{r4.iterations - r2.iterations:+d}; median_iter_ms {med}", flush=True)
+
+    # ---- phase 23: theta1 under 'jacobi'/'xla' + 'exact', card vs CPU
+    for backend in ("jacobi", "xla"):
+        o = dict(THETA1_K0, eigh_backend=backend, step_eig="exact")
+        ref = ltt.solve_sdpa(THETA1, o, device="cpu")
+        r = launches.run(f"phase 23 ({backend}, exact)", (),
+                         lambda: ltt.solve_sdpa(THETA1, o, device="cuda"))
+        print(solve_line(f"23 theta1 {backend}/exact cuda", r) + f" | cpu: {ref.status_name} "
+              f"obj={ref.objective!r} it={ref.iterations} solve={ref.solve_time:.3f} s", flush=True)
+        check_jacobi(launches, f"phase 23 ({backend})", False, False)
+        check(r.status == ref.status == 1, f"theta1 {backend}/exact not OPTIMAL")
+        check(r.iterations == ref.iterations, f"theta1 {backend}/exact iterations vs CPU")
+        check(abs(r.objective - ref.objective) <= 1e-9, f"theta1 {backend}/exact objective vs CPU")
+
+
+def steplength_modes(launches, ltt) -> None:
+    """Phases 24-25: the other steplength modes, the SVD NT scaling and f32."""
+    from loraine_tpu_torch.utils.profiling import THETA1_CG
+
+    cases = [(THETA1, THETA1_K0, {"step_eig": "chol"}, THETA1_OPT),
+             (THETA1, THETA1_K0, {"step_eig": "lanczos"}, THETA1_OPT),
+             (CONTROL1, CONTROL1_K0, {"step_eig": "chol"}, CONTROL1_OPT),
+             # the JAX package's CPU run ends at the iteration limit too
+             (CONTROL1, CONTROL1_K0, {"step_eig": "lanczos", "maxit": 40}, None),
+             (THETA1, THETA1_K0, {"nt_method": "svd", "eigh_backend": "xla"}, THETA1_OPT)]
+    for path, base, extra, opt in cases:
+        o = dict(base, **extra)
+        svd = "nt_method" in extra
+        label = f"phase 24 ({path.split('/')[-1]} {extra})"
+        r = launches.run(label, ("B2",) if svd else ("B1",),
+                         lambda: ltt.solve_sdpa(path, o, device="cuda"))
+        print(solve_line(f"24 {path.split('/')[-1]} {extra} cuda", r), flush=True)
+        check_jacobi(launches, label, not svd, svd)
+        if opt is None:
+            check(r.status == 4 and r.iterations == o["maxit"], f"{label}: not the JAX run's end")
+            continue
+        check(r.status == 1, f"{label} not OPTIMAL")
+        check(abs(r.objective - opt) <= OBJ_RTOL * opt, f"{label} objective")
+
+    # ---- phase 25: dtype='float32' end to end through B1 and B2
+    r = launches.run("phase 25", ("B1", "B2"), lambda: ltt.solve_sdpa(THETA1, THETA1_F32,
+                                                                       device="cuda"))
+    print(solve_line("25 theta1 float32 cuda", r), flush=True)
+    check(r.status in (1, 4), "theta1 float32 status")
+    check(abs(r.objective - THETA1_OPT) <= 5e-2 * THETA1_OPT, "theta1 float32 objective")
+    check(r.final_state.X[0].dtype == torch.float32, "theta1 float32 iterates not f32")
+    # kit=1: B3 and the polish on f64 copies of the f32 operator
+    o = dict(THETA1_CG, eDIMACS=5e-3, tol_cg_min=1e-4, dtype="float32", maxit=50)
+    r = launches.run("phase 25 (kit=1)", KIT1_NEEDS, lambda: ltt.solve_sdpa(THETA1, o,
+                                                                            device="cuda"))
+    print(solve_line("25 theta1-cg float32 cuda", r), flush=True)
+    check(r.status == 1 and abs(r.objective - THETA1_OPT) <= 1e-3 * THETA1_OPT,
+          "theta1-cg float32")
+    check(r.final_state.y.dtype == torch.float32, "theta1-cg float32 iterates not f32")
+
+
+def assembly_modes(launches, ltt, f64_runs) -> None:
+    """Phase 26: the f32 Schur assembly and its handover to f64."""
+    cases = [("theta1", THETA1, dict(THETA1_K0, assembly_precision="f32"), True),
+             ("tru3", "tests/data/tru3.dat-s", dict(LP_KIT0, assembly_precision="auto"), False),
+             ("tru9", TRU9, dict(LARGE_KIT0, assembly_precision="auto"), True)]
+    for name, path, o, engaged in cases:
+        r64 = f64_runs[name]
+        r = launches.run(f"phase 26 ({name} {o['assembly_precision']})", ("B1", "B2"),
+                         lambda: ltt.solve_sdpa(path, o, device="cuda"))
+        print(solve_line(f"26 {name} assembly_precision={o['assembly_precision']} cuda", r)
+              + f" handover_after_iteration={r.mixed_handover} | f64: it={r64.iterations} "
+              f"obj={r64.objective!r} solve={r64.solve_time:.3f} s", flush=True)
+        check(r.status == 1, f"{name} assembly {o['assembly_precision']} not OPTIMAL")
+        check(abs(r.iterations - r64.iterations) <= 2, f"{name} assembly iterations vs f64")
+        check(abs(r.objective - r64.objective) <= 1e-5 * abs(r64.objective) + 1e-7,
+              f"{name} assembly objective vs f64")
+        check((r.mixed_handover is not None) == engaged, f"{name} handover {r.mixed_handover}")
+
+
+def eigen_routines() -> None:
+    """Phase 27: ms and device launches per call of the eigen routines of
+    the modes, beside the B1 and B2 wrappers, on clustered (IPM-like)
+    spectra. Launches of `eigh_jacobi` at m = 800 (~10^5 a sweep) come from
+    traces of 1 and 2 sweeps (fixed + sweeps x per sweep)."""
+    from loraine_tpu_torch.ops import eigh as te, jacobi as tj, linalg as tl
+    from loraine_tpu_torch.utils.profiling import device_rows
+
+    def launched(fn) -> int:
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(r[2] for r in device_rows(prof))
+
+    for nb, m in MODE_SHAPES:
+        A = torch.from_numpy(spectrum_matrix("clustered", m, nb, seed=27 * m)).cuda()
+        routines = {
+            "eigh_jacobi": lambda: te.eigh_jacobi(A),
+            "eigh_mixed(xla32)": lambda: te.eigh_mixed(A),
+            "eigh_mixed(pallas)": lambda: te.eigh_mixed(A, seed="pallas"),
+            "torch.linalg.eigh f64": lambda: torch.linalg.eigh(A),
+            "eigmin_lanczos": lambda: te.eigmin_lanczos(A),
+            "eigmin_chol": lambda: tl.eigmin_chol(A),
+            "B1 eigh_jacobi_f32": lambda: tj.eigh_jacobi_f32(A),
+            "B2 eig_bounds_jacobi": lambda: tj.eig_bounds_jacobi(A),
+        }
+        sweeps = te._default_sweeps(m)
+        for name, fn in routines.items():
+            if name == "eigh_jacobi" and m > 100:
+                # seconds a call: the traces of 1 and 2 sweeps warm it, then
+                # one call is timed
+                one = launched(lambda: te.eigh_jacobi(A, sweeps=1))
+                per_sweep = launched(lambda: te.eigh_jacobi(A, sweeps=2)) - one
+                n = one + (sweeps - 1) * per_sweep
+                how = f" ({per_sweep} a sweep x {sweeps} sweeps, from 1- and 2-sweep traces)"
+                ms = cuda_ms(fn, 1, warmup=False)
+            else:
+                ms, n, how = cuda_ms(fn, 5), launched(fn), ""
+            print(f"phase 27 (nb, m)=({nb}, {m}) {name}: ms={ms:.3f} launches={n}{how}",
+                  flush=True)
+            check(n > 0 and ms > 0, f"phase 27 {name} at ({nb}, {m})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs one NVIDIA GPU",
@@ -810,9 +999,10 @@ def main() -> int:
     launches = Launches(tj, tp)
 
     # ---- phase 3: theta1, card against the port's CPU run
-    opts = {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}
+    opts = THETA1_K0
     ref = ltt.solve_sdpa(THETA1, opts, device="cpu")
     r = launches.run("phase 3", ("B1", "B2"), lambda: ltt.solve_sdpa(THETA1, opts, device="cuda"))
+    f64_runs = {"theta1": r}
     print(f"phase 3 theta1 cuda: {r.status_name} obj={r.objective!r} it={r.iterations} "
           f"wall={r.solve_time:.3f} s it/s={r.iterations / r.solve_time:.2f} "
           f"median_iter_ms={1e3 * float(np.median(r.iteration_times)):.2f} dimacs={r.dimacs:.3e} | "
@@ -892,7 +1082,7 @@ def main() -> int:
     check(abs(r.objective - 17.7846) <= 1e-3 * 17.7846, "control1 f32 CG objective")
 
     # ---- phase 11: tru9 at full size (sparse storage, LP cone)
-    large_case(launches, "11", TRU9, LARGE_KIT0, TRU9_REF, ltt)
+    f64_runs["tru9"] = large_case(launches, "11", TRU9, LARGE_KIT0, TRU9_REF, ltt)[0]
 
     # ---- phase 12: vib9 at full size, two block groups
     p = ltt.load_problem(VIB9, LARGE_KIT0, device="cuda")
@@ -918,6 +1108,8 @@ def main() -> int:
             check(abs(r.objective - ref.objective) <= o["eDIMACS"] * abs(ref.objective),
                   f"{name} kit={kit} objective vs CPU")
             check(r.X_lin.shape == (72,) and bool((r.X_lin > 0).all()), f"{name} LP variables")
+            if kit == 0:
+                f64_runs[name] = r
             if kit == 1:
                 check_b3_regime(launches, f"phase 13 ({name})", "block")
 
@@ -936,6 +1128,13 @@ def main() -> int:
     # ---- phases 17-21: the precision tiers
     exactness_probe()
     precision_tiers(launches, ltt, maxg11_f64)
+
+    # ---- phases 22-27: the remaining eigen, steplength, NT, dtype and
+    # assembly modes
+    jax_cpu_modes(launches, ltt, maxg11_f64)
+    steplength_modes(launches, ltt)
+    assembly_modes(launches, ltt, f64_runs)
+    eigen_routines()
 
     rows = []
     for key, kname, name, src, line in (

@@ -6,13 +6,50 @@ accepts is accepted here too; `require_ported` then names the values this
 port does not run yet, and `Solver` raises `NotImplementedError` for them.
 
 What the port runs: ``kit`` 0 and 1, ``precision`` 'f64', 'dd' and 'dd2'
-(both paths, every storage, the LP cone), ``dtype='float64'``, ``nt_method='eigh'``, ``eigh_backend``/``step_eig`` in
-'auto'/'pallas', ``chol_backend`` 'auto'/'f64', ``gemm_backend='f64'``,
-``assembly_precision='f64'``, and every ``cg_kernel`` / ``cg_materialize``
-value. In the port 'pallas' means the hand-written Jacobi kernels of
+(both paths, every storage, the LP cone), every value of ``dtype``,
+``nt_method``, ``eigh_backend``, ``step_eig``, ``assembly_precision``,
+``cg_kernel`` and ``cg_materialize``, ``chol_backend`` 'auto'/'f64' and
+``gemm_backend='f64'``. Still raising `NotImplementedError`:
+``chol_backend='mixed'`` and ``gemm_backend='int8'`` (not carried over),
+``nt_precision='dd'`` (item 12e), ``profile_dir`` and ``timing >= 2``
+(item 15).
+
+In the port 'pallas' means the hand-written Jacobi kernels of
 `ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto' resolves to them
 on every device; on a CPU tensor they run their plain PyTorch version, so
-CPU and card runs take the same algorithmic path.
+CPU and card runs take the same algorithmic path. The JAX package's 'auto'
+is 'pallas' on the TPU only; its CPU runs are the port's explicit values
+``eigh_backend='jacobi'`` (m < 192) or ``'mixed'`` (m >= 192) with
+``step_eig='exact'``.
+
+``eigh_backend`` (NT scaling, `ops/nt_scaling.py`; the exact steplengths):
+'pallas' is B1's f32 seed refined to f64 (`ops/eigh.py:eigh_mixed`);
+'mixed' the same refinement from the library's f32 `eigh` (cuSOLVER on the
+card, LAPACK on the CPU); 'jacobi' the f64 Jacobi of `ops/eigh.py` as eager
+tensor ops; 'xla' the library's f64 `eigh`. The preconditioner
+(`ops/precond.py`) sends 'pallas' and 'xla' to the library's f64 `eigh`, as
+the JAX package does.
+
+``step_eig`` (`ipm/step.py:_bound_fns`): 'pallas' (= 'auto') is B2's
+certified bound with the predictor identity; 'exact' the smallest
+eigenvalue by ``eigh_backend`` (B2 under 'pallas'/'auto', `eigh_mixed`
+with one refinement pass under 'mixed', 7 Jacobi sweeps under 'jacobi',
+`eigvalsh` under 'xla'); 'chol' a 45-step Cholesky bisection; 'lanczos' the
+48-step Lanczos bound, with a Cholesky PSD probe for err2/err4.
+
+``nt_method``: 'eigh' factors X only; 'svd' factors X and S and takes the
+library SVD (the reference's formulation).
+
+``dtype='float32'``: the problem, the iterates and every step in f32 on
+both paths (B1 and B2 take f32 inputs as they are; the kit=1 CG kernels
+run on f64 copies of the f32 operator).
+
+``assembly_precision``: 'f32' assembles the Schur matrix with f32 GEMMs
+(`ops/schur.py:schur_group_mixed`, dense and LP data; rank-1 and sparse
+groups stay exact) until DIMACS < 1e-3, then hands over to f64 for good;
+'auto' does so on a CUDA device for n >= 512 with dense or LP data where H
+is assembled, and never on the CPU (the JAX package's rule with the card in
+the TPU's place); 'f64' never.
 
 ``nt_precision``: 'auto' resolves to the f64 NT scaling on every device
 (the JAX package's 'auto' picks the native dd NT scaling on the TPU only,
@@ -141,13 +178,8 @@ class Options:
 _PORTED = {
     "kit": ((0, 1), "Queue A item 11 (CG path)"),
     "precision": (("f64", "dd", "dd2"), "Queue A item 12 (precision tiers)"),
-    "dtype": (("float64",), "Queue A item 13 (remaining option values)"),
-    "nt_method": (("eigh",), "Queue A item 13 (remaining option values)"),
-    "eigh_backend": (("auto", "pallas"), "Queue A item 13 (remaining option values)"),
-    "step_eig": (("auto", "pallas"), "Queue A item 13 (remaining option values)"),
     "chol_backend": (("auto", "f64"), "'Not carried over' (f32-panel Cholesky)"),
     "gemm_backend": (("f64",), "'Not carried over' (int8 Ozaki GEMM)"),
-    "assembly_precision": (("f64",), "Queue A item 13 (remaining option values)"),
     "nt_precision": (("auto", "f64"), "Queue A item 12 (precision tiers, 12e dd NT)"),
     "profile_dir": (("",), "Queue A item 15 (diagnostics)"),
 }

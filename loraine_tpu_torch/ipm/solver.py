@@ -11,6 +11,16 @@ maxit -> 4. On the CG path (kit=1) the loop also carries the CG tolerance
 schedule and the hybrid preconditioner switch (4 -> 1), as the JAX
 package's chunk does (`ipm/step.py:1393-1413`).
 
+assembly_precision (`loraine_tpu/ipm/solver.py:248-273, 359-366`): 'f32'
+assembles the Schur matrix in f32 from the first iteration, 'auto' does so
+on a CUDA device (the card in the TPU's place) for n >= 512 when a group is
+not rank-1 or there is an LP block and the step assembles H (kit=0, or the
+kit=1 materialized route), and 'f64' never; the precision tiers never do.
+After the first iteration whose DIMACS falls below
+`MIXED_ASSEMBLY_DIMACS` = 1e-3 with status 0, the loop hands over to the
+exact assembly for good (the JAX package's `mixed_off` signal); the
+result's ``mixed_handover`` names that iteration.
+
 Status codes (reference `src/MOI_wrapper.jl:252-265`):
   0 = not solved, 1 = optimal, 2 = (probably) infeasible,
   3 = (probably) unbounded or infeasible, 4 = iteration/numerics limit.
@@ -33,6 +43,10 @@ from ..utils.timers import PhaseTimer
 from .initial import initial_point
 from .state import IPMState
 from .step import step
+
+# DIMACS below which the f32 Schur assembly hands over to the exact one
+# (`loraine_tpu/ipm/step.py:1343`)
+MIXED_ASSEMBLY_DIMACS = 1e-3
 
 __all__ = ["Result", "Solver", "solve", "solve_sdpa", "load_problem", "STATUS_NAMES"]
 
@@ -75,6 +89,9 @@ class Result:
     timer: PhaseTimer
     final_state: Optional[IPMState] = None  # for warm-start; dd2: with its tails
     history: Optional[List[Dict[str, float]]] = None  # per-iteration stats
+    # the last iteration of the f32 Schur assembly before the handover to
+    # f64 (None: no handover, or no f32 assembly)
+    mixed_handover: Optional[int] = None
 
 
 class Solver:
@@ -139,6 +156,21 @@ class Solver:
                                         X_lin_lo=None, S_lin_lo=None)
         return state
 
+    def _mixed_assembly(self) -> bool:
+        """Whether the solve starts on the f32 Schur assembly
+        (`loraine_tpu/ipm/solver.py:252-275`, the card in the TPU's place)."""
+        o, p = self.opts, self.problem
+        if o.precision != "f64":
+            return False
+        if o.assembly_precision == "f32":
+            return True
+        if o.assembly_precision != "auto":
+            return False
+        has_mixed_path = p.nlin > 0 or any(not g.is_rank1 for g in p.groups)
+        assembles_h = o.kit == 0 or o.cg_materialize == "always" or (
+            o.cg_materialize == "auto" and p.n <= 512)
+        return self.device.type == "cuda" and p.n >= 512 and has_mixed_path and assembles_h
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -196,6 +228,8 @@ class Solver:
         cg_tot = 0
         tol_cg = o.tol_cg
         precond_kind = o.preconditioner if o.kit == 1 else -1
+        mixed = self._mixed_assembly()
+        handover = None
         stats_h: Dict[str, Any] = {}
         iteration_times: List[float] = []
         history: List[Dict[str, float]] = []
@@ -203,7 +237,7 @@ class Solver:
         while status == 0:
             t0 = time.perf_counter()
             with self.timer.phase("ipm step"):
-                state, stats = step(p, state, o, tol_cg, precond_kind)
+                state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
                 stats_h = stats.to_host()  # waits for the step's device work
                 self._sync()
             dt = time.perf_counter() - t0
@@ -230,6 +264,11 @@ class Solver:
                     print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
                 elif status == 4 and it >= o.maxit:
                     print("WARNING: Stopped by iteration limit (stopping status = 4)")
+            if status == 0 and mixed and stats_h["dimacs"] < MIXED_ASSEMBLY_DIMACS:
+                # hand over to the exact f64 assembly near convergence
+                mixed, handover = False, it
+                if o.verb > 0:
+                    print("Switching to exact f64 Schur assembly")
             if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
                 # hybrid preconditioner switch (src/Solvers.jl:339-347)
                 precond_kind = 1
@@ -246,6 +285,7 @@ class Solver:
 
         result = self._extract(state, stats_h, status, it, cg_tot, solve_time, iteration_times)
         result.history = history
+        result.mixed_handover = handover
         if o.verb > 0 and status == 1:
             print(f"Primal objective: {result.objective}")
             print(f"Dual objective:   {result.dual_objective}")

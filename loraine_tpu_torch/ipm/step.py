@@ -1,18 +1,31 @@
 """One predictor-corrector IPM iteration. Port of the kit=0 and kit=1
 branches of `loraine_tpu/ipm/step.py:build_step` at precision 'f64', 'dd'
-and 'dd2', LP cone included (the NT scaling stays f64: no native dd NT
-scaling, no mixed assembly, no sharding: ROADMAP.md Queue A items 12e, 13,
-14).
+and 'dd2', LP cone included, under every ``step_eig``, ``eigh_backend``,
+``nt_method`` and ``assembly_precision`` (the NT scaling stays f64: no
+native dd NT scaling, no sharding: ROADMAP.md Queue A items 12e, 14).
 
 Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
 `check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
 + regularized Cholesky + one refinement step, predictor directions and
 steplengths, Mehrotra sigma, corrector, iterate update and the six DIMACS
 errors, with the LP cone's terms beside the LMI blocks' (`find_step_lin`,
-`src/predictor_corrector.jl:329-347`). Steplengths come from the certified
-spectral bounds of the B2 kernel (`ops/jacobi.py`); the predictor uses the
-identity scaleX = -I - scaleS, so one bound computation on scaleS gives
-both steplengths (`ipm/step.py:189-200, 426-433`).
+`src/predictor_corrector.jl:329-347`).
+
+Steplengths (`_bound_fns`, `loraine_tpu/ipm/step.py:372-464`): under
+``step_eig`` 'pallas' (and 'auto', which is 'pallas' on every device here)
+the certified spectral bounds of the B2 kernel (`ops/jacobi.py`), with the
+predictor identity scaleX = -I - scaleS, so one bound computation on scaleS
+gives both predictor steplengths; under 'exact' the smallest eigenvalue
+from ``eigh_backend`` ('pallas' B2, 'mixed', 'jacobi' or 'xla'), under
+'chol' the Cholesky bisection and under 'lanczos' the Lanczos bound, each
+on [scaleX; scaleS] (the two-matrix path). 'lanczos' carries no
+certificate, so it keeps the explicit Cholesky PSD probe of the new
+iterate for err2/err4.
+
+``mixed_assembly`` (assembly_precision 'f32'/'auto' before the handover,
+`ipm/solver.py`): the Schur matrix of kit=0 and of the kit=1 materialized
+route comes from `schur_group_mixed` and `schur_lp_mixed` (f32 GEMMs on
+dense and LP data); everything else stays exact.
 
 Convergence-error convention (reference): err1/err3 use the residuals at
 the start of the iteration, err2/4/5/6 the updated iterate.
@@ -41,14 +54,15 @@ from ..config import Options, resolve_cg_kernel
 from ..ops.cg import cg_plain, pcg
 from ..ops.dd import DD, dd_add, dd_mul_f64, dd_neg, dd_sum, dd_to_f64, two_prod, two_sum
 from ..ops.dd_linalg import dd_const, dd_div, dd_mul
+from ..ops.eigh import eigh_backend_for, eigh_jacobi, eigh_mixed, eigmin_lanczos
 from ..ops.jacobi import eig_bounds_jacobi
-from ..ops.linalg import btrace, chol_reg, cho_solve_inv, sym, tri_inv
+from ..ops.linalg import btrace, chol_reg, cho_solve_inv, eigmin, eigmin_chol, sym, tri_inv
 from ..ops.nt_scaling import NTScaling, nt_scale
 from ..ops.ozaki import acc_matmul, acc_matvec
 from ..ops.pcg import cg_f64, pcg_kernel_ff, pcg_kernel_mixed
 from ..ops.precond import prep_alpha, prep_beta
 from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, lp_weight, schur_group, schur_group_dd,
-                         schur_lp, schur_lp_dd)
+                         schur_group_mixed, schur_lp, schur_lp_dd, schur_lp_mixed)
 from ..problem import SDPProblem
 from .initial import EXPON, TAU
 from .state import IPMState, StepStats
@@ -74,6 +88,48 @@ def _gersh_violation(M: torch.Tensor) -> torch.Tensor:
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
     gersh = (diag - (M.abs().sum(-1) - diag.abs())).amin(-1)
     return (-gersh).clamp_min(0.0)
+
+
+def _bound_fns(opts: Options):
+    """(eigmin_fn, eigrange_fn, cert_mode) of the resolved ``step_eig``
+    (`loraine_tpu/ipm/step.py:372-451`); 'auto' is the B2 bound ('pallas')
+    on every device (the JAX package picks 'pallas' on the TPU and 'exact'
+    on the CPU). eigmin_fn maps [k, m, m] to a lower bound (or the value)
+    of each lambda_min; eigrange_fn, set only under 'pallas', maps scaleS to
+    (lambda_min, lambda_max) bounds for the predictor identity; cert_mode is
+    False under 'lanczos' only."""
+    mode = "pallas" if opts.step_eig == "auto" else opts.step_eig
+
+    def eigmin_fn(M):
+        if mode == "chol":
+            return eigmin_chol(M)
+        if mode == "lanczos":
+            return eigmin_lanczos(M)
+        if mode == "pallas":
+            return eig_bounds_jacobi(M)[0]
+        resolved = eigh_backend_for(opts.eigh_backend, M.shape[-1])
+        if resolved == "jacobi":
+            # lambda_min to ~1e-9 relative needs 7 sweeps, not the default
+            return eigh_jacobi(M, sweeps=7)[0][..., 0]
+        if resolved == "mixed":
+            return eigh_mixed(M, refine_iters=1)[0][..., 0]
+        if resolved == "pallas":
+            return eig_bounds_jacobi(M)[0]
+        return eigmin(M)
+
+    eigrange_fn = eig_bounds_jacobi if mode == "pallas" else None
+    return eigmin_fn, eigrange_fn, mode != "lanczos"
+
+
+def _psd_violation(M: torch.Tensor, suspect: torch.Tensor, cert_mode: bool) -> torch.Tensor:
+    """err2/err4's violation of the new iterate per block
+    (`loraine_tpu/ipm/step.py:453-464`). Certified steplengths keep the
+    iterate PD by construction, so it is 0 unless the NT scaling was
+    regularized (``suspect``), and then the Gershgorin violation. Without a
+    certificate ('lanczos') a Cholesky probe decides: 0 where it succeeds."""
+    viol = _gersh_violation(M)
+    report = suspect if cert_mode else torch.linalg.cholesky_ex(M).info != 0
+    return torch.where(report, viol, torch.zeros_like(viol))
 
 
 # ---- double-double helpers (`loraine_tpu/ipm/step.py:80-100`)
@@ -138,6 +194,8 @@ def _group_dirs(
     dely,
     *,
     predict: bool,
+    eigmin_fn,
+    eigrange_fn=None,
     sig_mu: Optional[torch.Tensor] = None,
     RNT: Optional[torch.Tensor] = None,
     T_dd: Optional[DD] = None,
@@ -151,7 +209,9 @@ def _group_dirs(
     delX = -T + W Aadj(dely) W (+ U on the corrector), where dely.lo's
     sandwich keeps A(delX) = Rp past dely's f64 resolution. dd2 (``Rd_dd``
     given): delS from the dd adjoint, and both directions come back with
-    their dd tails."""
+    their dd tails. The predictor identity is taken only with
+    ``eigrange_fn`` (step_eig 'pallas') and not in dd mode; otherwise
+    ``eigmin_fn`` bounds [scaleX; scaleS] in one call."""
     dd_mode = T_dd is not None
     dd2 = Rd_dd is not None
     GT = nt.G.mT
@@ -186,17 +246,17 @@ def _group_dirs(
 
     delSb = GT @ delS @ nt.G
     scaleS = sym(nt.DDsi[:, :, None] * delSb * nt.DDsi[:, None, :])
-    if predict and not dd_mode:
+    if predict and not dd_mode and eigrange_fn is not None:
         # Predictor identity: with Gi X Gi^T = D and DDsi = D^{-1/2},
         # scaleX = -I - scaleS, so lambda_min(scaleX) = -1 - lambda_max(scaleS)
-        lo, hi = eig_bounds_jacobi(scaleS)
+        lo, hi = eigrange_fn(scaleS)
         alpha = _steplen(-1.0 - hi)
         beta = _steplen(lo)
     else:
         delXb = nt.Gi @ delX @ nt.Gi.mT
         scaleX = sym(nt.DDsi[:, :, None] * delXb * nt.DDsi[:, None, :])
         nb = scaleX.shape[0]
-        ev = eig_bounds_jacobi(torch.cat([scaleX, scaleS], dim=0))[0]
+        ev = eigmin_fn(torch.cat([scaleX, scaleS], dim=0))
         alpha = _steplen(ev[:nb])
         beta = _steplen(ev[nb:])
     if dd2:
@@ -257,14 +317,17 @@ def _lin_dirs_dd(
     return _LinDirs(delX=delX, delS=delS, alpha=_steplen(mX), beta=_steplen(mS))
 
 
-def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor]) -> torch.Tensor:
+def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
+           mixed: bool = False) -> torch.Tensor:
     """The symmetrized Schur matrix H = sum over groups of schur_group, plus
-    the LP block C_lin diag(lpw) C_lin^T."""
+    the LP block C_lin diag(lpw) C_lin^T; with ``mixed`` the f32 assembly
+    (`schur_group_mixed`, `schur_lp_mixed`)."""
+    group_fn, lp_fn = (schur_group_mixed, schur_lp_mixed) if mixed else (schur_group, schur_lp)
     H = torch.zeros((problem.n, problem.n), dtype=problem.b.dtype, device=problem.device)
     for g, nt in zip(problem.groups, nts):
-        H = H + schur_group(g, nt.W, nt.G)
+        H = H + group_fn(g, nt.W, nt.G)
     if problem.nlin:
-        H = H + schur_lp(problem.C_lin, lpw)
+        H = H + lp_fn(problem.C_lin, lpw)
     return sym(H)
 
 
@@ -302,7 +365,7 @@ def _polish(Hp: torch.Tensor, rp: torch.Tensor, target: torch.Tensor, maxiter: i
 
 
 def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Options,
-               tol_cg: float, precond_kind: int, dd_mode: bool = False):
+               tol_cg: float, precond_kind: int, dd_mode: bool = False, mixed: bool = False):
     """The kit=1 Schur solve, rhs -> (dely, CG iterations), for one IPM
     iteration (`loraine_tpu/ipm/step.py:716-853`).
 
@@ -314,11 +377,14 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     Aop(W Aadj(x) W) + C_lin (lpw * C_lin^T x) and the SMW H_alpha /
     diagonal H_beta. Under dd/dd2 (``dd_mode``) every route is `pcg` on the
     route's f64 operator and preconditioner (`ipm/step.py:802-807, 887-899`):
-    the caller refines its solution in dd."""
+    the caller refines its solution in dd. ``mixed``: Hcg from the f32
+    assembly. With dtype='float32' the CG kernels (f64 B3 and polish, and B4
+    with its f64 refinement) run on f64 copies of the f32 operator and
+    return the solution in f32."""
     n = problem.n
     mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
     if mat_cg:
-        Hcg = _schur(problem, nts, lpw)
+        Hcg = _schur(problem, nts, lpw, mixed)
         matvec = lambda x: Hcg @ x  # noqa: E731
     else:
         def matvec(x):
@@ -361,8 +427,12 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
 
     if use_kernel:
         kernel_fn = pcg_kernel_ff if cg_kernel == "ff" else pcg_kernel_mixed
+        dtype = Hcg.dtype
+        if dtype != torch.float64:
+            Hcg, Mli, MliT, Hp = (t.double() for t in (Hcg, Mli, MliT, Hp))
 
         def solve(rhs):
+            rhs = rhs.double()
             # Stop where the split route below stops, ||Mli r|| <= tol
             # ||Mli rhs||. The JAX package hands the kernel and the polish
             # tol * ||rhs|| instead: once ||Mli|| < 1 (late theta_G100:
@@ -375,7 +445,7 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
             # guaranteed finish: polish any kernel shortfall (a stalled pass
             # returns its best iterate) with the f64 split-preconditioned CG
             u, it2 = _polish(Hp, Mli @ (rhs - Hcg @ x), target, opts.cg_maxiter)
-            return x + MliT @ u, it + it2
+            return (x + MliT @ u).to(dtype), it + it2
     elif mat_cg and Mli is not None:
         # split-preconditioned f64 CG: solve (Mli H Mli^T) u = Mli b,
         # x = Mli^T u; the Krylov iterates of PCG with M = Mli^T Mli
@@ -415,6 +485,7 @@ def step(
     opts: Options,
     tol_cg: Optional[float] = None,
     precond_kind: Optional[int] = None,
+    mixed_assembly: bool = False,
 ) -> Tuple[IPMState, StepStats]:
     """One IPM iteration from ``st``; returns (new state, stats).
 
@@ -422,6 +493,8 @@ def step(
     ``opts.tol_cg``; the solver tightens it after every iteration) and
     ``precond_kind`` the preconditioner (default ``opts.preconditioner``;
     the solver's hybrid 4 -> 1 switch changes it between iterations).
+    ``mixed_assembly``: the f32 Schur assembly (the solver's phase of
+    assembly_precision 'f32'/'auto' before DIMACS < 1e-3).
     precision='dd2' needs the state's tails (`Solver` adds zero tails)."""
     dtype, device = problem.b.dtype, problem.device
     nlin = problem.nlin
@@ -431,6 +504,7 @@ def step(
     dd_mode = opts.precision in ("dd", "dd2")
     dd2 = opts.precision == "dd2"
     C_lin = problem.C_lin
+    eigmin_fn, eigrange_fn, cert_mode = _bound_fns(opts)
 
     # dd2: the iterates as DD pairs (hi = st.X etc., lo = the stored tails)
     if dd2:
@@ -549,7 +623,7 @@ def step(
             Hs_dd = _schur_dd(problem, nts, lpw, lpw_dd)
             H = Hs_dd.hi
         else:
-            H = _schur(problem, nts, lpw)
+            H = _schur(problem, nts, lpw, mixed_assembly)
         hc = chol_reg(H, 1e-4, 1000)
         h_shifts, h_ok = hc.shifts, hc.ok
         Hli = tri_inv(hc.L)
@@ -580,7 +654,7 @@ def step(
             problem, nts, lpw, opts,
             opts.tol_cg if tol_cg is None else tol_cg,
             opts.preconditioner if precond_kind is None else precond_kind,
-            dd_mode=dd_mode,
+            dd_mode=dd_mode, mixed=mixed_assembly,
         )
         h_shifts, h_ok = 0, True
         if dd_mode:
@@ -603,7 +677,8 @@ def step(
 
     # ---- predictor directions + steplengths
     dirs = tuple(
-        _group_dirs(g, nt, Rd, X, dely, predict=True, T_dd=T, Rd_dd=Rdd)
+        _group_dirs(g, nt, Rd, X, dely, predict=True, eigmin_fn=eigmin_fn,
+                    eigrange_fn=eigrange_fn, T_dd=T, Rd_dd=Rdd)
         for g, nt, Rd, X, T, Rdd in zip(problem.groups, nts, Rds, st.X, T_dds, Rd_dds)
     )
     one = torch.ones((), dtype=dtype, device=device)
@@ -720,8 +795,8 @@ def step(
 
     # ---- corrector directions + final update
     dirs2 = tuple(
-        _group_dirs(g, nt, Rd, X, dely2, predict=False, sig_mu=sig_mu, RNT=RNT,
-                    T_dd=T, U_dd=U, Rd_dd=Rdd)
+        _group_dirs(g, nt, Rd, X, dely2, predict=False, eigmin_fn=eigmin_fn, sig_mu=sig_mu,
+                    RNT=RNT, T_dd=T, U_dd=U, Rd_dd=Rdd)
         for g, nt, Rd, X, RNT, T, U, Rdd in zip(problem.groups, nts, Rds, st.X, RNTs,
                                                T_dds, U_dds, Rd_dds)
     )
@@ -765,7 +840,8 @@ def step(
     # ---- DIMACS errors (`check_convergence`, src/Solvers.jl:496-524).
     # The iterates are feasible by construction (steplengths from certified
     # lower bounds), so err2/err4 are zero unless the NT scaling itself was
-    # regularized; then report the Gershgorin violation of the new iterate.
+    # regularized; then report the Gershgorin violation of the new iterate
+    # ('lanczos': see `_psd_violation`).
     normb = torch.linalg.norm(problem.b)
     if dd_mode:
         by_dd = _dd_dot(problem.b, y_new)
@@ -780,8 +856,7 @@ def step(
     err2, err3, err4, err6, trCX = zero, zero, zero, zero, zero
     for gi, (g, X, S, Rd) in enumerate(zip(problem.groups, X_new, S_new, Rds)):
         normC = torch.sqrt((g.C**2).sum((-1, -2)))  # [nb]
-        viol = _gersh_violation(torch.cat([X, S], dim=0))
-        viol = torch.where(nt_suspect, viol, torch.zeros_like(viol))
+        viol = _psd_violation(torch.cat([X, S], dim=0), nt_suspect, cert_mode)
         violX, violS = viol[: X.shape[0]], viol[X.shape[0] :]
         err2 = err2 + (violX / (1.0 + normb)).sum()
         err3 = err3 + (torch.sqrt((Rd**2).sum((-1, -2))) / (1.0 + normC)).sum()

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .dd import DD, dd_add, dd_mul_f64, dd_neg, dd_sum, two_prod, two_sum
+from .eigh import _default_sweeps, round_robin_pairs
 from .ozaki import acc_matmul
 
 __all__ = [
@@ -40,7 +41,6 @@ __all__ = [
     "dd_matmul",
     "dd_chol",
     "dd_eigh_jacobi",
-    "round_robin_pairs",
 ]
 
 
@@ -167,25 +167,6 @@ def dd_chol(A: DD) -> Tuple[DD, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # Jacobi eigensolver
 # ---------------------------------------------------------------------------
-
-
-def round_robin_pairs(m: int) -> np.ndarray:
-    """Static round-robin schedule (copy of `loraine_tpu/ops/eigh.py`):
-    pairs[r] lists m/2 disjoint (p, q) pairs; over m-1 rounds every
-    unordered pair appears once. m even. int32 [m-1, 2, m/2]."""
-    assert m % 2 == 0
-    others = list(range(1, m))
-    rounds = []
-    for _ in range(m - 1):
-        lineup = [0] + others
-        rounds.append((lineup[: m // 2], lineup[m // 2 :][::-1]))
-        others = others[1:] + others[:1]
-    return np.array(rounds, dtype=np.int32)
-
-
-def _default_sweeps(m: int) -> int:
-    """The f64 Jacobi's sweep count (`loraine_tpu/ops/eigh.py:80-82`)."""
-    return int(np.clip(np.ceil(np.log2(max(m, 4))) + 6, 8, 16))
 
 
 def _rotation(app: DD, aqq: DD, apq: DD) -> Tuple[DD, DD]:

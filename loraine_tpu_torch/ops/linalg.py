@@ -1,6 +1,6 @@
 """Small batched linear-algebra building blocks. Port of
 `loraine_tpu/ops/linalg.py` (`sym`, `btrace`, `chol_reg`, `tri_solve`,
-`cho_solve`, `tri_inv`, `cho_solve_inv`).
+`cho_solve`, `tri_inv`, `cho_solve_inv`, `eigmin`, `eigmin_chol`).
 
 The Cholesky factorization and triangular solves are f64 library calls
 (cuSOLVER / cuBLAS on the card, LAPACK on the CPU): the JAX package also
@@ -23,6 +23,10 @@ __all__ = [
     "cho_solve",
     "tri_inv",
     "cho_solve_inv",
+    "eigmin",
+    "eigmin_chol",
+    "eigh_or_nan",
+    "svd_or_nan",
 ]
 
 
@@ -104,3 +108,58 @@ def cho_solve_inv(Li: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         y = (Li @ b[..., None])[..., 0]
         return (Li.mT @ y[..., None])[..., 0]
     return Li.mT @ (Li @ b)
+
+
+def eigh_or_nan(M: torch.Tensor):
+    """The library's `eigh` (LAPACK / cuSOLVER), with NaN eigenpairs where
+    it does not converge (a NaN or badly scaled input, as f32 iterates reach
+    late in a run), as `jnp.linalg.eigh` returns them; torch raises
+    instead. The NaNs then end the solve with status 3 (non-finite DIMACS),
+    as in the JAX package."""
+    try:
+        return torch.linalg.eigh(M)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(M, float("nan"))
+        return nan[..., 0], nan
+
+
+def svd_or_nan(M: torch.Tensor):
+    """The library's `svd`, NaN where it does not converge (see
+    `eigh_or_nan`)."""
+    try:
+        return torch.linalg.svd(M)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(M, float("nan"))
+        return nan, nan[..., 0], nan
+
+
+def eigmin(M: torch.Tensor) -> torch.Tensor:
+    """Smallest eigenvalue(s) of symmetric M (the library's `eigvalsh`, NaN
+    where it does not converge); batched over leading axes."""
+    try:
+        return torch.linalg.eigvalsh(M)[..., 0]
+    except torch.linalg.LinAlgError:
+        return torch.full_like(M[..., 0, 0], float("nan"))
+
+
+def eigmin_chol(M: torch.Tensor, iters: int = 45) -> torch.Tensor:
+    """Lower bound on the smallest eigenvalue by Cholesky bisection
+    (`loraine_tpu/ops/linalg.py:272-300`): chol(M - t I) succeeds iff
+    lambda_min > t. Starts from the Gershgorin bracket [-B, B] and returns
+    the bracket's lower end after ``iters`` halvings (width 2B 2^-iters), so
+    steplengths derived from it are never longer than the exact ones.
+
+    A factorization counts as failed where `cholesky_ex` reports info != 0
+    (LAPACK / cuSOLVER potrf: a pivot not positive, NaN included), which is
+    where the JAX package's `jnp.linalg.cholesky` returns NaN. No host sync
+    per step."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    B = M.abs().sum(-1).amax(-1)  # Gershgorin outer radius
+    lo, hi = -B, B
+    for _ in range(iters):
+        mid = (lo + hi) / 2.0
+        _, info = torch.linalg.cholesky_ex(M - mid[..., None, None] * eye)
+        ok = info == 0  # PD: lambda_min > mid
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return lo

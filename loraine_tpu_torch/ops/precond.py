@@ -15,9 +15,11 @@ matrix V^T AAAATtau^{-1} V + I (`AlphaPrecond.apply_with`), or, materialized,
 as the inverse Cholesky factor of the n x n matrix AAAATtau + V V^T
 (`AlphaPrecondDense`).
 
-The eigendecompositions are library f64 calls (`torch.linalg.eigh`): in the
-JAX package `_eigh` sends the resolved 'pallas' backend to `jnp.linalg.eigh`,
-not to the Jacobi kernel.
+The eigendecompositions of W follow ``eigh_backend`` as in the JAX package's
+`_eigh` (`loraine_tpu/ops/precond.py:37-43`): 'jacobi' is `eigh_jacobi`,
+'mixed' `eigh_mixed` with the library's f32 seed, and 'xla' and 'pallas'
+(so 'auto' too) the library's f64 `torch.linalg.eigh`: there the resolved
+'pallas' falls through to the library call, not to the Jacobi kernel.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..problem import SDPProblem
-from .eigh import eigh_backend_for
-from .linalg import chol_reg, cho_solve, sym, tri_inv
+from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
+from .linalg import chol_reg, cho_solve, eigh_or_nan, sym, tri_inv
 from .nt_scaling import NTScaling
 from .schur import Aadj, Aop
 
@@ -39,12 +41,11 @@ __all__ = [
 
 def _eigh(M: torch.Tensor, backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
     resolved = eigh_backend_for(backend, M.shape[-1])
-    if resolved != "pallas":
-        raise NotImplementedError(
-            f"preconditioner eigh_backend={backend!r} is not ported to "
-            "loraine_tpu_torch yet; see ROADMAP.md Queue A item 13"
-        )
-    return torch.linalg.eigh(M)
+    if resolved == "jacobi":
+        return eigh_jacobi(M)
+    if resolved == "mixed":
+        return eigh_mixed(M)
+    return eigh_or_nan(M)
 
 
 def _ttau(lam_s: torch.Tensor, aamat: int) -> torch.Tensor:

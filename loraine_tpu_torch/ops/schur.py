@@ -1,6 +1,7 @@
 """Schur-complement assembly and data-operator contractions, batched. Port
 of `loraine_tpu/ops/schur.py` (`Aop`, `Aadj`, `schur_group` on dense,
-rank-1 and sparse storage; `lp_weight`, `schur_lp`).
+rank-1 and sparse storage; `lp_weight`, `schur_lp`; the f32 assembly
+`schur_group_mixed`, `schur_lp_mixed`).
 
     H[j,k] = sum_i < A_j^{(i)}, W_i A_k^{(i)} W_i >
              + (C_lin diag(x_lin / s_lin) C_lin^T)[j,k]
@@ -37,8 +38,8 @@ from ..problem import BlockGroup
 from .dd import DD, dd_add, dd_sum, two_prod, two_sum
 from .ozaki import acc_matmul, acc_matvec
 
-__all__ = ["Aop", "Aadj", "schur_group", "lp_weight", "schur_lp", "Aop_dd", "Aadj_dd",
-           "schur_group_dd", "schur_lp_dd"]
+__all__ = ["Aop", "Aadj", "schur_group", "schur_group_mixed", "lp_weight", "schur_lp",
+           "schur_lp_mixed", "Aop_dd", "Aadj_dd", "schur_group_dd", "schur_lp_dd"]
 
 # above this many elements of the [nb, n, m, m] temporary T = W A W the
 # dense assembly runs in constraint chunks (`schur.py:173`)
@@ -100,6 +101,30 @@ def _schur_dense_chunked(group: BlockGroup, W: torch.Tensor) -> torch.Tensor:
     return torch.cat(rows, dim=0)
 
 
+def schur_group_mixed(group: BlockGroup, W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """The f32 Schur contribution of assembly_precision 'f32'/'auto'
+    (`loraine_tpu/ops/schur.py:248-313`), used while DIMACS >= 1e-3 and then
+    handed over to the exact assembly (`ipm/solver.py`). Rank-1 and sparse
+    groups stay exact (`schur_group`), as in the JAX package; a dense group
+    runs the chunked contraction with f32 operands: per chunk of J
+    constraints T = W A_chunk W and the [J, n] rows T_flat A_flat^T in f32,
+    cast back to W.dtype. The chunk rule is the JAX package's,
+    J = min(n, max(8, 2^22 // (nb m^2))). The result is accurate to ~1e-6
+    relative (f32 accumulation)."""
+    if group.is_rank1 or group.is_sparse:
+        return schur_group(group, W, G)
+    nb, n, m, _ = group.A.shape
+    J = int(min(n, max(8, (1 << 22) // max(1, nb * m * m))))
+    W32 = W.to(torch.float32)[:, None]
+    A32 = group.A.to(torch.float32)
+    Aflat = A32.movedim(1, 0).reshape(n, nb * m * m)
+    rows = []
+    for j0 in range(0, n, J):
+        T = W32 @ A32[:, j0 : j0 + J] @ W32  # [nb, J, m, m]
+        rows.append(T.movedim(1, 0).reshape(T.shape[1], nb * m * m) @ Aflat.T)
+    return torch.cat(rows, dim=0).to(W.dtype)
+
+
 def _aadj_sparse(group: BlockGroup, y: torch.Tensor) -> torch.Tensor:
     """sum_j y_j A_j over the per-cell layout: level-1 row sums, level-2
     cell sums, placement at unique cells (pads land in a dropped slot)."""
@@ -143,6 +168,13 @@ def lp_weight(X_lin: torch.Tensor, S_lin_inv: torch.Tensor) -> torch.Tensor:
 def schur_lp(C_lin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[n, n] <- C_lin diag(w) C_lin^T."""
     return (C_lin * w[None, :]) @ C_lin.T
+
+
+def schur_lp_mixed(C_lin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The LP block with its GEMM in f32 (`loraine_tpu/ops/schur.py:451-456`):
+    the weighting C_lin diag(w) in C_lin.dtype, then cast."""
+    Cw = (C_lin * w[None, :]).to(torch.float32)
+    return (Cw @ C_lin.T.to(torch.float32)).to(C_lin.dtype)
 
 
 # ---- double-double operators (precision 'dd' and 'dd2')

@@ -179,7 +179,7 @@ def synced_phases(problem, opts):
             {k: v / it for k, v in cg_its.items()})
 
 
-def _device_rows(prof):
+def device_rows(prof):
     """(name, device ms, count) of the device kernels in a trace."""
     rows, allrows = [], []
     for e in prof.key_averages():
@@ -238,7 +238,7 @@ def traced(problem, opts, state, done: int, steps: int = 2):
             st, _ = S.step(problem, st, o, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
     launched = sum(r[2] for r in rows)
     jac_ms, jac_share, jac_n = _share(rows, JACOBI_KERNELS, busy)

@@ -20,8 +20,8 @@ from loraine_tpu.ops import dd_linalg as jdl
 from loraine_tpu.ops.dd import DD as JDD
 from loraine_tpu_torch.ops.dd import DD, dd_add, dd_to_f64
 from loraine_tpu_torch.ops.dd_linalg import (dd_abs, dd_chol, dd_const, dd_div, dd_eigh_jacobi,
-                                             dd_matmul, dd_mul, dd_sqr, dd_sqrt, dd_sym,
-                                             round_robin_pairs)
+                                             dd_matmul, dd_mul, dd_sqr, dd_sqrt, dd_sym)
+from loraine_tpu_torch.ops.eigh import round_robin_pairs
 
 mp.mp.dps = 50
 

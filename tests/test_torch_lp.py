@@ -19,7 +19,6 @@ import torch
 
 import loraine_tpu as lt
 import loraine_tpu_torch as ltt
-import loraine_tpu_torch.ipm.step as tstep
 from loraine_tpu.ipm.initial import initial_point as jax_initial_point
 from loraine_tpu.ops import nt_scaling as jnt, precond as jprec, schur as jschur
 from loraine_tpu_torch.convert import problem_from_numpy
@@ -27,7 +26,7 @@ from loraine_tpu_torch.ipm.initial import initial_point
 from loraine_tpu_torch.ops import precond as tprec, schur as tschur
 from loraine_tpu_torch.ops.nt_scaling import NTScaling
 from torch_cases import (EXACT_MODES, PALLAS_MODES, assert_same_step, errs_agree,
-                         exact_bounds, solve_pair, step_both)
+                         solve_pair, step_both)
 
 DATA = pathlib.Path(__file__).parent / "data"
 K0 = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
@@ -38,11 +37,6 @@ K1 = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
 # tail of the residual curve, not on the plateau that makes K1's counts
 # chaotic (see test_kit1_solve_matches_jax)
 K1_TIGHT = dict(K1, tol_cg=1e-10, tol_cg_min=1e-10)
-
-
-@pytest.fixture
-def exact_step(monkeypatch):
-    monkeypatch.setattr(tstep, "eig_bounds_jacobi", exact_bounds)
 
 
 def _path(name):
@@ -153,7 +147,7 @@ def test_lp_smw_and_materialized_alpha_agree(tru3_mid):
     ("vib3", K0),
     ("vib3", K1),
 ])
-def test_one_step_from_jax_state_matches(exact_step, name, opts):
+def test_one_step_from_jax_state_matches(name, opts):
     pj = lt.load_problem(_path(name))
     mid = lt.solve(pj, dict(opts, **PALLAS_MODES, maxit=5)).final_state
     j, t = step_both(pj, mid, opts)
@@ -174,7 +168,7 @@ def _two_group_problem(seed=3):
     return As, Cs, rng.standard_normal(n), rng.standard_normal((n, 5)), rng.uniform(1, 2, 5)
 
 
-def test_two_group_step_matches_jax(exact_step):
+def test_two_group_step_matches_jax():
     As, Cs, b, C_lin, d_lin = _two_group_problem()
     pj = lt.problem_from_dense(As, Cs, b, C_lin, d_lin)
     assert [(g.m, g.nb) for g in pj.groups] == [(8, 1), (136, 1)]

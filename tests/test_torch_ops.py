@@ -58,7 +58,7 @@ def problems():
 def test_eigh_mixed_matches_jax(m):
     M = spd(np.random.default_rng(m), 2, m)
     lj, Vj = jeigh.eigh_mixed(jnp.asarray(M), seed="pallas")
-    lt_, Vt = teigh.eigh_mixed(torch.from_numpy(M))
+    lt_, Vt = teigh.eigh_mixed(torch.from_numpy(M), seed="pallas")
     assert rel(lt_.numpy(), lj) < 1e-10
     # same Jacobi rotations give the same eigenvector signs
     assert rel(Vt.numpy(), Vj) < 1e-10

@@ -4,8 +4,8 @@ tests/test_precision.py).
 
 (a) One kit=0 step at 'dd' and one at 'dd2' from the same iterate on the
 mixed PSD + LP problem of tests/test_precision.py:76-96 (seed 5), JAX under
-EXACT_MODES and the port with `exact_bounds` (tests/torch_cases.py), so
-both run the same algorithm. The JAX side runs in a fresh subprocess,
+EXACT_MODES (tests/torch_cases.py) in both packages, so both run the same
+algorithm. The JAX side runs in a fresh subprocess,
 eagerly (op by op: no large XLA program, whose compile has aborted XLA:CPU
 late in a long suite process, tests/test_precision.py:21-27), and writes an
 .npz. The start is JAX's f64 iterate after 4 iterations; for dd2 it gets
@@ -34,7 +34,7 @@ import torch
 import loraine_tpu_torch as ltt
 import loraine_tpu_torch.ipm.step as tstep
 from loraine_tpu_torch.ipm.state import IPMState
-from torch_cases import PALLAS_MODES, STEP_FIELDS, exact_bounds
+from torch_cases import EXACT_MODES, PALLAS_MODES, STEP_FIELDS
 
 DATA = pathlib.Path(__file__).parent / "data"
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -112,8 +112,7 @@ def jax_steps(tmp_path_factory):
 
 
 @pytest.mark.parametrize("prec", ["dd", "dd2"])
-def test_one_step_from_jax_state_matches(jax_steps, monkeypatch, prec):
-    monkeypatch.setattr(tstep, "eig_bounds_jacobi", exact_bounds)
+def test_one_step_from_jax_state_matches(jax_steps, prec):
     j = jax_steps
     p = ltt.problem_from_dense(*_lp_data(), storage="dense", device="cpu")
     t = {k: torch.from_numpy(j[k]) for k in ("X", "S", "y", "X_lin", "S_lin", "sigma")}
@@ -124,7 +123,7 @@ def test_one_step_from_jax_state_matches(jax_steps, monkeypatch, prec):
         st = IPMState(X=st.X, S=st.S, y=st.y, X_lin=st.X_lin, S_lin=st.S_lin, sigma=st.sigma,
                       X_lo=(tl["X_lo"],), S_lo=(tl["S_lo"],), y_lo=tl["y_lo"],
                       X_lin_lo=tl["X_lin_lo"], S_lin_lo=tl["S_lin_lo"])
-    o = ltt.Options.from_dict({"precision": prec}).validated()
+    o = ltt.Options.from_dict(dict(EXACT_MODES, precision=prec)).validated()
     new, stats = tstep.step(p, st, o, 1e-3)
     for name in STEP_FIELDS:
         a, b = float(getattr(stats, name)), float(j[f"{prec}.stats.{name}"])

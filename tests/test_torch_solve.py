@@ -151,17 +151,20 @@ def test_port_imports_no_jax():
                         and words[1].split(".")[0] in ("jax", "jaxlib", "loraine_tpu")), (path, line)
 
 
-@pytest.mark.parametrize("opts,item", [
-    ({"precision": "dd2", "nt_precision": "dd"}, "item 12"),
-    ({"dtype": "float32"}, "item 13"),
-    ({"nt_method": "svd"}, "item 13"),
-    ({"eigh_backend": "jacobi"}, "item 13"),
-    ({"step_eig": "exact"}, "item 13"),
-    ({"chol_backend": "mixed"}, "Not carried over"),
+@pytest.mark.parametrize("opts,exc,match", [
+    ({"precision": "dd2", "nt_precision": "dd"}, NotImplementedError, "item 12"),
+    ({"gemm_backend": "int8"}, NotImplementedError, "Not carried over"),
+    ({"profile_dir": "trace"}, NotImplementedError, "item 15"),
+    ({"timing": 2}, NotImplementedError, "item 15"),
+    ({"assembly_precision": "f32", "precision": "dd"}, ValueError, "conflicts"),
+    ({"chol_backend": "mixed"}, NotImplementedError, "Not carried over"),
 ])
-def test_unported_options_raise(opts, item):
+def test_unported_options_raise(opts, exc, match):
+    """The option values the port does not run raise NotImplementedError
+    naming their ROADMAP item; a combination the JAX package rejects raises
+    its ValueError."""
     p = ltt.load_problem(str(DATA / "theta1.dat-s"), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         ltt.Solver(p, dict(PORT_OPTS, **opts), device="cpu")
 
 

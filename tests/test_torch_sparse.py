@@ -17,14 +17,13 @@ import torch
 
 import loraine_tpu as lt
 import loraine_tpu_torch as ltt
-import loraine_tpu_torch.ipm.step as tstep
 from loraine_tpu.ops import nt_scaling as jnt, precond as jprec, schur as jschur
 from loraine_tpu_torch.convert import problem_from_numpy
 from loraine_tpu_torch.ops import precond as tprec, schur as tschur
 from loraine_tpu_torch.ops.nt_scaling import NTScaling
 from loraine_tpu_torch.problem import pick_storage
 from torch_cases import (EXACT_MODES, PALLAS_MODES, assert_same_step, errs_agree,
-                         exact_bounds, solve_pair, step_both)
+                         solve_pair, step_both)
 
 DATA = pathlib.Path(__file__).parent / "data"
 TRU3 = str(DATA / "tru3.dat-s")
@@ -46,11 +45,6 @@ SHIPPED = {
     "maxG11": (800, [(800, 1)], "sparse"),
     "thetaG11": (2401, [(801, 9)], "sparse"),
 }
-
-
-@pytest.fixture
-def exact_step(monkeypatch):
-    monkeypatch.setattr(tstep, "eig_bounds_jacobi", exact_bounds)
 
 
 @pytest.mark.parametrize("name", sorted(SHIPPED))
@@ -215,7 +209,7 @@ def test_sparse_alpha_precond_matches_jax_and_dense(tru3_sparse_mid, materialize
     ("tru3", dict(K1, cg_materialize="never")),
     ("vib3", dict(K1, cg_materialize="never")),
 ])
-def test_sparse_step_from_jax_state_matches(exact_step, name, opts):
+def test_sparse_step_from_jax_state_matches(name, opts):
     pj = lt.load_problem(str(DATA / f"{name}.dat-s"), dict(opts, **SPARSE))
     assert all(g.is_sparse for g in pj.groups)
     mid = lt.solve(pj, dict(opts, **PALLAS_MODES, maxit=5)).final_state

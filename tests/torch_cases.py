@@ -43,9 +43,10 @@ def spectrum_matrix(kind: str, m: int, nb: int, seed: int) -> np.ndarray:
 # takes: the Jacobi kernels (Pallas in interpret mode on the JAX side, the
 # plain PyTorch versions on the port's CPU side), whose f32 seeds differ at
 # f32 rounding and reach the trajectory through the steplength bounds at
-# ~1e-5 relative. EXACT_MODES replaces the spectral bounds by exact f64
-# eigenvalues on both sides (the port's through `exact_bounds`), so that a
-# test can hold the rest of the step's f64 arithmetic to rounding.
+# ~1e-5 relative. EXACT_MODES takes the library's f64 eigh for the NT
+# scaling and exact f64 eigenvalues for the steplengths in both packages,
+# so that a test can hold the rest of the step's f64 arithmetic to
+# rounding.
 PALLAS_MODES = {"eigh_backend": "pallas", "step_eig": "pallas", "cg_kernel": "xla"}
 EXACT_MODES = {"eigh_backend": "xla", "step_eig": "exact", "cg_kernel": "xla"}
 STEP_FIELDS = ("obj", "mu", "sigma", "err1", "err2", "err3", "err4", "err5", "err6",
@@ -53,18 +54,9 @@ STEP_FIELDS = ("obj", "mu", "sigma", "err1", "err2", "err3", "err4", "err5", "er
                "cg_iter_pre", "cg_iter_cor")
 
 
-def exact_bounds(M):
-    """(lambda_min, lambda_max) per matrix from f64 eigvalsh: the port's
-    step under EXACT_MODES (monkeypatched over `ipm.step.eig_bounds_jacobi`)."""
-    import torch
-
-    ev = torch.linalg.eigvalsh(M)
-    return ev[..., 0], ev[..., -1]
-
-
-def step_both(pj, state_j, opts, tol_cg=1e-3):
-    """One step of each package from the same JAX iterate, JAX under
-    EXACT_MODES. The caller patches the port's bounds with `exact_bounds`.
+def step_both(pj, state_j, opts, tol_cg=1e-3, modes=EXACT_MODES, mixed_assembly=False):
+    """One step of each package from the same JAX iterate, both under
+    ``modes`` (EXACT_MODES by default) and with the same ``mixed_assembly``.
     Returns ((new_j, stats_j), (new_t, stats_t))."""
     import jax
 
@@ -75,29 +67,24 @@ def step_both(pj, state_j, opts, tol_cg=1e-3):
     from loraine_tpu_torch.ipm.step import step
 
     precond = opts.get("preconditioner", 1) if opts.get("kit", 0) == 1 else -1
-    oj = lt.Options.from_dict(dict(opts, **EXACT_MODES)).validated()
-    new_j, stats_j = jax.jit(build_step(oj, precond))(pj, state_j, tol_cg)
+    oj = lt.Options.from_dict(dict(opts, **modes)).validated()
+    new_j, stats_j = jax.jit(build_step(oj, precond, mixed_assembly=mixed_assembly))(
+        pj, state_j, tol_cg)
     pt = problem_from_numpy(jax.device_get(pj), device="cpu")
     st = state_from_numpy(jax.device_get(state_j), device="cpu")
-    ot = ltt.Options.from_dict(opts).validated()
-    new_t, stats_t = step(pt, st, ot, tol_cg, precond if precond >= 0 else None)
+    ot = ltt.Options.from_dict(dict(opts, **modes)).validated()
+    new_t, stats_t = step(pt, st, ot, tol_cg, precond if precond >= 0 else None, mixed_assembly)
     return (new_j, stats_j), (new_t, stats_t)
 
 
 def solve_pair(path, opts, modes):
-    """(JAX result, port result) of one whole `solve_sdpa` on the CPU; under
-    EXACT_MODES with the port's bounds patched by `exact_bounds`."""
-    import pytest
-
+    """(JAX result, port result) of one whole `solve_sdpa` on the CPU, both
+    packages under ``modes``."""
     import loraine_tpu as lt
     import loraine_tpu_torch as ltt
-    import loraine_tpu_torch.ipm.step as tstep
 
-    with pytest.MonkeyPatch.context() as mp:
-        if modes is EXACT_MODES:
-            mp.setattr(tstep, "eig_bounds_jacobi", exact_bounds)
-        return (lt.solve_sdpa(path, dict(opts, **modes)),
-                ltt.solve_sdpa(path, opts, device="cpu"))
+    return (lt.solve_sdpa(path, dict(opts, **modes)),
+            ltt.solve_sdpa(path, dict(opts, **modes), device="cpu"))
 
 
 def errs_agree(rj, rt, rtol, atol=1e-13):
