@@ -117,9 +117,40 @@ Phases:
      f64 `torch.linalg.eigh`, `eigmin_lanczos` and `eigmin_chol`, beside the
      B1 and B2 wrappers, at (nb, m) = (2, 50) and (2, 800).
 
+ 28. the POEMA-JSON and raw-dict entry at full size: tru9 and vib9 written
+     with `write_poema_json` (dicts built as tests/test_poema_io.py's
+     `_dict_from_sdpa` does) and solved by `solve_json` on the card with
+     phases 11-12's options: OPTIMAL, objectives within 1e-5 relative of
+     phases 11 and 12, iterations within 2; the JSON read + dict lowering
+     time beside the solve time.
+ 29. the models and the modeling layer on the card: `solve_maxcut` on
+     maxG11's own graph (800 nodes, W_ij = -4 F_0[i,j] from the C block of
+     maxG11.dat-s; the storage `maxcut_problem` picks; phase 4's eDIMACS):
+     relaxation within 1e-5 relative of 629.1648, and the rounding's cut
+     weight; `Model.solve` on a seeded 200-node max-cut against
+     `solve_maxcut` on the same graph; `correlation_bounds`; `lp_problem`
+     (no LMI block, no Jacobi kernel).
+ 30. ADMM: `solve_admm` on theta1 (eps 1e-5, the library's f64 eigh in the
+     projection): iterations, ms per iteration, objective against 23, with
+     err read once a chunk of 100 and (the same iterates) after every
+     iteration; then
+     the IPM warm-started from an eps 1e-3 ADMM iterate (tests/test_admm.py)
+     beside phase 3's iteration count.
+ 31. checkpoints: maxG11 with maxit=5, `save_state`, `load_state`, resumed on
+     the card: objective within 1e-6 relative of phase 4's, iterations
+     summed within 3 of phase 4's.
+ 32. diagnostics: ``timing=2`` on theta1 (kit=0) and control1-cg (kit=1)
+     prints the phase table; B2, and on kit=1 B3, launched inside
+     `profile_phases`; ``profile_dir`` on theta1 writes a non-empty trace
+     that names the Jacobi kernels of csrc/jacobi.cu; `flops.utilization`
+     of maxG11's median iteration (phase 4) against the H100's f64 peak.
+ 33. the CLI: ``python -m loraine_tpu_torch solve tests/data/theta1.dat-s
+     --kit 0 --eDIMACS 1e-6 --initpoint 1 --json`` in a subprocess on the
+     card: rc 0, OPTIMAL at 23.0.
+
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
-15, 18-26) runs with the launch counts set to 0 just before it and read
+15, 18-26, 28-33) runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched (B1 and B2
 in every precision-tier solve) or, in phases 22-24, if a Jacobi kernel ran
 where its mode does not resolve to it. The line before
@@ -129,10 +160,13 @@ name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -185,6 +219,12 @@ THETA1_F32 = {"kit": 0, "eDIMACS": 5e-3, "initpoint": 1, "verb": 0, "dtype": "fl
               "maxit": 50}
 # the shapes phase 27 times the eigen routines at (theta1's and maxG11's m)
 MODE_SHAPES = ((2, 50), (2, 800))
+# examples/ex_corr.jl:30-31 (tests/test_models.py)
+CORR_REF = (-0.9779977649, 0.8719210472)
+# the __global__ kernels of csrc/jacobi.cu (at theta1's mp = 64 B1 and B2
+# each launch one sm_kernel: the "sm" regime)
+JACOBI_GLOBALS = ("sm_kernel", "cluster_kernel", "round_kernel", "identity_kernel",
+                  "diag_kernel", "gersh_kernel")
 
 
 def check(cond: bool, what: str) -> None:
@@ -606,11 +646,15 @@ class Launches:
         got.update({k: fn.launches for k, fn in self.cg.items()})
         for k in KERNELS:
             self.total[k] += got[k]
-        per_it = " ".join(f"{k}={v / r.iterations:.2f}" for k, v in got.items())
+        # the IPM iterations of the result (a model's ModelResult carries the
+        # solver's Result as .raw; a model function's plain values have none)
+        its = getattr(r, "iterations", None) or getattr(getattr(r, "raw", None), "iterations",
+                                                        None)
+        per_it = " ".join(f"{k}={v / its:.2f}" for k, v in got.items()) if its else "n/a"
         print(f"launches in {label}: " + " ".join(f"{k}={v}" for k, v in got.items())
               + f" | by mp: B1 {self.by_mp['B1']} B2 {self.by_mp['B2']}"
               + " | by regime: " + " ".join(f"{k} {v}" for k, v in self.by_regime.items() if v)
-              + f" | per iteration ({r.iterations}): {per_it}", flush=True)
+              + f" | per iteration ({its}): {per_it}", flush=True)
         check(all(got[k] > 0 for k in needs), f"{label}: a kernel of its path was not launched")
         return r
 
@@ -966,6 +1010,300 @@ def eigen_routines() -> None:
             check(n > 0 and ms > 0, f"phase 27 {name} at ({nb}, {m})")
 
 
+def sdpa_dict(path: str) -> dict:
+    """The raw problem dict of an SDPA file (the stored matrices are SDPA's F
+    matrices), built as tests/test_poema_io.py's `_dict_from_sdpa` does."""
+    from loraine_tpu_torch.io.sdpa import read_sdpa
+
+    data = read_sdpa(path)
+    n = data.nvar
+    A, C, msizes, lin = [], [], [], []
+    for bs, (mat, row, col, val) in zip(data.block_sizes, data.blocks):
+        if bs < 0:
+            Cl, dl, f0 = np.zeros((n, -bs)), np.zeros(-bs), mat == 0
+            np.add.at(dl, row[f0], val[f0])
+            np.add.at(Cl, (mat[~f0] - 1, row[~f0]), val[~f0])
+            lin.append((Cl, dl))
+            continue
+        stack, off = np.zeros((n + 1, bs, bs)), row != col
+        np.add.at(stack, (mat, row, col), val)
+        np.add.at(stack, (mat[off], col[off], row[off]), val[off])
+        msizes.append(bs)
+        C.append(stack[0])
+        A.append(stack[1:])
+    d = {"nvar": n, "nlmi": len(A), "msizes": np.asarray(msizes), "c": data.c, "A": A,
+         "C": C, "b_const": 0.0, "nlin": 0}
+    if lin:
+        d["nlin"] = sum(dl.shape[0] for _, dl in lin)
+        d["C_lin"] = np.concatenate([Cl for Cl, _ in lin], axis=1)
+        d["d"] = np.concatenate([dl for _, dl in lin])
+    return d
+
+
+def json_entry(launches, ltt, f64_runs) -> None:
+    """Phase 28: tru9 and vib9 through POEMA-JSON and `solve_json`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path in (("tru9", TRU9), ("vib9", VIB9)):
+            js = os.path.join(tmp, f"{name}.json")
+            t0 = time.perf_counter()
+            ltt.write_poema_json(js, sdpa_dict(path))
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r = launches.run(f"phase 28 ({name} solve_json)", ("B1", "B2"),
+                             lambda: ltt.solve_json(js, LARGE_KIT0, device="cuda"))
+            wall = time.perf_counter() - t0
+            ref = f64_runs[name]
+            print(solve_line(f"28 {name} solve_json cuda", r)
+                  + f" json_MB={os.path.getsize(js) / 1e6:.2f} write_s={t_write:.3f} "
+                  f"load_s(read_poema_json+problem_from_dict)={wall - r.solve_time:.3f} "
+                  f"| .dat-s solve (phase {11 if name == 'tru9' else 12}): "
+                  f"obj={ref.objective!r} it={ref.iterations} solve={ref.solve_time:.3f} s",
+                  flush=True)
+            check(r.status == 1, f"{name} solve_json not OPTIMAL")
+            check(abs(r.objective - ref.objective) <= OBJ_RTOL * abs(ref.objective),
+                  f"{name} solve_json objective vs the .dat-s solve")
+            check(abs(r.iterations - ref.iterations) <= 2, f"{name} solve_json iterations")
+            check(math.isfinite(r.dimacs) and r.dimacs < LARGE_KIT0["eDIMACS"],
+                  f"{name} solve_json DIMACS")
+
+
+def maxg11_graph() -> np.ndarray:
+    """maxG11's graph from its C block: F_0 = L/4 with L = diag(W 1) - W, so
+    W_ij = -4 F_0[i,j] off the diagonal (maxcut_problem's F_0 for this W is
+    maxG11's)."""
+    from loraine_tpu_torch.io.sdpa import read_sdpa
+
+    data = read_sdpa(MAXG11)
+    mat, row, col, val = data.blocks[0]
+    f0 = (mat == 0) & (row != col)
+    W = np.zeros((data.nvar, data.nvar))
+    W[row[f0], col[f0]] = -4.0 * val[f0]
+    W = W + W.T
+    deg = np.zeros(data.nvar)
+    np.add.at(deg, row[(mat == 0) & (row == col)], 4.0 * val[(mat == 0) & (row == col)])
+    check(np.array_equal(deg, W.sum(1)), "maxG11: F_0's diagonal is not L/4's")
+    return W
+
+
+def models_phase(launches, ltt) -> None:
+    """Phase 29: the model families and the modeling layer on the card."""
+    from loraine_tpu_torch import models
+    from loraine_tpu_torch.modeling import Model, dot
+    from loraine_tpu_torch.problem import pick_storage
+
+    W = maxg11_graph()
+    o = {"eDIMACS": MAXG11_OPTS["eDIMACS"], "initpoint": 1}
+    S, T, val = launches.run("phase 29 (solve_maxcut maxG11)", ("B1", "B2"),
+                             lambda: models.solve_maxcut(W, o, device="cuda"))
+    cut = float(W[np.ix_(S, T)].sum())
+    # maxcut_problem's storage: the modeled-cost rule at n = m = 800, s = 1
+    storage = pick_storage(W.shape[0], [(W.shape[0], 1)])
+    print(f"phase 29 solve_maxcut maxG11 graph ({W.shape[0]} nodes, {int((W != 0).sum()) // 2} "
+          f"edges, storage {storage}): relaxation={val!r} (SDPLIB {MAXG11_OPT}) "
+          f"rounded cut weight={cut} |S|={len(S)} |T|={len(T)}", flush=True)
+    check(abs(val - MAXG11_OPT) <= OBJ_RTOL * MAXG11_OPT, "solve_maxcut maxG11 relaxation")
+    check(0 < cut <= val, "solve_maxcut maxG11 cut weight")
+
+    rng = np.random.default_rng(29)
+    N = 200
+    W2 = np.triu(rng.random((N, N)) < 0.05, 1) * rng.integers(1, 10, (N, N))
+    W2 = (W2 + W2.T).astype(float)
+    L = np.diag(W2.sum(1)) - W2
+    m = Model()
+    X = m.psd_var(N)
+    for i in range(N):
+        m.add_constraint(X[i, i] == 1)
+    m.maximize(0.25 * dot(L, X))
+    o2 = {"eDIMACS": 1e-7, "initpoint": 1}
+    t0 = time.perf_counter()
+    res = launches.run("phase 29 (Model.solve max-cut N=200)", ("B1", "B2"),
+                       lambda: m.solve(o2, device="cuda"))
+    t_model = time.perf_counter() - t0
+    _, _, ref = models.solve_maxcut(W2, o2, device="cuda")
+    print(f"phase 29 Model.solve max-cut N={N}: {res.status_name} obj={res.objective!r} "
+          f"it={res.raw.iterations} wall(lower+solve)={t_model:.3f} s | solve_maxcut: {ref!r}",
+          flush=True)
+    check(res.status == 1, "Model.solve max-cut not OPTIMAL")
+    check(abs(res.objective - ref) <= OBJ_RTOL * abs(ref), "Model.solve vs solve_maxcut")
+    check(np.abs(np.diag(res.value(X)) - 1.0).max() < 1e-6, "Model.solve diag(X) = 1")
+
+    lo, hi = launches.run("phase 29 (correlation_bounds)", ("B1", "B2"),
+                          lambda: models.correlation_bounds(device="cuda"))
+    print(f"phase 29 correlation_bounds: lower={lo!r} upper={hi!r} (ex_corr.jl {CORR_REF})",
+          flush=True)
+    check(abs(lo - CORR_REF[0]) <= 1e-6 * abs(CORR_REF[0]), "correlation lower bound")
+    check(abs(hi - CORR_REF[1]) <= 1e-6 * abs(CORR_REF[1]), "correlation upper bound")
+
+    p = models.lp_problem(np.array([2.0]), np.array([[-1.0, 1.0]]), np.array([-1.0, 2.0]),
+                          device="cuda")
+    r = launches.run("phase 29 (lp_problem, no LMI block)", (),
+                     lambda: ltt.solve(p, {"kit": 0, "eDIMACS": 1e-8, "verb": 0}, device="cuda"))
+    print(solve_line("29 lp_problem (k.jl) cuda", r) + f" X_lin={r.X_lin.tolist()}", flush=True)
+    check_jacobi(launches, "phase 29 (lp_problem)", False, False)
+    check(r.status == 1 and abs(-r.objective - 4.0) <= 1e-6 * 4.0, "lp_problem objective")
+    check(np.abs(r.X_lin - [0.0, 2.0]).max() < 1e-6, "lp_problem shadow prices")
+
+
+def admm_phase(launches, ltt, theta1_f64) -> None:
+    """Phase 30: ADMM on theta1, then the IPM warm-started from it."""
+    p = ltt.load_problem(THETA1, THETA1_K0, device="cuda")
+    a = launches.run("phase 30 (solve_admm theta1)", (),
+                     lambda: ltt.solve_admm(p, eps=1e-5, maxiter=20000, verb=0))
+    check_jacobi(launches, "phase 30 (ADMM: library eigh)", False, False)
+    # the host reading err after every iteration (chunk=1) against once a
+    # chunk of 100 (the default): the same iterates, the cost of the reads
+    a1 = ltt.solve_admm(p, eps=1e-5, maxiter=20000, verb=0, chunk=1)
+    print(f"phase 30 solve_admm theta1 eps=1e-5 cuda: {a.status_name} obj={a.objective!r} "
+          f"it={a.iterations} err={a.err:.3e} solve={a.solve_time:.3f} s "
+          f"ms_per_iteration={1e3 * a.solve_time / a.iterations:.4f} (err read once a chunk "
+          f"of 100) | chunk=1: it={a1.iterations} solve={a1.solve_time:.3f} s "
+          f"ms_per_iteration={1e3 * a1.solve_time / a1.iterations:.4f}", flush=True)
+    check(a.status == 1 and abs(a.objective - THETA1_OPT) <= 1e-4 * THETA1_OPT, "ADMM theta1")
+    check(a1.iterations == a.iterations
+          and abs(a1.objective - a.objective) <= 1e-12 * THETA1_OPT,
+          "ADMM result independent of the chunk")
+    check(np.linalg.eigvalsh(a.S[0]).min() > -1e-9, "ADMM S not PSD")
+
+    # tests/test_admm.py::test_admm_warm_starts_ipm on the card
+    w = ltt.solve_admm(p, eps=1e-3, maxiter=5000, verb=0)
+    (g,) = p.groups
+    m0 = w.X[0].shape[0]
+    pad = np.r_[np.zeros(m0), np.ones(g.m - m0)]
+
+    def block(M, tail):
+        return torch.from_numpy((np.pad(M, ((0, g.m - m0),) * 2) + np.diag(pad * tail)
+                                 + 1e-2 * np.eye(g.m))[None]).cuda()
+
+    st = ltt.IPMState(X=(block(w.X[0], 0.1),), S=(block(w.S[0], 1.0),),
+                      y=torch.from_numpy(w.y).cuda(), X_lin=None, S_lin=None,
+                      sigma=torch.tensor(3.0, dtype=torch.float64, device="cuda"))
+    r = launches.run("phase 30 (IPM warm-started from ADMM)", ("B1", "B2"),
+                     lambda: ltt.Solver(p, {"eDIMACS": 1e-6, "verb": 0}, initial_state=st,
+                                        device="cuda").solve())
+    print(solve_line("30 theta1 IPM from the ADMM iterate (eps 1e-3, "
+                     f"{w.iterations} ADMM iterations) cuda", r)
+          + f" | cold start (phase 3): it={theta1_f64.iterations}", flush=True)
+    check(r.status == 1 and abs(r.objective - THETA1_OPT) <= 1e-6 * THETA1_OPT,
+          "IPM warm-started from ADMM")
+
+
+def checkpoint_phase(launches, ltt, maxg11_f64):
+    """Phase 31: maxG11 checkpointed after 5 iterations and resumed. Returns
+    the problem."""
+    r4 = maxg11_f64[0]
+    p = ltt.load_problem(MAXG11, MAXG11_OPTS, device="cuda")
+    part = launches.run("phase 31 (maxG11 maxit=5)", ("B1", "B2"),
+                        lambda: ltt.solve(p, dict(MAXG11_OPTS, maxit=5), device="cuda"))
+    check(part.status == 4 and part.iterations == 5, "maxG11 maxit=5")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "maxG11.npz")
+        ltt.save_state(ck, part.final_state)
+        size = os.path.getsize(ck)
+        state = ltt.load_state(ck, device="cuda")
+    check(all(torch.equal(a, b) for a, b in zip(state.X + state.S, part.final_state.X
+                                                + part.final_state.S)), "load_state != saved")
+    r = launches.run("phase 31 (maxG11 resumed)", ("B1", "B2"),
+                     lambda: ltt.Solver(p, MAXG11_OPTS, initial_state=state,
+                                        device="cuda").solve())
+    print(solve_line("31 maxG11 resumed from a 5-iteration checkpoint cuda", r)
+          + f" checkpoint_MB={size / 1e6:.2f} | 5 + {r.iterations} = {5 + r.iterations} vs "
+          f"phase 4 it={r4.iterations} obj={r4.objective!r}", flush=True)
+    check(r.status == 1, "maxG11 resume not OPTIMAL")
+    check(abs(r.objective - r4.objective) <= 1e-6 * abs(r4.objective), "maxG11 resume objective")
+    check(abs(5 + r.iterations - r4.iterations) <= 3, "maxG11 resume iterations")
+    return p
+
+
+@contextlib.contextmanager
+def launches_in_profile_phases(tj, tp):
+    """Counts the B1, B2 and B3 launches made inside `profile_phases` (the
+    solver's timing=2 pass) into the yielded dict."""
+    import loraine_tpu_torch.utils.diagnostics as diag
+
+    def counts():
+        return {"B1": sum(tj.jacobi_eigh_cuda.launches_by_mp.values()),
+                "B2": sum(tj.jacobi_bounds_cuda.launches_by_mp.values()),
+                "B3": tp.cg_minres_f64_cuda.launches}
+
+    inside = dict.fromkeys(("B1", "B2", "B3"), 0)
+    orig = diag.profile_phases
+
+    def wrapped(*a, **kw):
+        before = counts()
+        out = orig(*a, **kw)
+        after = counts()
+        for k in inside:
+            inside[k] += after[k] - before[k]
+        return out
+
+    diag.profile_phases = wrapped
+    try:
+        yield inside
+    finally:
+        diag.profile_phases = orig
+
+
+def diagnostics_phase(launches, ltt, tj, tp, maxg11_f64, p_maxg11, card) -> None:
+    """Phase 32: timing=2, profile_dir and the flop model's utilization."""
+    from loraine_tpu_torch.utils import flops
+    from loraine_tpu_torch.utils.profiling import CONTROL1_CG
+
+    for label, path, o, needs in (("theta1 kit=0", THETA1, THETA1_K0, ("B2",)),
+                                  ("control1-cg kit=1", CONTROL1, CONTROL1_CG, ("B2", "B3"))):
+        with launches_in_profile_phases(tj, tp) as inside:
+            r = launches.run(f"phase 32 ({label} timing=2)", ("B1", "B2"),
+                             lambda: ltt.solve_sdpa(path, dict(o, timing=2, verb=1),
+                                                    device="cuda"))
+        print(f"phase 32 {label} timing=2: {r.status_name} it={r.iterations}; launches inside "
+              f"profile_phases: {inside}", flush=True)
+        check(r.status == 1, f"{label} timing=2 not OPTIMAL")
+        check(all(inside[k] > 0 for k in needs), f"{label}: {needs} not launched in "
+                                                  f"profile_phases ({inside})")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = launches.run("phase 32 (theta1 profile_dir)", ("B1", "B2"),
+                         lambda: ltt.solve_sdpa(THETA1, dict(THETA1_K0, profile_dir=tmp),
+                                                device="cuda"))
+        traces = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        check(len(traces) == 1 and os.path.getsize(traces[0]) > 0, f"profile_dir: {traces}")
+        size = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in JACOBI_GLOBALS}
+    jac = jacobi_launched(launches)
+    print(f"phase 32 profile_dir theta1: {r.status_name} trace {size / 1e6:.2f} MB, "
+          f"{len(kernels)} device kernels, csrc/jacobi.cu kernels by name {named} "
+          f"(wrapper launches B1 {jac['B1']} B2 {jac['B2']}, regime {launches.by_regime['B1']})",
+          flush=True)
+    check(named["sm_kernel"] == jac["B1"] + jac["B2"] > 0,
+          "profile_dir trace does not name one sm_kernel per B1/B2 launch")
+    r4 = maxg11_f64[0]
+    fl = flops.iteration_flops(p_maxg11, 0)
+    sec = float(np.median(r4.iteration_times))
+    u = flops.utilization(fl["total"], sec)
+    print(f"phase 32 maxG11 (phase 4) median iteration {1e3 * sec:.2f} ms, model flops "
+          + " ".join(f"{k}={v:.4g}" for k, v in fl.items())
+          + f": {fl['total'] / sec / 1e12:.3f} TFLOP/s = utilization {u:.4f} of the H100's "
+          f"f64 peak {flops.H100_F64_PEAK_FLOPS / 1e12:.0f} TFLOP/s (data sheet, 700 W) on "
+          f"'{card}'", flush=True)
+    check(0 < u < 1, "maxG11 utilization")
+
+
+def cli_phase() -> None:
+    """Phase 33: the CLI in a subprocess on the card."""
+    cmd = [sys.executable, "-m", "loraine_tpu_torch", "solve", THETA1, "--kit", "0",
+           "--eDIMACS", "1e-6", "--initpoint", "1", "--json"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"CLI rc {out.returncode}: {out.stderr[-2000:]}")
+    payload = json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("{")][-1])
+    print(f"phase 33 CLI `{' '.join(cmd[1:])}`: rc={out.returncode} {payload} "
+          f"process_wall={wall:.3f} s", flush=True)
+    check(payload["status"] == "OPTIMAL", "CLI not OPTIMAL")
+    check(abs(payload["objective"] - THETA1_OPT) <= 1e-6 * THETA1_OPT, "CLI objective")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs one NVIDIA GPU",
@@ -1089,7 +1427,7 @@ def main() -> int:
     groups = [(g.m, g.nb, g.is_sparse) for g in p.groups]
     print(f"phase 12 vib9 groups (m, nb, sparse): {groups} nlin={p.nlin}", flush=True)
     check(groups == [(144, 1, True), (152, 1, True)] and p.nlin == 6480, "vib9 block groups")
-    large_case(launches, "12", VIB9, LARGE_KIT0, VIB9_REF, ltt, problem=p)
+    f64_runs["vib9"] = large_case(launches, "12", VIB9, LARGE_KIT0, VIB9_REF, ltt, problem=p)[0]
     for kname in ("B1", "B2"):
         check(all(launches.by_mp[kname].get(mp, 0) > 0 for mp in (144, 160)),
               f"vib9: {kname} not launched at both mp 144 and 160")
@@ -1135,6 +1473,16 @@ def main() -> int:
     steplength_modes(launches, ltt)
     assembly_modes(launches, ltt, f64_runs)
     eigen_routines()
+
+    # ---- phases 28-33: the front-ends and extras, through B1, B2 and B3
+    t0 = time.perf_counter()
+    json_entry(launches, ltt, f64_runs)
+    models_phase(launches, ltt)
+    admm_phase(launches, ltt, f64_runs["theta1"])
+    p_maxg11 = checkpoint_phase(launches, ltt, maxg11_f64)
+    diagnostics_phase(launches, ltt, tj, tp, maxg11_f64, p_maxg11, card)
+    cli_phase()
+    print(f"phases 28-33 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     for key, kname, name, src, line in (

@@ -9,10 +9,12 @@ What the port runs: ``kit`` 0 and 1, ``precision`` 'f64', 'dd' and 'dd2'
 (both paths, every storage, the LP cone), every value of ``dtype``,
 ``nt_method``, ``eigh_backend``, ``step_eig``, ``assembly_precision``,
 ``cg_kernel`` and ``cg_materialize``, ``chol_backend`` 'auto'/'f64' and
-``gemm_backend='f64'``. Still raising `NotImplementedError`:
-``chol_backend='mixed'`` and ``gemm_backend='int8'`` (not carried over),
-``nt_precision='dd'`` (item 12e), ``profile_dir`` and ``timing >= 2``
-(item 15).
+``gemm_backend='f64'``, ``timing`` (``timing >= 2`` prints the per-phase
+table of `utils/diagnostics.py` after the solve) and ``profile_dir`` (a
+`torch.profiler` trace of the solve loop written into that directory, CUDA
+activity included on a card). Still raising `NotImplementedError`:
+``chol_backend='mixed'`` and ``gemm_backend='int8'`` (not carried over) and
+``nt_precision='dd'`` (item 12e).
 
 In the port 'pallas' means the hand-written Jacobi kernels of
 `ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto' resolves to them
@@ -181,7 +183,6 @@ _PORTED = {
     "chol_backend": (("auto", "f64"), "'Not carried over' (f32-panel Cholesky)"),
     "gemm_backend": (("f64",), "'Not carried over' (int8 Ozaki GEMM)"),
     "nt_precision": (("auto", "f64"), "Queue A item 12 (precision tiers, 12e dd NT)"),
-    "profile_dir": (("",), "Queue A item 15 (diagnostics)"),
 }
 
 
@@ -195,11 +196,6 @@ def require_ported(o: Options) -> None:
                 f"{name}={v!r} is not ported to loraine_tpu_torch yet "
                 f"(runs: {list(ok)}); see ROADMAP.md {item}"
             )
-    if o.timing >= 2:
-        raise NotImplementedError(
-            "timing>=2 (per-phase re-timing) is not ported to "
-            "loraine_tpu_torch yet; see ROADMAP.md Queue A item 15 (diagnostics)"
-        )
 
 
 def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:
@@ -218,4 +214,7 @@ def _one_of(name: str, value, allowed) -> None:
 
 def _warn(msg: str) -> None:
     warnings.warn(msg, stacklevel=3)
+
+
+DEFAULT_OPTIONS = Options()
 

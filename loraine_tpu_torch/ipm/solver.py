@@ -21,12 +21,20 @@ After the first iteration whose DIMACS falls below
 exact assembly for good (the JAX package's `mixed_off` signal); the
 result's ``mixed_handover`` names that iteration.
 
+``timing >= 2`` (with ``verb > 0``) prints the per-phase table of
+`utils/diagnostics.py` after the solve, and ``profile_dir`` records the
+solve loop with `torch.profiler` (CUDA activity included on a card) into a
+trace file in that directory: the port's counterparts of the JAX package's
+`profile_phases` re-timing and `jax.profiler.trace`
+(`loraine_tpu/ipm/solver.py:215-218, 390-392, 406-415`).
+
 Status codes (reference `src/MOI_wrapper.jl:252-265`):
   0 = not solved, 1 = optimal, 2 = (probably) infeasible,
   3 = (probably) unbounded or infeasible, 4 = iteration/numerics limit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -48,7 +56,8 @@ from .step import step
 # (`loraine_tpu/ipm/step.py:1343`)
 MIXED_ASSEMBLY_DIMACS = 1e-3
 
-__all__ = ["Result", "Solver", "solve", "solve_sdpa", "load_problem", "STATUS_NAMES"]
+__all__ = ["Result", "Solver", "solve", "solve_sdpa", "solve_json", "load_problem",
+           "STATUS_NAMES"]
 
 STATUS_NAMES = {
     0: "NOT_SOLVED",
@@ -234,47 +243,48 @@ class Solver:
         iteration_times: List[float] = []
         history: List[Dict[str, float]] = []
 
-        while status == 0:
-            t0 = time.perf_counter()
-            with self.timer.phase("ipm step"):
-                state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
-                stats_h = stats.to_host()  # waits for the step's device work
-                self._sync()
-            dt = time.perf_counter() - t0
-            it += 1
-            iteration_times.append(dt)
-            stats_h["cg_pre"] = stats_h.pop("cg_iter_pre")
-            stats_h["cg_cor"] = stats_h.pop("cg_iter_cor")
-            cg_tot += stats_h["cg_pre"] + stats_h["cg_cor"]
-            history.append({k: stats_h[k] for k in (
-                "obj", "mu", "err1", "err2", "err3", "err4", "err5", "err6",
-                "dimacs", "cg_pre", "cg_cor")})
-            status = self._status(stats_h, it, regcount)
-            # tol_cg schedule (`loraine_tpu/ipm/step.py:1413`)
-            tol_cg = max(tol_cg * o.tol_cg_up, o.tol_cg_min)
-            if stats_h["h_shifts"] > 0:
-                regcount += 1
-            if stats_h["h_ok"] and stats_h["nt_ok"] and math.isfinite(stats_h["dimacs"]) \
-                    and not (stats_h["h_shifts"] > 0 and regcount > 5):
-                self._log_iter(it, stats_h, dt)
-            if o.verb > 0 and status in (2, 3, 4):
-                if status == 2:
-                    print("WARNING: Problem probably infeasible (stopping status = 2)")
-                elif status == 3 and abs(stats_h["obj"]) > 1e55:
-                    print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
-                elif status == 4 and it >= o.maxit:
-                    print("WARNING: Stopped by iteration limit (stopping status = 4)")
-            if status == 0 and mixed and stats_h["dimacs"] < MIXED_ASSEMBLY_DIMACS:
-                # hand over to the exact f64 assembly near convergence
-                mixed, handover = False, it
-                if o.verb > 0:
-                    print("Switching to exact f64 Schur assembly")
-            if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
-                # hybrid preconditioner switch (src/Solvers.jl:339-347)
-                precond_kind = 1
-                o.aamat = 2
-                if o.verb > 0:
-                    print("Switching to preconditioner 1")
+        with self._profiler(o.profile_dir) if o.profile_dir else contextlib.nullcontext():
+            while status == 0:
+                t0 = time.perf_counter()
+                with self.timer.phase("ipm step"):
+                    state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
+                    stats_h = stats.to_host()  # waits for the step's device work
+                    self._sync()
+                dt = time.perf_counter() - t0
+                it += 1
+                iteration_times.append(dt)
+                stats_h["cg_pre"] = stats_h.pop("cg_iter_pre")
+                stats_h["cg_cor"] = stats_h.pop("cg_iter_cor")
+                cg_tot += stats_h["cg_pre"] + stats_h["cg_cor"]
+                history.append({k: stats_h[k] for k in (
+                    "obj", "mu", "err1", "err2", "err3", "err4", "err5", "err6",
+                    "dimacs", "cg_pre", "cg_cor")})
+                status = self._status(stats_h, it, regcount)
+                # tol_cg schedule (`loraine_tpu/ipm/step.py:1413`)
+                tol_cg = max(tol_cg * o.tol_cg_up, o.tol_cg_min)
+                if stats_h["h_shifts"] > 0:
+                    regcount += 1
+                if stats_h["h_ok"] and stats_h["nt_ok"] and math.isfinite(stats_h["dimacs"]) \
+                        and not (stats_h["h_shifts"] > 0 and regcount > 5):
+                    self._log_iter(it, stats_h, dt)
+                if o.verb > 0 and status in (2, 3, 4):
+                    if status == 2:
+                        print("WARNING: Problem probably infeasible (stopping status = 2)")
+                    elif status == 3 and abs(stats_h["obj"]) > 1e55:
+                        print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
+                    elif status == 4 and it >= o.maxit:
+                        print("WARNING: Stopped by iteration limit (stopping status = 4)")
+                if status == 0 and mixed and stats_h["dimacs"] < MIXED_ASSEMBLY_DIMACS:
+                    # hand over to the exact f64 assembly near convergence
+                    mixed, handover = False, it
+                    if o.verb > 0:
+                        print("Switching to exact f64 Schur assembly")
+                if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
+                    # hybrid preconditioner switch (src/Solvers.jl:339-347)
+                    precond_kind = 1
+                    o.aamat = 2
+                    if o.verb > 0:
+                        print("Switching to preconditioner 1")
 
         solve_time = time.perf_counter() - t_start
         if o.verb > 0:
@@ -291,7 +301,26 @@ class Solver:
             print(f"Dual objective:   {result.dual_objective}")
         if o.timing > 0 and o.verb > 0:
             print(self.timer.report())
+        if o.timing >= 2 and o.verb > 0:
+            # the per-phase attribution (the reference's TimerOutputs tree,
+            # `src/Solvers.jl:467-476`): re-times each phase standalone at a
+            # representative iterate, so it costs extra device work
+            from ..utils.diagnostics import format_phases, profile_phases
+
+            print(format_phases(profile_phases(self.problem, o), self.device.type))
         return result
+
+    def _profiler(self, profile_dir: str):
+        """A `torch.profiler` context whose trace lands in ``profile_dir``
+        (one ``*.pt.trace.json`` per solve, TensorBoard's layout, as
+        `jax.profiler.trace` writes its own there)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir),
+        )
 
     def _status(self, s: Dict[str, Any], it: int, regcount: int) -> int:
         """Status after one iteration, in `build_chunk`'s precedence; prints
@@ -407,4 +436,21 @@ def solve_sdpa(path: str, options: OptionsLike = None,
     options = _options(options)
     device = resolve_device(device)
     problem = load_problem(path, options, device=device)
+    return Solver(problem, options, device=device).solve()
+
+
+def solve_json(path: str, options: OptionsLike = None,
+               device: Union[str, torch.device] = "cuda") -> Result:
+    """Read a POEMA-JSON problem and solve it on ``device``
+    (`loraine_tpu/ipm/solver.py:solve_json`; the working replacement for the
+    reference's `TBD/solve_json.jl` flow over the broken raw-dict entry,
+    `src/Loraine.jl:30-93`)."""
+    from ..io.poema import read_poema_json
+    from ..problem import problem_from_dict
+
+    options = _options(options)
+    device = resolve_device(device)
+    dtype = torch.float64 if options.dtype == "float64" else torch.float32
+    problem = problem_from_dict(read_poema_json(path), datarank=options.datarank,
+                                pad_multiple=options.pad_multiple, dtype=dtype, device=device)
     return Solver(problem, options, device=device).solve()

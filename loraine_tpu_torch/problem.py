@@ -39,6 +39,7 @@ __all__ = [
     "BlockGroup",
     "SDPProblem",
     "problem_from_dense",
+    "problem_from_dict",
     "problem_from_sdpa",
     "pick_storage",
     "adjoint_layout",
@@ -591,3 +592,46 @@ def problem_from_sdpa(
         sparse_max_nnz=sparse_max_nnz,
         sparse_min_n=sparse_min_n,
     )
+
+
+def problem_from_dict(
+    d: dict,
+    datarank: int = 0,
+    pad_multiple: int = 8,
+    dtype: torch.dtype = torch.float64,
+    device: Union[str, torch.device] = "cuda",
+) -> SDPProblem:
+    """Raw-dict entry point (`loraine_tpu/problem.py:problem_from_dict`; the
+    working replacement for the reference's broken `loraine(d, options)`
+    path, `src/Loraine.jl:30-93` / `src/model.jl:90-118`). Keys (reference
+    convention, negated internally like `prepare_model_data`):
+
+      nvar, nlmi, msizes, A (list over blocks of [n, m, m] with the
+      *constraint* sign, i.e. internal A_j = -A[i][j]), C (list of [m, m],
+      internal C_i = -C[i])  -- or pre-negated 'As'/'Cs' (with 'b') in the
+      internal convention, taken as given; c (objective, b = -c), b_const;
+      optional nlin, d, C_lin.
+
+    Storage follows `_build_problem`'s 'auto' rule, as in the JAX package.
+    ``device``: where the problem lives ('cuda' by default; raises without
+    a card)."""
+    device = resolve_device(device)
+    n = int(d.get("nvar", len(np.atleast_1d(d.get("c")))))
+    if "As" in d:
+        As = [np.asarray(a) for a in d["As"]]
+        Cs = [np.asarray(c) for c in d["Cs"]]
+        b = np.asarray(d["b"], dtype=np.float64)
+    else:
+        As = [-np.asarray(a) for a in d["A"]]
+        Cs = [-np.asarray(c) for c in d["C"]]
+        b = -np.asarray(d["c"], dtype=np.float64)
+    b_const = -float(d.get("b_const", 0.0))
+    nlin = int(d.get("nlin", 0))
+    C_lin = d_lin = None
+    if nlin > 0:
+        C_lin = -np.asarray(d["C_lin"]) if "C_lin" in d else None
+        d_lin = -np.asarray(d["d"]).reshape(-1)
+    blocks = [_BlockData(C=C, A_dense=A) for A, C in zip(As, Cs)]
+    if b.shape[0] != n:
+        raise ValueError(f"nvar={n} inconsistent with objective length {b.shape[0]}")
+    return _build_problem(blocks, b, C_lin, d_lin, b_const, datarank, pad_multiple, dtype, device)

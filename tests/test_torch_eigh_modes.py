@@ -36,19 +36,9 @@ import loraine_tpu as lt
 from loraine_tpu.ops import eigh as jeigh, linalg as jlin, nt_scaling as jnt, schur as jschur
 from loraine_tpu_torch.convert import problem_from_numpy
 from loraine_tpu_torch.ops import eigh as teigh, linalg as tlin, nt_scaling as tnt, schur as tschur
+from torch_cases import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The eager Jacobi and Lanczos loops here are 10^4-10^5 tiny torch ops
-    each. With several test workers on one machine, torch's intra-op thread
-    pool turns every op into a contended barrier (a 3-iteration theta1
-    solve under 'jacobi': 1.5 s on one thread, 185 s on eight beside five
-    busy processes). One thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def T(x):

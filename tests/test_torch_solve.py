@@ -154,8 +154,6 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("opts,exc,match", [
     ({"precision": "dd2", "nt_precision": "dd"}, NotImplementedError, "item 12"),
     ({"gemm_backend": "int8"}, NotImplementedError, "Not carried over"),
-    ({"profile_dir": "trace"}, NotImplementedError, "item 15"),
-    ({"timing": 2}, NotImplementedError, "item 15"),
     ({"assembly_precision": "f32", "precision": "dd"}, ValueError, "conflicts"),
     ({"chol_backend": "mixed"}, NotImplementedError, "Not carried over"),
 ])
@@ -166,6 +164,22 @@ def test_unported_options_raise(opts, exc, match):
     p = ltt.load_problem(str(DATA / "theta1.dat-s"), device="cpu")
     with pytest.raises(exc, match=match):
         ltt.Solver(p, dict(PORT_OPTS, **opts), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["profile_dir", "timing"])
+def test_item15_options_run(tmp_path, capsys, option):
+    """``profile_dir`` and ``timing=2`` raised NotImplementedError until ROADMAP
+    item 15 ported them; now they run (tests/test_torch_diagnostics.py holds
+    what they print and write)."""
+    opts = {"profile_dir": str(tmp_path)} if option == "profile_dir" else {"timing": 2, "verb": 1}
+    p = ltt.load_problem(str(DATA / "control1.dat-s"), device="cpu")
+    r = ltt.Solver(p, dict(PORT_OPTS, eDIMACS=1e-4, eigh_backend="xla", step_eig="exact",
+                           **opts), device="cpu").solve()
+    assert r.status == 1
+    if option == "profile_dir":
+        assert any(f.stat().st_size > 0 for f in tmp_path.glob("*.pt.trace.json"))
+    else:
+        assert "full fused step" in capsys.readouterr().out
 
 
 def test_unported_problems_raise():

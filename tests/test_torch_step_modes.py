@@ -34,7 +34,7 @@ import loraine_tpu as lt
 import loraine_tpu_torch as ltt
 from loraine_tpu.problem import problem_from_sdpa as jax_problem_from_sdpa
 from test_conformance import _check_kkt, _random_feasible_sdp
-from torch_cases import EXACT_MODES, assert_same_step, step_both
+from torch_cases import EXACT_MODES, assert_same_step, one_torch_thread, step_both  # noqa: F401
 
 DATA = pathlib.Path(__file__).parent / "data"
 THETA1 = str(DATA / "theta1.dat-s")
@@ -45,17 +45,7 @@ K1 = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
       "initpoint": 1, "verb": 0}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The eager Jacobi and Lanczos loops here are 10^4-10^5 tiny torch ops
-    each. With several test workers on one machine, torch's intra-op thread
-    pool turns every op into a contended barrier (a 3-iteration theta1
-    solve under 'jacobi': 1.5 s on one thread, 185 s on eight beside five
-    busy processes). One thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

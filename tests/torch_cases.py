@@ -1,5 +1,6 @@
 """Shared inputs of the tests/test_torch_*.py files (not a test module)."""
 import numpy as np
+import pytest
 
 from loraine_tpu_torch.io.sdpa import SDPAData
 
@@ -114,3 +115,88 @@ def assert_same_step(j, t, rtol=1e-10, atol=1e-13):
     for a, b in pairs:
         b = np.asarray(b)
         assert np.abs(a.numpy() - b).max() <= rtol * np.abs(b).max()
+
+
+def assert_same_problem(pt, pj):
+    """Every array of the port's problem ``pt`` equal to the JAX package's
+    ``pj`` (carried over by `convert.problem_from_numpy`)."""
+    import jax
+
+    from loraine_tpu_torch.convert import problem_from_numpy
+
+    ref = problem_from_numpy(jax.device_get(pj), device="cpu")
+    assert (pt.n, pt.nlin, pt.nlmi, pt.b_const, pt.sum_msizes) == \
+        (ref.n, ref.nlin, ref.nlmi, ref.b_const, ref.sum_msizes)
+    for name in ("b", "C_lin", "d_lin"):
+        a, r = getattr(pt, name), getattr(ref, name)
+        assert (a is None) == (r is None), name
+        assert a is None or np.array_equal(a.numpy(), r.numpy()), name
+    assert len(pt.groups) == len(ref.groups)
+    for g, gr in zip(pt.groups, ref.groups):
+        assert (g.m, g.nb, g.orig_sizes, g.orig_indices) == (gr.m, gr.nb, gr.orig_sizes,
+                                                             gr.orig_indices)
+        np.testing.assert_allclose(g.data_norms, gr.data_norms, rtol=1e-15)
+        np.testing.assert_allclose(g.C_norms, gr.C_norms, rtol=1e-15)
+        for name in ("C", "A", "B", "Bsgn", "Arows", "Acols", "Avals"):
+            a, r = getattr(g, name), getattr(gr, name)
+            assert (a is None) == (r is None), name
+            assert a is None or np.array_equal(a.numpy(), r.numpy()), name
+
+
+def jax_cpu_modes(problem) -> dict:
+    """The eigen and step modes the JAX package's CPU 'auto' resolves to for
+    ``problem`` (`loraine_tpu/ops/eigh.py:eigh_backend_for`,
+    `ipm/step.py:_bound_fns`): the eager f64 Jacobi below m = 192, the
+    library f32 seed with f64 refinement from there; exact eigenvalues for
+    the steplengths."""
+    m = max((g.m for g in problem.groups), default=0)
+    return {"eigh_backend": "jacobi" if m < 192 else "mixed", "step_eig": "exact"}
+
+
+class _PortOnCPU:
+    """The JAX package's API as its test suites call it (`problem_from_dense`,
+    `problem_from_sdpa`, `solve`, `solve_sdpa`), served by the port on the
+    CPU under the JAX CPU run's modes (`jax_cpu_modes`; an option the
+    caller sets wins). With it a port suite keeps the JAX suite's cases and
+    assertions word for word."""
+
+    @staticmethod
+    def problem_from_dense(*args, **kwargs):
+        import loraine_tpu_torch as ltt
+
+        return ltt.problem_from_dense(*args, device="cpu", **kwargs)
+
+    @staticmethod
+    def problem_from_sdpa(*args, **kwargs):
+        import loraine_tpu_torch as ltt
+
+        return ltt.problem_from_sdpa(*args, device="cpu", **kwargs)
+
+    @staticmethod
+    def solve(problem, options=None):
+        import loraine_tpu_torch as ltt
+
+        return ltt.solve(problem, {**jax_cpu_modes(problem), **(options or {})}, device="cpu")
+
+    @classmethod
+    def solve_sdpa(cls, path, options=None):
+        import loraine_tpu_torch as ltt
+
+        return cls.solve(ltt.load_problem(path, options, device="cpu"), options)
+
+
+PORT_CPU = _PortOnCPU()
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch on one thread for a module: its eager loops are 10^4-10^5 tiny
+    ops, and with several test workers on one machine torch's intra-op
+    pool turns each into a contended barrier (a conformance case: ~1 s on
+    one thread, 90-140 s on eight beside five busy workers)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
