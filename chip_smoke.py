@@ -148,10 +148,33 @@ Phases:
      --kit 0 --eDIMACS 1e-6 --initpoint 1 --json`` in a subprocess on the
      card: rc 0, OPTIMAL at 23.0.
 
+ 34. the ('blocks', 'schur') mesh (`parallel/`, one process per rank): the
+     seven gates of `parallel/dryrun.py` (the port of
+     `__graft_entry__.dryrun_multichip`) on the card, with 1 rank on NCCL
+     (mesh (1, 1): `initialize()` and the plumbing), then 2 and 4 ranks on
+     Gloo sharing the card (meshes (2, 1) / (1, 2) and (2, 2) / (1, 4)),
+     under the port's 'auto' modes (B1 and B2): each gate's sharded
+     objective within its tolerance of the single-rank one (tru3 also at
+     the SDPLIB value), the iterations, and each rank's B1/B2/B3 launches
+     in the sharded run; B1 and B2 must be non-zero on every rank, and B3
+     on every rank in kit=1 gate 2 (Hcg is gathered whole where the rows
+     are split, and the CG route is the single-card one).
+ 35. SDPLIB at full size on the schur axis, 2 ranks (1, 2) on the card:
+     maxG11 (n = 800, rank-1) with phase 4's options and tru9 (n = 3240,
+     sparse, LP cone: 26 panels of the distributed Cholesky over two
+     owners) with phase 11's: OPTIMAL, objectives within 1e-7 relative of
+     phases 4 and 11, iterations beside theirs; then one maxG11 step on
+     (1, 4) against one rank's (obj, dimacs, alpha, beta to 1e-8).
+ 36. the 2-process `initialize()` solve (tests/test_distributed.py's
+     problem, mesh (2, 1)) on the card through Gloo: OPTIMAL on both ranks,
+     objectives equal to 1e-12.
+     Gloo moves CUDA tensors through the host, and the ranks time-slice one
+     card: the wall times of phases 34-36 measure that, not NCCL scaling.
+
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
 15, 18-26, 28-33) runs with the launch counts set to 0 just before it and read
-just after, and fails if a kernel of its path was not launched (B1 and B2
+just after (phases 34-36: in each rank's own process, around its sharded run), and fails if a kernel of its path was not launched (B1 and B2
 in every precision-tier solve) or, in phases 22-24, if a Jacobi kernel ran
 where its mode does not resolve to it. The line before
 the last two is a JSON object with one entry per kernel; then the card's
@@ -1304,6 +1327,74 @@ def cli_phase() -> None:
     check(abs(payload["objective"] - THETA1_OPT) <= 1e-6 * THETA1_OPT, "CLI objective")
 
 
+def mesh_phases(f64_runs, maxg11_f64, card: str) -> None:
+    """Phases 34-36: the mesh through `parallel/dryrun.py`, every rank a
+    process of its own on the card. A failed rank or gate fails the
+    launch, and so the phase."""
+    from loraine_tpu_torch.parallel import dryrun
+    from loraine_tpu_torch.parallel.distributed import launch
+
+    def run(phase, nproc, backend, extra, timeout):
+        cmd = ["-m", "loraine_tpu_torch.parallel.dryrun", "--device", "cuda",
+               "--backend", backend, *extra]
+        t0 = time.perf_counter()
+        outs = launch(cmd, nproc, timeout=timeout)
+        wall = time.perf_counter() - t0
+        recs = dryrun.records(outs)
+        coll = [ln for out in outs for ln in out.splitlines() if ln.startswith("COLLECTIVES")]
+        check(len(coll) == nproc and all("device=cuda" in ln for ln in coll),
+              f"phase {phase}: all_reduce/broadcast on CUDA tensors not confirmed: {coll}")
+        if phase == 34:
+            print(f"phase 34 {nproc} rank(s) {backend}: {coll[0]}", flush=True)
+        for line in dryrun.summarize(recs):
+            print(f"phase {phase} {nproc} rank(s) {backend}: {line}", flush=True)
+        print(f"phase {phase} {nproc} rank(s) {backend}: wall {wall:.1f} s (launch and "
+              f"process start included) on '{card}'", flush=True)
+        for r in recs:
+            check(r["launches"][0] > 0 and r["launches"][1] > 0,
+                  f"phase {phase}: rank {r['rank']} launched B1/B2 {r['launches']} "
+                  f"in {r.get('case') or 'gate %d' % r['gate']}")
+        return recs
+
+    # ---- phase 34: the seven gates at 1 (NCCL), 2 and 4 ranks (Gloo)
+    for nproc, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
+        recs = run(34, nproc, backend, [], 600)
+        check(sorted((r["rank"], r["gate"]) for r in recs)
+              == [(k, g) for k in range(nproc) for g in range(1, 8)],
+              f"phase 34: gates missing at {nproc} ranks")
+        for r in recs:
+            check(r["rel"] <= dryrun.TOLS[r["gate"]], f"phase 34 gate {r['gate']} tolerance")
+            if r["gate"] == 2:  # the kit=1 gate: B3 on every mesh
+                check(r["launches"][2] > 0,
+                      f"phase 34 gate 2 on {r['mesh']}: B3 launches {r['launches'][2]}")
+        for g in range(1, 8):
+            secs = [round(r["seconds"], 3) for r in recs if r["gate"] == g]
+            print(f"phase 34 {nproc} rank(s) gate {g}: sharded run per rank {secs} s "
+                  f"on '{card}'", flush=True)
+
+    # ---- phase 35: maxG11 and tru9 on the (1, 2) mesh, one maxG11 step on (1, 4)
+    for name, opts, ref in (("maxG11", MAXG11_OPTS, maxg11_f64[0]),
+                            ("tru9", LARGE_KIT0, f64_runs["tru9"])):
+        recs = run(35, 2, "gloo", ["--case", f"sdplib:{name}", "--opts", json.dumps(opts)], 600)
+        for r in recs:
+            check(r["status"] == 1, f"phase 35 {name} rank {r['rank']} not OPTIMAL")
+            check(abs(r["sharded"] - ref.objective) <= 1e-7 * abs(ref.objective),
+                  f"phase 35 {name}: sharded {r['sharded']!r} != single card {ref.objective!r}")
+        print(f"phase 35 {name} (1, 2): obj {recs[0]['sharded']!r} it {recs[0]['iters'][0]} "
+              f"sharded {recs[0]['seconds']:.3f} s median_iter {recs[0]['median_iter_s']:.4f} s | "
+              f"single card: obj {ref.objective!r} it {ref.iterations} {ref.solve_time:.3f} s "
+              f"median_iter {float(np.median(ref.iteration_times)):.4f} s; on '{card}'",
+              flush=True)
+    run(35, 4, "gloo", ["--case", "sdplib:maxG11", "--step", "--opts", json.dumps(MAXG11_OPTS)],
+        600)
+
+    # ---- phase 36: the 2-process initialize() solve through Gloo
+    recs = run(36, 2, "gloo", ["--case", "two_process"], 300)
+    check(all(r["status"] == 1 for r in recs), "phase 36 not OPTIMAL")
+    objs = [r["sharded"] for r in recs]
+    check(abs(objs[0] - objs[1]) <= 1e-12 * abs(objs[0]), f"phase 36 objectives {objs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs one NVIDIA GPU",
@@ -1483,6 +1574,11 @@ def main() -> int:
     diagnostics_phase(launches, ltt, tj, tp, maxg11_f64, p_maxg11, card)
     cli_phase()
     print(f"phases 28-33 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phases 34-36: the mesh, each rank a process on this card
+    t0 = time.perf_counter()
+    mesh_phases(f64_runs, maxg11_f64, card)
+    print(f"phases 34-36 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     for key, kname, name, src, line in (

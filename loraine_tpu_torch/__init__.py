@@ -27,6 +27,14 @@ kernels' plain PyTorch versions on the CPU::
 Every entry point takes ``device=`` the same way: ``ltt.solve_json(path,
 opts, device="cpu")``, ``ltt.modeling.Model().solve(opts, device="cpu")``,
 ``ltt.load_state(path, device="cpu")``.
+
+`parallel/` runs the solve on a ('blocks', 'schur') mesh of ranks, one
+process each, over torch.distributed: ``distributed.initialize()``
+(backend 'nccl' across cards, 'gloo' for CPU ranks or ranks sharing one
+card), ``make_mesh``/``auto_mesh``, ``shard_problem``, then ``solve`` on
+every rank. ``python -m loraine_tpu_torch.parallel.dryrun --nproc 4
+--device cpu`` runs the mesh gates on Gloo CPU ranks. Precision 'dd' and
+'dd2' on a mesh raise NotImplementedError (ROADMAP item 14b).
 """
 from . import modeling
 from .config import DEFAULT_OPTIONS, Options

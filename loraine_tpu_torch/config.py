@@ -14,7 +14,18 @@ table of `utils/diagnostics.py` after the solve) and ``profile_dir`` (a
 `torch.profiler` trace of the solve loop written into that directory, CUDA
 activity included on a card). Still raising `NotImplementedError`:
 ``chol_backend='mixed'`` and ``gemm_backend='int8'`` (not carried over) and
-``nt_precision='dd'`` (item 12e).
+``nt_precision='dd'`` (item 12e), and ``precision`` 'dd'/'dd2' on a
+sharded problem (item 14b).
+
+On a ('blocks', 'schur') mesh (`parallel/`: one process per rank,
+`torch.distributed`; Gloo ranks on the CPU, ``python -m
+loraine_tpu_torch.parallel.dryrun --nproc 4 --device cpu``; on cards NCCL,
+one rank per card, or Gloo for ranks sharing one card) every option value
+above runs at precision 'f64'; 'dd' and 'dd2' raise (item 14b).
+On a mesh whose 'schur' axis splits H's rows the kit=0 Cholesky is the
+distributed blocked one (`ops/linalg.py`), and the kit=1 materialized
+route gathers Hcg whole on every rank and then follows ``cg_kernel`` as on
+one device.
 
 In the port 'pallas' means the hand-written Jacobi kernels of
 `ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto' resolves to them
@@ -186,9 +197,11 @@ _PORTED = {
 }
 
 
-def require_ported(o: Options) -> None:
+def require_ported(o: Options, mesh=None) -> None:
     """Raise NotImplementedError for an option value this port does not run
-    yet, naming the ROADMAP item that will port it."""
+    yet, naming the ROADMAP item that will port it. ``mesh``: the problem
+    is sharded (`parallel/mesh.py`), where the precision tiers do not run
+    yet."""
     for name, (ok, item) in _PORTED.items():
         v = getattr(o, name)
         if v not in ok:
@@ -196,6 +209,12 @@ def require_ported(o: Options) -> None:
                 f"{name}={v!r} is not ported to loraine_tpu_torch yet "
                 f"(runs: {list(ok)}); see ROADMAP.md {item}"
             )
+    if mesh is not None and o.precision != "f64":
+        raise NotImplementedError(
+            f"precision={o.precision!r} on a mesh is not ported to loraine_tpu_torch yet "
+            "(runs: 'f64'; the dd operators need the mesh's collectives on dd pairs); "
+            "see ROADMAP.md Queue A item 14b"
+        )
 
 
 def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:

@@ -3,7 +3,9 @@
 Two strategies matching the reference (`src/initial_point.jl:17-81`):
   initpoint = 0: X = I, S = n * I (n = number of variables), LP vars = 1.
   initpoint = 1: SDPT3-like norm-scaled identity start.
-Built on the host in numpy and moved to the problem's device once.
+Built on the host in numpy and moved to the problem's device once. On a
+sharded problem each rank builds its own blocks from the whole problem's
+norms (`BlockGroup.data_norms`/`C_norms` stay whole, `parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -39,10 +41,11 @@ def initial_point(problem: SDPProblem, opts: Options) -> IPMState:
             eps = np.ones((g.nb,))
             eta = np.full((g.nb,), float(n))
         else:
-            fro_A = np.asarray(g.data_norms)  # [nb], precomputed at build
+            own = slice(*g.shard.blocks) if g.shard is not None else slice(None)
+            fro_A = np.asarray(g.data_norms)[own]  # [nb], precomputed at build
             f = norm_b2 / (1.0 + fro_A)
             eps = np.sqrt(m) * np.maximum(1.0, np.sqrt(m) * f)
-            fro_C = np.asarray(g.C_norms)
+            fro_C = np.asarray(g.C_norms)[own]
             mf = np.maximum(f, fro_C)
             mf = (1.0 + mf) / np.sqrt(m)
             eta = np.sqrt(m) * np.maximum(1.0, mf)

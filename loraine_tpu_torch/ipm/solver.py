@@ -28,6 +28,14 @@ trace file in that directory: the port's counterparts of the JAX package's
 `profile_phases` re-timing and `jax.profiler.trace`
 (`loraine_tpu/ipm/solver.py:215-218, 390-392, 406-415`).
 
+On a sharded problem (`parallel/mesh.py`: every rank runs this loop on its
+own slice) the host reads every decision (status, the regularization
+count, the hybrid switch, the f32-assembly handover, the CG tolerance)
+from stats that rank 0 broadcast (`StepStats.to_host`), so the ranks never
+branch apart, and the `Result` carries the whole X and S on every rank, as
+the JAX package's process-allgather `_fetch` does
+(`loraine_tpu/ipm/solver.py:59-67`).
+
 Status codes (reference `src/MOI_wrapper.jl:252-265`):
   0 = not solved, 1 = optimal, 2 = (probably) infeasible,
   3 = (probably) unbounded or infeasible, 4 = iteration/numerics limit.
@@ -45,6 +53,7 @@ import numpy as np
 import torch
 
 from ..config import Options, require_ported
+from ..ops.schur import gather_blocks
 from ..problem import SDPProblem, problem_from_sdpa
 from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimer
@@ -123,8 +132,9 @@ class Solver:
         self.opts = _options(options)
         self.timer = PhaseTimer()
         self.initial_state = initial_state
+        self.mesh = problem.mesh  # set by `parallel.mesh.shard_problem`
         self._apply_auto_downgrades()
-        require_ported(self.opts)
+        require_ported(self.opts, self.mesh)
 
     def _apply_auto_downgrades(self) -> None:
         """kit auto-downgrades (`src/Solvers.jl:421-444`)."""
@@ -248,7 +258,7 @@ class Solver:
                 t0 = time.perf_counter()
                 with self.timer.phase("ipm step"):
                     state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
-                    stats_h = stats.to_host()  # waits for the step's device work
+                    stats_h = stats.to_host(self.mesh)  # waits for the step's device work
                     self._sync()
                 dt = time.perf_counter() - t0
                 it += 1
@@ -366,9 +376,9 @@ class Solver:
         Sb: List[Optional[np.ndarray]] = [None] * p.nlmi
         trCX = 0.0
         for g, Xg, Sg in zip(p.groups, state.X, state.S):
-            Xh = Xg.cpu().numpy()
-            Sh = Sg.cpu().numpy()
-            trCX += float(np.sum(g.C.cpu().numpy() * Xh))
+            Xh = gather_blocks(g, Xg).cpu().numpy()
+            Sh = gather_blocks(g, Sg).cpu().numpy()
+            trCX += float(np.sum(gather_blocks(g, g.C).cpu().numpy() * Xh))
             for bpos, (oidx, osize) in enumerate(zip(g.orig_indices, g.orig_sizes)):
                 Xb[oidx] = Xh[bpos, :osize, :osize]
                 Sb[oidx] = Sh[bpos, :osize, :osize]

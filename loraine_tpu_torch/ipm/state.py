@@ -54,14 +54,17 @@ class StepStats:
     cg_iter_pre: torch.Tensor  # int32: CG iterations of the predictor solve (kit=1)
     cg_iter_cor: torch.Tensor  # int32: CG iterations of the corrector solve
 
-    def to_host(self) -> dict:
+    def to_host(self, mesh=None) -> dict:
         """All fields as Python numbers, with ONE device-to-host transfer for
-        the tensor-valued ones."""
+        the tensor-valued ones. With a ``mesh`` (`parallel/mesh.py`) the
+        values are global rank 0's on every rank, so every rank's host loop
+        takes the same branch."""
         names = [f.name for f in dataclasses.fields(self)]
         tens = [n for n in names if isinstance(getattr(self, n), torch.Tensor)]
-        vals = torch.stack(
-            [getattr(self, n).to(torch.float64) for n in tens]
-        ).cpu().tolist()
+        vals = torch.stack([getattr(self, n).to(torch.float64) for n in tens])
+        if mesh is not None:
+            vals = mesh.agree(vals)
+        vals = vals.cpu().tolist()
         out = {n: getattr(self, n) for n in names if n not in tens}
         out.update(zip(tens, vals))
         out["nt_ok"] = bool(out["nt_ok"])

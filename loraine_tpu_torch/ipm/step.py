@@ -2,7 +2,8 @@
 branches of `loraine_tpu/ipm/step.py:build_step` at precision 'f64', 'dd'
 and 'dd2', LP cone included, under every ``step_eig``, ``eigh_backend``,
 ``nt_method`` and ``assembly_precision`` (the NT scaling stays f64: no
-native dd NT scaling, no sharding: ROADMAP.md Queue A items 12e, 14).
+native dd NT scaling, ROADMAP.md Queue A item 12e), on one device or, at
+'f64', on a ('blocks', 'schur') mesh.
 
 Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
 `check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
@@ -29,6 +30,22 @@ dense and LP data); everything else stays exact.
 
 Convergence-error convention (reference): err1/err3 use the residuals at
 the start of the iteration, err2/4/5/6 the updated iterate.
+
+On a sharded problem (`parallel/mesh.py`, precision 'f64') each rank steps
+its own blocks, and the step completes every reduction over a sharded axis:
+traces and DIMACS sums over 'blocks' (`ops/schur.py:bsum`), steplength
+minima and the NT flags min/max-reduced over 'blocks', the data operators'
+collectives inside `Aop`/`Aadj`. When 'schur' splits the rows, H stays in
+row shards through `chol_reg`, `tri_inv` and `cho_solve_inv` (`ops/
+linalg.py`, the distributed blocked factorization), and the kit=1
+materialized route gathers its Hcg whole on every rank once an iteration,
+then takes the unsharded CG route on it, B3/B4 on a card included (the
+JAX package keeps its Pallas CG off a sharded schur axis,
+`loraine_tpu/ipm/step.py:801-806`, because there Hcg stays sharded); the
+matrix-free route's matvec `Aop(W Aadj(x) W)` runs the operators'
+collectives. With the rows whole (a 'schur' axis of 1), H is replicated
+after the 'blocks' sum and every route is the unsharded one. Without a
+mesh every path is the unsharded one, op for op.
 
 precision='dd' (the stand-in for the reference's Float64xN solver,
 `README.md:37-54`): the residuals, the right-hand sides, the Schur matrix
@@ -61,8 +78,9 @@ from ..ops.nt_scaling import NTScaling, nt_scale
 from ..ops.ozaki import acc_matmul, acc_matvec
 from ..ops.pcg import cg_f64, pcg_kernel_ff, pcg_kernel_mixed
 from ..ops.precond import prep_alpha, prep_beta
-from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, lp_weight, schur_group, schur_group_dd,
-                         schur_group_mixed, schur_lp, schur_lp_dd, schur_lp_mixed)
+from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, bsum, lp_weight, schur_group,
+                         schur_group_dd, schur_group_mixed, schur_lp, schur_lp_dd,
+                         schur_lp_mixed)
 from ..problem import SDPProblem
 from .initial import EXPON, TAU
 from .state import IPMState, StepStats
@@ -321,14 +339,17 @@ def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
            mixed: bool = False) -> torch.Tensor:
     """The symmetrized Schur matrix H = sum over groups of schur_group, plus
     the LP block C_lin diag(lpw) C_lin^T; with ``mixed`` the f32 assembly
-    (`schur_group_mixed`, `schur_lp_mixed`)."""
+    (`schur_group_mixed`, `schur_lp_mixed`). When the rows are sharded,
+    this rank's rows [r0, r1) of H as assembled: the factorization reads
+    the lower triangle only, so no transpose is gathered to symmetrize."""
     group_fn, lp_fn = (schur_group_mixed, schur_lp_mixed) if mixed else (schur_group, schur_lp)
-    H = torch.zeros((problem.n, problem.n), dtype=problem.b.dtype, device=problem.device)
+    r0, r1 = problem.shard.rows if problem.rows_split else (0, problem.n)
+    H = torch.zeros((r1 - r0, problem.n), dtype=problem.b.dtype, device=problem.device)
     for g, nt in zip(problem.groups, nts):
         H = H + group_fn(g, nt.W, nt.G)
     if problem.nlin:
-        H = H + lp_fn(problem.C_lin, lpw)
-    return sym(H)
+        H = H + lp_fn(problem.C_lin, lpw, slice(r0, r1))
+    return H if problem.rows_split else sym(H)
 
 
 def _schur_dd(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
@@ -385,6 +406,11 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
     if mat_cg:
         Hcg = _schur(problem, nts, lpw, mixed)
+        if problem.rows_split:
+            # whole on every rank (n <= 512 under 'auto'): the CG below is
+            # the unsharded route, with no collective inside it
+            sh = problem.shard
+            Hcg = sym(sh.mesh.gather(Hcg, "schur", n, sh.rows[0]))
         matvec = lambda x: Hcg @ x  # noqa: E731
     else:
         def matvec(x):
@@ -525,8 +551,8 @@ def step(
         mu = dd_to_f64(tr_dd) / denom
     else:
         tr = zero
-        for X, S in zip(st.X, st.S):
-            tr = tr + btrace(X, S)
+        for g, X, S in zip(problem.groups, st.X, st.S):
+            tr = tr + bsum(g, btrace(X, S))
         if nlin:
             tr = tr + torch.dot(st.X_lin, st.S_lin)
         mu = tr / denom
@@ -541,6 +567,10 @@ def step(
     for nt in nts:
         nt_ok = nt_ok & nt.ok
         nt_suspect = nt_suspect | nt.shifted | nt.s_indef
+    mesh = problem.mesh
+    if mesh is not None:
+        nt_ok = mesh.reduce(nt_ok, "blocks", "min")
+        nt_suspect = mesh.reduce(nt_suspect, "blocks", "max")
     Si_lin_dd = lpw_dd = None
     if nlin and dd2:
         # Si = 1/S and lpw = X/S at dd resolution (`ipm/step.py:531-539`)
@@ -624,9 +654,10 @@ def step(
             H = Hs_dd.hi
         else:
             H = _schur(problem, nts, lpw, mixed_assembly)
-        hc = chol_reg(H, 1e-4, 1000)
+        rmesh = mesh if problem.rows_split else None
+        hc = chol_reg(H, 1e-4, 1000, mesh=rmesh)
         h_shifts, h_ok = hc.shifts, hc.ok
-        Hli = tri_inv(hc.L)
+        Hli = tri_inv(hc.L, mesh=rmesh)
         cg_pre = cg_cor = torch.zeros((), dtype=torch.int32, device=device)
 
         if dd_mode:
@@ -643,11 +674,16 @@ def step(
                     x, xlo = snew.hi, snew.lo + xlo
                 return DD(x, xlo), cg_pre
         else:
+            def Hmv(x):
+                if rmesh is None:
+                    return H @ x
+                return rmesh.gather(H @ x, "schur", problem.n, problem.shard.rows[0])
+
             def solve(rhs):
                 # one step of iterative refinement (the reference carries it
                 # commented out at src/predictor_corrector.jl:98-115)
-                x = cho_solve_inv(Hli, rhs)
-                return x + cho_solve_inv(Hli, rhs - H @ x), cg_pre
+                x = cho_solve_inv(Hli, rhs, rmesh)
+                return x + cho_solve_inv(Hli, rhs - Hmv(x), rmesh), cg_pre
     else:
         # the corrector re-solves with the same operator and preconditioner
         solve_f64 = _cg_solver(
@@ -694,12 +730,14 @@ def step(
     for d in dirs:
         alpha_min = torch.minimum(alpha_min, d.alpha.min())
         beta_min = torch.minimum(beta_min, d.beta.min())
+    if mesh is not None:
+        alpha_min, beta_min = mesh.reduce(torch.stack([alpha_min, beta_min]), "blocks", "min")
 
     # trial point + NT correction term (`find_step`,
     # src/predictor_corrector.jl:302-310)
     trXnSn_mat = zero
     RNTs = []
-    for gi, (nt, d, X, S) in enumerate(zip(nts, dirs, st.X, st.S)):
+    for gi, (g, nt, d, X, S) in enumerate(zip(problem.groups, nts, dirs, st.X, st.S)):
         if dd2:
             # the trial trace in dd: at mu ~ 1e-18 the f64 product noise
             # would swamp it
@@ -710,7 +748,7 @@ def step(
         else:
             Xn = X + d.alpha[:, None, None] * d.delX
             Sn = S + d.beta[:, None, None] * d.delS
-            trXnSn_mat = trXnSn_mat + btrace(Xn, Sn)
+            trXnSn_mat = trXnSn_mat + bsum(g, btrace(Xn, Sn))
         deed = nt.D[:, :, None] + nt.D[:, None, :]
         N = nt.Gi @ d.delX @ d.delS @ nt.G
         RNTs.append(-(N + N.mT) / deed)
@@ -813,6 +851,8 @@ def step(
     for d in dirs2:
         amin = torch.minimum(amin, d.alpha.min())
         bmin = torch.minimum(bmin, d.beta.min())
+    if mesh is not None:
+        amin, bmin = mesh.reduce(torch.stack([amin, bmin]), "blocks", "min")
 
     Xl_new_dd = Sl_new_dd = None
     if dd2:
@@ -858,11 +898,18 @@ def step(
         normC = torch.sqrt((g.C**2).sum((-1, -2)))  # [nb]
         viol = _psd_violation(torch.cat([X, S], dim=0), nt_suspect, cert_mode)
         violX, violS = viol[: X.shape[0]], viol[X.shape[0] :]
-        err2 = err2 + (violX / (1.0 + normb)).sum()
-        err3 = err3 + (torch.sqrt((Rd**2).sum((-1, -2))) / (1.0 + normC)).sum()
-        err4 = err4 + (violS / (1.0 + normC)).sum()
         CX = (g.C * X).sum((-1, -2))
-        trCX = trCX + CX.sum()
+        # the group's block sums, completed over 'blocks' in one all-reduce
+        e234c = bsum(g, torch.stack([
+            (violX / (1.0 + normb)).sum(),
+            (torch.sqrt((Rd**2).sum((-1, -2))) / (1.0 + normC)).sum(),
+            (violS / (1.0 + normC)).sum(),
+            CX.sum(),
+        ]))
+        err2 = err2 + e234c[0]
+        err3 = err3 + e234c[1]
+        err4 = err4 + e234c[2]
+        trCX = trCX + e234c[3]
         if dd_mode:
             t = _trace_dot_dd(g.C, X)
             if dd2:
@@ -880,7 +927,7 @@ def step(
             SX = t.hi + (t.lo + cross)
         else:
             SX = (S * X).sum((-1, -2))
-        err6 = err6 + (SX / (1.0 + CX.abs() + by.abs())).sum()
+        err6 = err6 + bsum(g, (SX / (1.0 + CX.abs() + by.abs())).sum())
     if nlin:
         dX = torch.dot(problem.d_lin, X_lin_new)
         normd = torch.linalg.norm(problem.d_lin)

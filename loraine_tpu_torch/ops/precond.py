@@ -15,6 +15,11 @@ matrix V^T AAAATtau^{-1} V + I (`AlphaPrecond.apply_with`), or, materialized,
 as the inverse Cholesky factor of the n x n matrix AAAATtau + V V^T
 (`AlphaPrecondDense`).
 
+On a sharded problem (`parallel/mesh.py`) each rank computes the W
+eigendecompositions and V's entries of its own blocks and rows; the sums
+over blocks are all-reduced and V is gathered whole, so the
+preconditioner itself (Mli, or the SMW factor) is replicated.
+
 The eigendecompositions of W follow ``eigh_backend`` as in the JAX package's
 `_eigh` (`loraine_tpu/ops/precond.py:37-43`): 'jacobi' is `eigh_jacobi`,
 'mixed' `eigh_mixed` with the library's f32 seed, and 'xla' and 'pallas'
@@ -31,7 +36,7 @@ from ..problem import SDPProblem
 from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
 from .linalg import chol_reg, cho_solve, eigh_or_nan, sym, tri_inv
 from .nt_scaling import NTScaling
-from .schur import Aadj, Aop
+from .schur import Aadj, Aop, bsum, gather_blocks, gather_rows
 
 __all__ = [
     "BetaPrecond", "AlphaPrecond", "AlphaPrecondDense", "prep_beta",
@@ -77,7 +82,7 @@ def prep_beta(
     for g, nt in zip(problem.groups, nts):
         k = min(erank, g.m - 1)
         lam, _ = _eigh(nt.W, eigh_backend)  # [nb, m] ascending
-        s = s + (_ttau(lam[:, : g.m - k], aamat) ** 2).sum()
+        s = s + bsum(g, (_ttau(lam[:, : g.m - k], aamat) ** 2).sum())
     diag = torch.ones_like(problem.b) * s
     if problem.nlin > 0:
         diag = diag + problem.C_lin**2 @ lpw
@@ -90,7 +95,7 @@ class AlphaPrecond(NamedTuple):
     cholS: torch.Tensor  # [sizeS, sizeS] lower factor of the SMW matrix + I
     diag_scalar: torch.Tensor  # sum_i ttau_i^2
     lp_chol: Optional[torch.Tensor]  # lower factor of AAAATtau when nlin > 0
-    groups_meta: Tuple[Tuple[int, int, int], ...]  # (nb, k, m) per group
+    groups_meta: Tuple[Tuple[int, int, int], ...]  # (nb, k, m) per group, nb whole
 
     def _solve_tau(self, x: torch.Tensor) -> torch.Tensor:
         if self.lp_chol is not None:
@@ -104,13 +109,16 @@ class AlphaPrecond(NamedTuple):
         segs: List[torch.Tensor] = []
         for g, U, Z in zip(problem.groups, self.U, self.Z):
             M22 = Aadj(g, v)  # [nb, m, m], symmetric
-            segs.append(torch.einsum("bpq,bpr,brl->blq", Z, M22, U).reshape(-1))
+            seg = torch.einsum("bpq,bpr,brl->blq", Z, M22, U)
+            segs.append(gather_blocks(g, seg).reshape(-1))
         y = cho_solve(self.cholS, torch.cat(segs))
         yy2 = torch.zeros_like(x)
         off = 0
         for g, U, Z, (nb, k, m) in zip(problem.groups, self.U, self.Z, self.groups_meta):
             seg = y[off : off + nb * k * m].reshape(nb, k, m)
             off += nb * k * m
+            if g.shard is not None and g.shard.split_blocks:
+                seg = seg[g.shard.blocks[0] : g.shard.blocks[1]]
             Mrec = torch.einsum("bpq,blq,brl->bpr", Z, seg, U)  # Z Y U^T
             yy2 = yy2 + Aop(g, sym(Mrec))
         return v - self._solve_tau(yy2)
@@ -155,8 +163,8 @@ def prep_alpha(
         Z = chol_reg(sym((V * dz[:, None, :]) @ V.mT), 1e-10, 50).L
         Us.append(U)
         Zs.append(Z)
-        meta.append((g.nb, k, m))
-        s = s + (tt**2).sum()
+        meta.append((len(g.orig_indices), k, m))
+        s = s + bsum(g, (tt**2).sum())
 
     # AAAATtau = s I + C_lin diag(lpw) C_lin^T (dense when nlin > 0)
     lp_tau = None
@@ -179,7 +187,8 @@ def prep_alpha(
         else:
             AU = torch.einsum("bjpr,brl->bjpl", g.A, U)
             t_g = torch.einsum("bpq,bjpl->jblq", Z, AU)
-        tcols.append(t_g.reshape(n, -1))
+        # V whole on every rank: its rows gathered, then its blocks
+        tcols.append(gather_blocks(g, gather_rows(g, t_g), 1).reshape(n, -1))
     t = torch.cat(tcols, dim=1)  # [n, sizeS]
     if materialize:
         M = s * torch.eye(n, dtype=t.dtype, device=t.device) if lp_tau is None else lp_tau

@@ -22,6 +22,17 @@ the per-cell layout `problem.AdjLayout` (gathers and fixed-shape sums, then
 a collision-free placement), so its result is the same bit for bit from run
 to run on a card, where a scatter-add would be float atomics.
 
+On a problem sharded by `parallel.mesh.shard_problem` (``group.shard``
+set) each group holds its own blocks and constraint rows, and the
+operators call the mesh's collectives where they contract a sharded axis
+(`loraine_tpu/parallel/mesh.py`): `Aop` sums its blocks over 'blocks' and
+gathers its rows over 'schur'; `Aadj` takes its rows of y and all-reduces
+its partial sum over 'schur'; `schur_group` returns this rank's rows of
+H, summed over 'blocks', from its own rows against the column operand that
+`shard_problem` placed whole once (`Shard.cols`: A for dense data, B and
+Bsgn for rank-1, the COO for sparse).
+Without a shard every path is the unsharded one, op for op.
+
 The double-double counterparts for precision 'dd'/'dd2' (`Aop_dd`,
 `Aadj_dd`, `schur_group_dd` with `_schur_sparse_dd`, `schur_lp_dd`) run
 every GEMM as an Ozaki-sliced exact product (`ops/ozaki.py`) and every
@@ -30,7 +41,7 @@ each cell's entries in dd over the same two-level layout.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,16 +49,47 @@ from ..problem import BlockGroup
 from .dd import DD, dd_add, dd_sum, two_prod, two_sum
 from .ozaki import acc_matmul, acc_matvec
 
-__all__ = ["Aop", "Aadj", "schur_group", "schur_group_mixed", "lp_weight", "schur_lp",
-           "schur_lp_mixed", "Aop_dd", "Aadj_dd", "schur_group_dd", "schur_lp_dd"]
+__all__ = ["bsum", "gather_rows", "gather_blocks", "Aop", "Aadj", "schur_group",
+           "schur_group_mixed", "lp_weight", "schur_lp", "schur_lp_mixed", "Aop_dd", "Aadj_dd",
+           "schur_group_dd", "schur_lp_dd"]
 
 # above this many elements of the [nb, n, m, m] temporary T = W A W the
 # dense assembly runs in constraint chunks (`schur.py:173`)
 _DENSE_CHUNK_ELEMS = 1 << 24
 
 
+def bsum(group: BlockGroup, x: torch.Tensor) -> torch.Tensor:
+    """A sum over the group's blocks, completed over the mesh's 'blocks'
+    axis when the group's blocks are sharded (identity otherwise)."""
+    sh = group.shard
+    return sh.mesh.reduce(x, "blocks") if sh is not None and sh.split_blocks else x
+
+
+def gather_rows(group: BlockGroup, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The whole constraint axis ``dim`` of ``x`` from this rank's rows
+    (identity when the rows are not sharded)."""
+    sh = group.shard
+    if sh is None or not sh.split_rows:
+        return x
+    r0, r1 = sh.rows
+    return sh.mesh.gather(x, "schur", (r1 - r0) * sh.mesh.shape["schur"], r0, dim)
+
+
+def gather_blocks(group: BlockGroup, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The group's whole block axis ``dim`` of ``x`` from this rank's blocks
+    (identity when the blocks are not sharded)."""
+    sh = group.shard
+    if sh is None or not sh.split_blocks:
+        return x
+    return sh.mesh.gather(x, "blocks", len(group.orig_indices), sh.blocks[0], dim)
+
+
 def Aop(group: BlockGroup, X: torch.Tensor) -> torch.Tensor:
     """[n] <- sum over the group's blocks of <A_j, X_b>."""
+    return gather_rows(group, bsum(group, _aop_local(group, X)))
+
+
+def _aop_local(group: BlockGroup, X: torch.Tensor) -> torch.Tensor:
     if group.is_rank1:
         vals = ((group.B @ X) * group.B).sum(-1)  # [nb, n]
         return (group.Bsgn * vals).sum(0)
@@ -61,6 +103,14 @@ def Aop(group: BlockGroup, X: torch.Tensor) -> torch.Tensor:
 
 def Aadj(group: BlockGroup, y: torch.Tensor) -> torch.Tensor:
     """[nb, m, m] <- sum_j y_j A_j per block."""
+    sh = group.shard
+    if sh is not None and sh.split_rows:
+        out = _aadj_local(group, y[sh.rows[0] : sh.rows[1]])
+        return sh.mesh.reduce(out, "schur")
+    return _aadj_local(group, y)
+
+
+def _aadj_local(group: BlockGroup, y: torch.Tensor) -> torch.Tensor:
     if group.is_rank1:
         w = group.Bsgn * y[None, :]  # [nb, n]
         return (group.B * w[:, :, None]).mT @ group.B
@@ -70,33 +120,49 @@ def Aadj(group: BlockGroup, y: torch.Tensor) -> torch.Tensor:
     return torch.einsum("j,bjx->bx", y, group.A.reshape(nb, n, m * m)).reshape(nb, m, m)
 
 
+def _cols(group: BlockGroup, *own: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The column operand of the group's rows of H: the group's own tensors
+    ``own``, or, where its rows are sharded, the same data whole over the
+    rows (`Shard.cols`)."""
+    sh = group.shard
+    return sh.cols if sh is not None and sh.split_rows else own
+
+
 def schur_group(group: BlockGroup, W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """[n, n] <- this group's contribution to H."""
+    """[n, n] <- this group's contribution to H; on a sharded group this
+    rank's rows [r0, r1) of it, its own rows against the whole column
+    operand."""
     if group.is_rank1:
+        Bk, sgnk = _cols(group, group.B, group.Bsgn)
         BG = group.B @ G  # [nb, n, m]
-        P = BG @ BG.mT  # [nb, n, n]
+        P = BG @ (BG if Bk is group.B else Bk @ G).mT  # [nb, n, n]
         sgn = group.Bsgn
-        return ((sgn[:, :, None] * sgn[:, None, :]) * P * P).sum(0)
-    if group.is_sparse:
-        return _schur_sparse(group, W)
-    nb, n, m, _ = group.A.shape
-    if nb * n * m * m > _DENSE_CHUNK_ELEMS:
-        return _schur_dense_chunked(group, W)
-    T = W[:, None] @ group.A @ W[:, None]  # [nb, n, m, m]
-    return torch.einsum("bjx,bkx->jk", group.A.reshape(nb, n, m * m), T.reshape(nb, n, m * m))
+        H = ((sgn[:, :, None] * sgnk[:, None, :]) * P * P).sum(0)
+    elif group.is_sparse:
+        H = _schur_sparse(group, W)
+    else:
+        nb, n, m, _ = group.A.shape
+        (Ak,) = _cols(group, group.A)
+        if Ak is not group.A or nb * n * m * m > _DENSE_CHUNK_ELEMS:
+            H = _dense_rows(group.A, Ak, W)
+        else:
+            T = W[:, None] @ group.A @ W[:, None]  # [nb, n, m, m]
+            H = torch.einsum("bjx,bkx->jk", group.A.reshape(nb, n, m * m),
+                             T.reshape(nb, n, m * m))
+    return bsum(group, H)
 
 
-def _schur_dense_chunked(group: BlockGroup, W: torch.Tensor) -> torch.Tensor:
-    """Dense Schur contribution with the constraint axis processed in chunks
-    of J (`schur.py:_schur_dense_chunked`): H rows [J, n] per chunk from
-    T_chunk = W A_chunk W flattened against the full data stack. Same cost,
-    peak temporary O(J m^2) instead of O(n m^2)."""
-    nb, n, m, _ = group.A.shape
+def _dense_rows(A_rows: torch.Tensor, A_all: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Dense Schur rows <W A_j W, A_k> for the constraints j of ``A_rows``
+    against every k of ``A_all`` (`schur.py:_schur_dense_chunked`), in
+    chunks of J = min(n, max(8, 2^22 // (nb m^2))) constraints (the JAX
+    package's rule): peak temporary O(J m^2) instead of O(n m^2)."""
+    nb, n, m, _ = A_all.shape
     J = int(min(n, max(8, (1 << 22) // max(1, nb * m * m))))
-    Aflat = group.A.movedim(1, 0).reshape(n, nb * m * m)
+    Aflat = A_all.movedim(1, 0).reshape(n, nb * m * m)
     rows = []
-    for j0 in range(0, n, J):
-        T = W[:, None] @ group.A[:, j0 : j0 + J] @ W[:, None]  # [nb, J, m, m]
+    for j0 in range(0, A_rows.shape[1], J):
+        T = W[:, None] @ A_rows[:, j0 : j0 + J] @ W[:, None]  # [nb, J, m, m]
         rows.append(T.movedim(1, 0).reshape(T.shape[1], nb * m * m) @ Aflat.T)
     return torch.cat(rows, dim=0)
 
@@ -113,16 +179,11 @@ def schur_group_mixed(group: BlockGroup, W: torch.Tensor, G: torch.Tensor) -> to
     relative (f32 accumulation)."""
     if group.is_rank1 or group.is_sparse:
         return schur_group(group, W, G)
-    nb, n, m, _ = group.A.shape
-    J = int(min(n, max(8, (1 << 22) // max(1, nb * m * m))))
-    W32 = W.to(torch.float32)[:, None]
+    (Ak,) = _cols(group, group.A)
     A32 = group.A.to(torch.float32)
-    Aflat = A32.movedim(1, 0).reshape(n, nb * m * m)
-    rows = []
-    for j0 in range(0, n, J):
-        T = W32 @ A32[:, j0 : j0 + J] @ W32  # [nb, J, m, m]
-        rows.append(T.movedim(1, 0).reshape(T.shape[1], nb * m * m) @ Aflat.T)
-    return torch.cat(rows, dim=0).to(W.dtype)
+    A32k = A32 if Ak is group.A else Ak.to(torch.float32)
+    H = _dense_rows(A32, A32k, W.to(torch.float32)).to(W.dtype)
+    return bsum(group, H)
 
 
 def _aadj_sparse(group: BlockGroup, y: torch.Tensor) -> torch.Tensor:
@@ -144,20 +205,22 @@ def _schur_sparse(group: BlockGroup, W: torch.Tensor) -> torch.Tensor:
         H[j, k] = <A_k, T_j> = sum_u v_u T_j[r_u, c_u]    (gather + reduce)
 
     in chunks of J constraints, with the JAX package's chunk rule so the
-    gathered [nb, J, n, s] tensor stays near 2^25 elements."""
-    nb, n, s = group.Avals.shape
+    gathered [nb, J, n, s] tensor stays near 2^25 elements. The rows j are
+    the group's own, the k run over its column operand (`_cols`)."""
+    rows_k, cols_k, vals_k = _cols(group, group.Arows, group.Acols, group.Avals)
+    nb, n, s = vals_k.shape
     m = group.m
     J = int(min(n, max(8, (1 << 25) // max(1, nb * n * s))))
-    flatk = (group.Arows * m + group.Acols).reshape(nb, 1, n * s)
+    flatk = (rows_k * m + cols_k).reshape(nb, 1, n * s)
     bidx = torch.arange(nb, device=W.device)[:, None, None]
     rows = []
-    for j0 in range(0, n, J):
+    for j0 in range(0, group.Avals.shape[1], J):
         r_c, c_c = group.Arows[:, j0 : j0 + J], group.Acols[:, j0 : j0 + J]
         v_c = group.Avals[:, j0 : j0 + J]
         Wa, Wc = W[bidx, r_c], W[bidx, c_c]  # [nb, J, s, m] (W symmetric)
         T2 = ((Wa * v_c[..., None]).mT @ Wc).reshape(nb, -1, m * m)
         G = torch.gather(T2, 2, flatk.expand(nb, T2.shape[1], n * s))
-        rows.append(torch.einsum("bjks,bks->jk", G.reshape(nb, -1, n, s), group.Avals))
+        rows.append(torch.einsum("bjks,bks->jk", G.reshape(nb, -1, n, s), vals_k))
     return torch.cat(rows, dim=0)
 
 
@@ -165,15 +228,16 @@ def lp_weight(X_lin: torch.Tensor, S_lin_inv: torch.Tensor) -> torch.Tensor:
     return X_lin * S_lin_inv
 
 
-def schur_lp(C_lin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[n, n] <- C_lin diag(w) C_lin^T."""
-    return (C_lin * w[None, :]) @ C_lin.T
+def schur_lp(C_lin: torch.Tensor, w: torch.Tensor, rows: slice = slice(None)) -> torch.Tensor:
+    """[n, n] <- C_lin diag(w) C_lin^T; its ``rows`` only when given (the
+    LP data is replicated on a mesh)."""
+    return (C_lin[rows] * w[None, :]) @ C_lin.T
 
 
-def schur_lp_mixed(C_lin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def schur_lp_mixed(C_lin: torch.Tensor, w: torch.Tensor, rows: slice = slice(None)) -> torch.Tensor:
     """The LP block with its GEMM in f32 (`loraine_tpu/ops/schur.py:451-456`):
     the weighting C_lin diag(w) in C_lin.dtype, then cast."""
-    Cw = (C_lin * w[None, :]).to(torch.float32)
+    Cw = (C_lin[rows] * w[None, :]).to(torch.float32)
     return (Cw @ C_lin.T.to(torch.float32)).to(C_lin.dtype)
 
 

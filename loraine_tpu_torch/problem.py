@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from .utils.device import resolve_device
 __all__ = [
     "AdjLayout",
     "BlockGroup",
+    "Shard",
     "SDPProblem",
     "problem_from_dense",
     "problem_from_dict",
@@ -68,6 +69,22 @@ class AdjLayout(NamedTuple):
     cells: torch.Tensor
 
 
+class Shard(NamedTuple):
+    """Where this rank's slice of a problem sharded by
+    `parallel.mesh.shard_problem` lies. On `SDPProblem` only the rows are
+    set; on a `BlockGroup` the blocks too."""
+
+    mesh: Any  # parallel.mesh.Mesh
+    rows: Tuple[int, int]  # [r0, r1) of the constraint axis held here
+    split_rows: bool  # rows sharded over the mesh's 'schur' axis
+    blocks: Tuple[int, int] = (0, 0)  # [b0, b1) of the group's stacked blocks
+    split_blocks: bool = False  # blocks sharded over the 'blocks' axis
+    # the column operand of this rank's rows of H, whole over the
+    # constraint axis (its own blocks), placed once where the rows are
+    # split: (A,) dense, (B, Bsgn) rank-1, (Arows, Acols, Avals) sparse
+    cols: Tuple[torch.Tensor, ...] = ()
+
+
 @dataclasses.dataclass
 class BlockGroup:
     """A bucket of equally-(padded-)sized LMI blocks, stacked on axis 0.
@@ -82,6 +99,11 @@ class BlockGroup:
 
     ``orig_indices[b]`` is the position of stacked block b in the user's
     original block ordering (bucketing permutes blocks).
+
+    Sharded (``shard`` set, `parallel/mesh.py`): the tensors hold this
+    rank's blocks ``shard.blocks`` and constraint rows ``shard.rows``
+    (``adj`` indexes the local rows), ``nb`` counts the local blocks, and
+    the host-side tuples (sizes, indices, norms) stay whole.
     """
 
     C: torch.Tensor  # [nb, m, m]
@@ -100,6 +122,7 @@ class BlockGroup:
     Acols: Optional[torch.Tensor] = None  # [nb, n, s] int64
     Avals: Optional[torch.Tensor] = None  # [nb, n, s]
     adj: Optional[AdjLayout] = None
+    shard: Optional[Shard] = None
 
     @property
     def is_rank1(self) -> bool:
@@ -121,10 +144,23 @@ class SDPProblem:
     nlmi: int  # number of LMI blocks (sum of group nb)
     b_const: float
     sum_msizes: int  # sum of padded block sizes (mu normalization)
+    # this rank's slice of a sharded problem (`parallel/mesh.py`): n, nlmi
+    # and sum_msizes stay global, b and the LP data are replicated
+    shard: Optional[Shard] = None
 
     @property
     def device(self) -> torch.device:
         return self.b.device
+
+    @property
+    def mesh(self):
+        """The mesh a sharded problem lies on, or None."""
+        return None if self.shard is None else self.shard.mesh
+
+    @property
+    def rows_split(self) -> bool:
+        """Whether the constraint axis (H's rows) is sharded."""
+        return self.shard is not None and self.shard.split_rows
 
 
 # ---------------------------------------------------------------------------

@@ -106,7 +106,7 @@ def test_schur_dense_chunked_matches_unchunked(problems):
     g = pt.groups[0]
     W = torch.from_numpy(spd(np.random.default_rng(8), g.nb, g.m))
     full = tschur.schur_group(g, W, W)
-    chunked = tschur._schur_dense_chunked(g, W)
+    chunked = tschur._dense_rows(g.A, g.A, W)
     assert rel(chunked.numpy(), full.numpy()) < 1e-12
 
 
