@@ -170,11 +170,39 @@ Phases:
      objectives equal to 1e-12.
      Gloo moves CUDA tensors through the host, and the ranks time-slice one
      card: the wall times of phases 34-36 measure that, not NCCL scaling.
+ 37. the precision tiers on the mesh (ROADMAP item 14b), 2 Gloo ranks on
+     the card: theta1 'dd2' (phase 19's options) and tru3 'dd2' on sparse
+     storage, both on (1, 2) (the schur axis: theta1's 104 and tru3's 36
+     rows split; tru3 has one LMI block, so a blocks axis would replicate
+     it): the status and iterations of phase 19's unsharded runs, the
+     objective within 1e-12 relative, phase 19's floors (err1 < 1e-18;
+     err3 < 1e-15 theta1, < 1e-18 tru3); ms per iteration and B1/B2
+     launches per rank.
+ 38. the native dd NT scaling, nt_precision='dd' (ROADMAP item 12e):
+     (a) tests/test_precision.py::test_dd_nt_e2e_cpu's problem (m = 8,
+     n = 10, seed 5) solved whole at 'dd2': OPTIMAL, DIMACS < 1e-12,
+     err1 < 1e-18; (b) one `nt_scale_dd` at theta1's width (m = 50, padded
+     to 56) on phase 19's last dd2 iterate: ms (CUDA events), device
+     launches (torch.profiler, traces of 0 and 1 Jacobi sweeps), dd_ok, W S W = X to 1e-29 of the terms it
+     cancels (||W||^2 ||S||; the f64 scaling's error beside it), D within
+     1e-14 relative of the port's CPU run on the same iterate;
+     (c) two theta1 'dd2' steps under nt_precision='dd' from phase 19's
+     iterate 14 (`LATE`; a step from the last iterate loses the err1
+     floor under either NT scaling, in both packages), each gated on
+     err1 < 1e-18 and so is the residual after the second, with DIMACS
+     and seconds; (d) the one-step cases of the tiers on the mesh
+     (`parallel/dryrun.py` `DD_STEPS`: dd, dd2, dd2 kit=1, sparse, rank-1
+     and LP data, the dd NT scaling from a late iterate, and with one
+     block indefinite, where every rank must take the f64 fallback) on
+     (2, 1) Gloo ranks (the blocks split) against one rank's, at
+     tests/test_parallel.py's dd2 tolerances.
+ 39. the examples: each examples/torch_*.py run in this process with
+     ``--device cuda`` (its own asserts, those of its JAX twin).
 
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
-15, 18-26, 28-33) runs with the launch counts set to 0 just before it and read
-just after (phases 34-36: in each rank's own process, around its sharded run), and fails if a kernel of its path was not launched (B1 and B2
+15, 18-26, 28-33, 38) runs with the launch counts set to 0 just before it and read
+just after (phases 34-37: in each rank's own process, around its sharded run), and fails if a kernel of its path was not launched (B1 and B2
 in every precision-tier solve) or, in phases 22-24, if a Jacobi kernel ran
 where its mode does not resolve to it. The line before
 the last two is a JSON object with one entry per kernel; then the card's
@@ -202,6 +230,9 @@ TRU9 = "tests/data/tru9.dat-s"
 VIB9 = "tests/data/vib9.dat-s"
 THETAG11 = "tests/data/thetaG11.dat-s"
 THETA1_OPT = 23.0  # SDPLIB optimum
+# phase 38(c): the dd NT scaling's steps start from phase 19's theta1 iterate
+# after this many iterations (of its 17)
+LATE = 14
 MAXG11_OPT = 629.1648  # SDPLIB optimum
 CONTROL1_OPT = 17.78463  # SDPLIB optimum
 # the JAX package on the CPU: objective, iterations (results_cpu_r2.jsonl)
@@ -826,9 +857,10 @@ def tier_line(label: str, r) -> str:
     return solve_line(label, r) + f" obj-dual={r.objective - r.dual_objective:.2e} {errs}"
 
 
-def precision_tiers(launches, ltt, maxg11_f64) -> None:
+def precision_tiers(launches, ltt, maxg11_f64) -> dict:
     """Phases 18-21: the precision tiers end to end on the card, with the
-    options of tests/test_precision.py (kept in `utils/profiling.py`)."""
+    options of tests/test_precision.py (kept in `utils/profiling.py`).
+    Returns phase 19's theta1 and tru3 runs (phases 37-38 start from them)."""
     from loraine_tpu_torch.utils.profiling import (CASES, CG_DD, CG_DD2, DD, DD2, lp_synthetic,
                                                    tru3_sparse)
 
@@ -846,6 +878,7 @@ def precision_tiers(launches, ltt, maxg11_f64) -> None:
     # ---- phase 19: dd2 floors (theta1 dense, tru3 forced sparse, LP)
     r = launches.run("phase 19 (theta1 dd2)", ("B1", "B2"),
                      lambda: ltt.solve_sdpa(THETA1, DD2, device="cuda"))
+    phase19 = {"theta1": r}
     print(tier_line("19 theta1 dd2 cuda", r), flush=True)
     check(r.status == 1 and abs(r.objective - THETA1_OPT) < 1e-9, "theta1 dd2")
     check(r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-15, "theta1 dd2 residual floors")
@@ -854,6 +887,7 @@ def precision_tiers(launches, ltt, maxg11_f64) -> None:
     check(all(g.is_sparse for g in p.groups), "tru3 not sparse")
     r = launches.run("phase 19 (tru3 sparse dd2)", ("B1", "B2"),
                      lambda: ltt.solve(p, tru3_dd2, device="cuda"))
+    phase19["tru3"] = r
     print(tier_line("19 tru3 sparse dd2 cuda", r), flush=True)
     check(r.status == 1 and abs(r.objective - 0.0625018) < 1e-5, "tru3 sparse dd2")
     check(r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-18, "tru3 sparse dd2 residual floors")
@@ -882,6 +916,7 @@ def precision_tiers(launches, ltt, maxg11_f64) -> None:
           f"{r.solve_time:.3f} vs {r64.solve_time:.3f} s, median_iter_ms {med:.2f} vs {med64:.2f} "
           f"(ratio {med / med64:.2f}), peak_mem_MiB {peak:.1f} vs {peak64:.1f}", flush=True)
     check(abs(r.objective - MAXG11_REF[0]) <= 1e-6 * MAXG11_REF[0], "maxG11 dd objective")
+    return phase19
 
 
 def jacobi_launched(launches) -> dict:
@@ -1327,34 +1362,43 @@ def cli_phase() -> None:
     check(abs(payload["objective"] - THETA1_OPT) <= 1e-6 * THETA1_OPT, "CLI objective")
 
 
-def mesh_phases(f64_runs, maxg11_f64, card: str) -> None:
-    """Phases 34-36: the mesh through `parallel/dryrun.py`, every rank a
-    process of its own on the card. A failed rank or gate fails the
-    launch, and so the phase."""
+def mesh_run(phase, nproc, backend, extra, timeout, card: str) -> list:
+    """`parallel/dryrun.py` with ``extra`` at ``nproc`` ranks on the card,
+    every rank a process of its own: its summary lines, and every rank's
+    records. A failed rank or gate fails the launch, and so the phase; so
+    does a rank that launched no B1 or no B2."""
     from loraine_tpu_torch.parallel import dryrun
     from loraine_tpu_torch.parallel.distributed import launch
 
+    cmd = ["-m", "loraine_tpu_torch.parallel.dryrun", "--device", "cuda",
+           "--backend", backend, *extra]
+    t0 = time.perf_counter()
+    outs = launch(cmd, nproc, timeout=timeout)
+    wall = time.perf_counter() - t0
+    recs = dryrun.records(outs)
+    coll = [ln for out in outs for ln in out.splitlines() if ln.startswith("COLLECTIVES")]
+    check(len(coll) == nproc and all("device=cuda" in ln for ln in coll),
+          f"phase {phase}: all_reduce/broadcast on CUDA tensors not confirmed: {coll}")
+    if phase == 34:
+        print(f"phase 34 {nproc} rank(s) {backend}: {coll[0]}", flush=True)
+    for line in dryrun.summarize(recs):
+        print(f"phase {phase} {nproc} rank(s) {backend}: {line}", flush=True)
+    print(f"phase {phase} {nproc} rank(s) {backend}: wall {wall:.1f} s (launch and "
+          f"process start included) on '{card}'", flush=True)
+    for r in recs:
+        check(r["launches"][0] > 0 and r["launches"][1] > 0,
+              f"phase {phase}: rank {r['rank']} launched B1/B2 {r['launches']} "
+              f"in {r.get('case') or 'gate %d' % r['gate']}")
+    return recs
+
+
+def mesh_phases(f64_runs, maxg11_f64, card: str) -> None:
+    """Phases 34-36: the mesh through `parallel/dryrun.py`, every rank a
+    process of its own on the card."""
+    from loraine_tpu_torch.parallel import dryrun
+
     def run(phase, nproc, backend, extra, timeout):
-        cmd = ["-m", "loraine_tpu_torch.parallel.dryrun", "--device", "cuda",
-               "--backend", backend, *extra]
-        t0 = time.perf_counter()
-        outs = launch(cmd, nproc, timeout=timeout)
-        wall = time.perf_counter() - t0
-        recs = dryrun.records(outs)
-        coll = [ln for out in outs for ln in out.splitlines() if ln.startswith("COLLECTIVES")]
-        check(len(coll) == nproc and all("device=cuda" in ln for ln in coll),
-              f"phase {phase}: all_reduce/broadcast on CUDA tensors not confirmed: {coll}")
-        if phase == 34:
-            print(f"phase 34 {nproc} rank(s) {backend}: {coll[0]}", flush=True)
-        for line in dryrun.summarize(recs):
-            print(f"phase {phase} {nproc} rank(s) {backend}: {line}", flush=True)
-        print(f"phase {phase} {nproc} rank(s) {backend}: wall {wall:.1f} s (launch and "
-              f"process start included) on '{card}'", flush=True)
-        for r in recs:
-            check(r["launches"][0] > 0 and r["launches"][1] > 0,
-                  f"phase {phase}: rank {r['rank']} launched B1/B2 {r['launches']} "
-                  f"in {r.get('case') or 'gate %d' % r['gate']}")
-        return recs
+        return mesh_run(phase, nproc, backend, extra, timeout, card)
 
     # ---- phase 34: the seven gates at 1 (NCCL), 2 and 4 ranks (Gloo)
     for nproc, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
@@ -1393,6 +1437,169 @@ def mesh_phases(f64_runs, maxg11_f64, card: str) -> None:
     check(all(r["status"] == 1 for r in recs), "phase 36 not OPTIMAL")
     objs = [r["sharded"] for r in recs]
     check(abs(objs[0] - objs[1]) <= 1e-12 * abs(objs[0]), f"phase 36 objectives {objs}")
+
+
+def dd_mesh_phase(phase19: dict, card: str) -> None:
+    """Phase 37: theta1 and tru3 (sparse) at 'dd2' on the (1, 2) mesh, 2 Gloo
+    ranks on the card, against phase 19's unsharded runs."""
+    from loraine_tpu_torch.utils.profiling import CASES, DD2
+
+    # tru3 on sparse storage: the load's threshold picks it for every block
+    tru3 = dict(CASES["tru3-sparse-dd2"][1], datasparsity=64)
+    for name, opts, err3 in (("theta1", DD2, 1e-15), ("tru3", tru3, 1e-18)):
+        ref = phase19[name]
+        recs = mesh_run(37, 2, "gloo", ["--case", f"sdplib:{name}", "--opts", json.dumps(opts)],
+                        600, card)
+        for r in recs:
+            label = f"phase 37 {name} dd2 rank {r['rank']}"
+            check(r["status"] == ref.status == 1, f"{label}: status {r['status']}")
+            check(r["iters"][0] == ref.iterations,
+                  f"{label}: {r['iters'][0]} iterations, phase 19 {ref.iterations}")
+            check(abs(r["sharded"] - ref.objective) <= 1e-12 * abs(ref.objective),
+                  f"{label}: objective {r['sharded']!r} != phase 19 {ref.objective!r}")
+            check(r["errs"]["err1"] < 1e-18 and r["errs"]["err3"] < err3,
+                  f"{label}: residual floors {r['errs']}")
+            check(r["sparse"] == (name == "tru3"), f"{label}: storage")
+        print(f"phase 37 {name} dd2 (1, 2): obj {recs[0]['sharded']!r} it {recs[0]['iters'][0]} "
+              f"err1 {recs[0]['errs']['err1']:.2e} err3 {recs[0]['errs']['err3']:.2e} "
+              f"median ms an iteration per rank "
+              f"{[round(1e3 * r['median_iter_s'], 2) for r in recs]} B1/B2 per rank "
+              f"{[tuple(r['launches'][:2]) for r in recs]} | phase 19: obj {ref.objective!r} "
+              f"it {ref.iterations} median ms {1e3 * float(np.median(ref.iteration_times)):.2f}; "
+              f"on '{card}'", flush=True)
+
+
+def device_launches(fn) -> int:
+    """The device activities (kernels, copies, fills) of one call of ``fn``
+    in a `torch.profiler` trace, counted from its raw events: at ~10^6
+    launches `key_averages()` takes minutes."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
+
+
+def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
+    """Phase 38: the native dd NT scaling (nt_precision='dd') on the card."""
+    import loraine_tpu_torch.ipm.step as S
+    from loraine_tpu_torch.ops.dd import DD, dd_add, dd_neg
+    from loraine_tpu_torch.ops.dd_linalg import dd_matmul
+    from loraine_tpu_torch.ops.nt_scaling import nt_scale, nt_scale_dd
+    from loraine_tpu_torch.ops.schur import Aop_dd
+    from loraine_tpu_torch.utils.profiling import DD2, DD2_NT, dd_nt_case
+
+    # ---- (a) tests/test_precision.py::test_dd_nt_e2e_cpu's solve, whole
+    p = dd_nt_case("cuda")
+    t0 = time.perf_counter()
+    r = launches.run("phase 38a", ("B1", "B2"), lambda: ltt.solve(p, DD2_NT, device="cuda"))
+    print(tier_line("38a m=8 dd2 nt_precision=dd cuda", r)
+          + f" wall={time.perf_counter() - t0:.3f} s median_iter_ms="
+          f"{1e3 * float(np.median(r.iteration_times)):.2f} on '{card}'", flush=True)
+    check(r.status == 1 and r.dimacs < 1e-12 and r.errs["err1"] < 1e-18,
+          f"phase 38a: {r.status_name} dimacs {r.dimacs:.3e} err1 {r.errs['err1']:.3e}")
+
+    # ---- (b) one nt_scale_dd at theta1's width on phase 19's last iterate
+    fs = phase19["theta1"].final_state
+    X, Sd = DD(fs.X[0], fs.X_lo[0]), DD(fs.S[0], fs.S_lo[0])
+    # launches from traces of 0 and 1 Jacobi sweeps (fixed + 6 x per sweep,
+    # the warm default; a whole call is ~2M launches); also the warm-up
+    fixed = device_launches(lambda: nt_scale_dd(X, Sd, sweeps=0))
+    per_sweep = device_launches(lambda: nt_scale_dd(X, Sd, sweeps=1)) - fixed
+    n_launch = fixed + 6 * per_sweep
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    nts, tails = nt_scale_dd(X, Sd)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    # W S W = X cancels terms of size ||W||^2 ||S||: dd class is a few
+    # 2^-104 of that (the f64 scaling's error beside it)
+    terms = float(nts.W.abs().max()) ** 2 * float(Sd.hi.abs().max())
+
+    def wsw_err(W):  # the difference taken in dd: collapsed to f64 first it is u64 ||X||
+        WSW = dd_matmul(W, dd_matmul(Sd, W))
+        return float(((WSW.hi - X.hi) + (WSW.lo - X.lo)).abs().max())
+
+    wsw = wsw_err(DD(nts.W, tails.W_lo))
+    W64 = nt_scale(X.hi, Sd.hi).W
+    wsw64 = wsw_err(DD(W64, torch.zeros_like(W64)))
+    t0 = time.perf_counter()
+    cpu_nts, cpu_tails = nt_scale_dd(DD(X.hi.cpu(), X.lo.cpu()), DD(Sd.hi.cpu(), Sd.lo.cpu()))
+    cpu_s = time.perf_counter() - t0
+    D = nts.D.cpu() + tails.D_lo.cpu()
+    D_cpu = cpu_nts.D + cpu_tails.D_lo
+    d_rel = float(((D - D_cpu) / D_cpu).abs().max())
+    m = X.hi.shape[-1]
+    print(f"phase 38b nt_scale_dd theta1 (nb, m)=(1, {m}) at phase 19's last iterate (mu "
+          f"{phase19['theta1'].history[-1]['mu']:.3e}): ms={ms:.1f} device launches={n_launch} "
+          f"({fixed} + 6 x {per_sweep}; {1e3 * ms / n_launch:.2f} us a launch) "
+          f"dd_ok={bool(tails.dd_ok)} "
+          f"|WSW-X| {wsw:.2e} = {wsw / terms:.2e} of ||W||^2 ||S|| (f64 nt_scale: {wsw64:.2e}) "
+          f"D min {float(D.min()):.3e} max {float(D.max()):.3e} vs CPU port max rel "
+          f"{d_rel:.2e} (CPU {cpu_s:.1f} s) on '{card}'", flush=True)
+    check(bool(tails.dd_ok) and bool(cpu_tails.dd_ok), "phase 38b: dd_ok")
+    check(wsw < 1e-29 * terms, f"phase 38b: W S W - X at {wsw / terms:.2e} of the terms")
+    check(d_rel < 1e-14, f"phase 38b: D {d_rel:.2e} from the CPU port's")
+
+    # ---- (c) two theta1 dd2 steps under nt_precision='dd' from phase 19's
+    # iterate after LATE iterations (a step from its last iterate, at mu
+    # ~4e-14, already loses the dd2 floor of err1 under either NT scaling,
+    # in both packages: ROADMAP Queue C 4). err1 is the residual of each
+    # step's start; the last step's result is read after it.
+    o = ltt.Options.from_dict(dict(DD2, nt_precision="dd")).validated()
+    pt = ltt.load_problem(THETA1, o, device="cuda")
+    st = ltt.solve(pt, dict(DD2, maxit=LATE), device="cuda").final_state
+    ref = phase19["theta1"].history
+    for k in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, stats = S.step(pt, st, o)
+        h = stats.to_host()
+        print(f"phase 38c theta1 dd2 nt_precision=dd step {k + 1} from iteration {LATE + k}: "
+              f"dimacs {h['dimacs']:.3e} (phase 19, f64 NT: {ref[LATE + k]['dimacs']:.3e}) "
+              f"err1 {h['err1']:.2e} err5 {h['err5']:.2e} mu {h['mu']:.3e} "
+              f"{time.perf_counter() - t0:.2f} s on '{card}'", flush=True)
+        check(h["nt_ok"] and h["h_ok"] and h["err1"] < 1e-18 and math.isfinite(h["dimacs"]),
+              f"phase 38c step {k + 1}: {h}")
+    Rp = DD(pt.b, torch.zeros_like(pt.b))
+    for g, X, Xl in zip(pt.groups, st.X, st.X_lo):
+        Rp = dd_add(Rp, dd_neg(Aop_dd(g, X, Xl)))
+    err1 = float(torch.linalg.norm(Rp.hi + Rp.lo) / (1.0 + torch.linalg.norm(pt.b)))
+    print(f"phase 38c after step 2: err1 {err1:.2e}", flush=True)
+    check(err1 < 1e-18, f"phase 38c: err1 {err1:.2e} after step 2")
+
+    # ---- (d) the one-step cases of the tiers (`dryrun.DD_STEPS`: dd2, the dd
+    # NT scaling from a late iterate, one block indefinite, ...) on (2, 1)
+    # Gloo ranks, each against the unsharded step
+    from loraine_tpu_torch.parallel.dryrun import DD_STEPS
+
+    recs = mesh_run(38, 2, "gloo", ["--case", "dd_steps"], 600, card)
+    check(sorted((r["rank"], r["case"]) for r in recs)
+          == sorted((k, f"dd_steps {c}") for k in range(2) for c in DD_STEPS),
+          "phase 38d: steps missing")
+    for r in recs:
+        if r["dd_ok"] is not None:
+            print(f"phase 38d rank {r['rank']} {r['case']}: dd_ok unsharded/sharded "
+                  f"{r['dd_ok']} max |dX| {r['max_abs_dX']:.2e} {r['seconds']:.2f} s", flush=True)
+
+
+def examples_phase() -> None:
+    """Phase 39: each examples/torch_*.py with --device cuda, in this
+    process (their asserts fail the phase)."""
+    import runpy
+
+    for path in sorted(glob.glob("examples/torch_*.py")):
+        argv = sys.argv
+        sys.argv = [path, "--device", "cuda"]
+        t0 = time.perf_counter()
+        try:
+            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+                runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = argv
+        print(f"phase 39 {path} --device cuda: ok in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def main() -> int:
@@ -1556,7 +1763,7 @@ def main() -> int:
 
     # ---- phases 17-21: the precision tiers
     exactness_probe()
-    precision_tiers(launches, ltt, maxg11_f64)
+    phase19 = precision_tiers(launches, ltt, maxg11_f64)
 
     # ---- phases 22-27: the remaining eigen, steplength, NT, dtype and
     # assembly modes
@@ -1579,6 +1786,17 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_phases(f64_runs, maxg11_f64, card)
     print(f"phases 34-36 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phases 37-39: the tiers on the mesh, the dd NT scaling, examples
+    t0 = time.perf_counter()
+    dd_mesh_phase(phase19, card)
+    print(f"phase 37 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    nt_dd_phase(launches, ltt, phase19, card)
+    print(f"phase 38 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    examples_phase()
+    print(f"phase 39 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     for key, kname, name, src, line in (

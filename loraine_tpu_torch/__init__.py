@@ -33,8 +33,9 @@ process each, over torch.distributed: ``distributed.initialize()``
 (backend 'nccl' across cards, 'gloo' for CPU ranks or ranks sharing one
 card), ``make_mesh``/``auto_mesh``, ``shard_problem``, then ``solve`` on
 every rank. ``python -m loraine_tpu_torch.parallel.dryrun --nproc 4
---device cpu`` runs the mesh gates on Gloo CPU ranks. Precision 'dd' and
-'dd2' on a mesh raise NotImplementedError (ROADMAP item 14b).
+--device cpu`` runs the mesh gates on Gloo CPU ranks. Every option value
+runs on a mesh too, the precision tiers and ``nt_precision='dd'``
+included.
 """
 from . import modeling
 from .config import DEFAULT_OPTIONS, Options

@@ -7,21 +7,21 @@ port does not run yet, and `Solver` raises `NotImplementedError` for them.
 
 What the port runs: ``kit`` 0 and 1, ``precision`` 'f64', 'dd' and 'dd2'
 (both paths, every storage, the LP cone), every value of ``dtype``,
-``nt_method``, ``eigh_backend``, ``step_eig``, ``assembly_precision``,
-``cg_kernel`` and ``cg_materialize``, ``chol_backend`` 'auto'/'f64' and
-``gemm_backend='f64'``, ``timing`` (``timing >= 2`` prints the per-phase
-table of `utils/diagnostics.py` after the solve) and ``profile_dir`` (a
-`torch.profiler` trace of the solve loop written into that directory, CUDA
-activity included on a card). Still raising `NotImplementedError`:
-``chol_backend='mixed'`` and ``gemm_backend='int8'`` (not carried over) and
-``nt_precision='dd'`` (item 12e), and ``precision`` 'dd'/'dd2' on a
-sharded problem (item 14b).
+``nt_method``, ``nt_precision``, ``eigh_backend``, ``step_eig``,
+``assembly_precision``, ``cg_kernel`` and ``cg_materialize``,
+``chol_backend`` 'auto'/'f64' and ``gemm_backend='f64'``, ``timing``
+(``timing >= 2`` prints the per-phase table of `utils/diagnostics.py`
+after the solve) and ``profile_dir`` (a `torch.profiler` trace of the
+solve loop written into that directory, CUDA activity included on a
+card). Still raising `NotImplementedError`: ``chol_backend='mixed'`` and
+``gemm_backend='int8'`` (not carried over).
 
 On a ('blocks', 'schur') mesh (`parallel/`: one process per rank,
 `torch.distributed`; Gloo ranks on the CPU, ``python -m
 loraine_tpu_torch.parallel.dryrun --nproc 4 --device cpu``; on cards NCCL,
 one rank per card, or Gloo for ranks sharing one card) every option value
-above runs at precision 'f64'; 'dd' and 'dd2' raise (item 14b).
+above runs, the precision tiers and ``nt_precision='dd'`` included (their
+dd sums over a sharded axis through `Mesh.reduce_dd`).
 On a mesh whose 'schur' axis splits H's rows the kit=0 Cholesky is the
 distributed blocked one (`ops/linalg.py`), and the kit=1 materialized
 route gathers Hcg whole on every rank and then follows ``cg_kernel`` as on
@@ -64,10 +64,16 @@ groups stay exact) until DIMACS < 1e-3, then hands over to f64 for good;
 is assembled, and never on the CPU (the JAX package's rule with the card in
 the TPU's place); 'f64' never.
 
-``nt_precision``: 'auto' resolves to the f64 NT scaling on every device
-(the JAX package's 'auto' picks the native dd NT scaling on the TPU only,
-`loraine_tpu/ipm/step.py:364-370`); 'dd' is not ported (ROADMAP Queue A
-item 12e). Under 'dd'/'dd2' the kit=1 path runs f64 `pcg` inside dd
+``nt_precision``: 'dd' (with precision 'dd2' only) is the native dd NT
+scaling (`ops/nt_scaling.py:nt_scale_dd`: dd Cholesky, dd congruence, dd
+Jacobi eigendecomposition from B1's warm start under 'pallas'/'auto').
+'auto' resolves to the f64 NT scaling on every device. The JAX package's
+'auto' picks dd on the TPU (`loraine_tpu/ipm/step.py:364-370`), where XLA
+compiles the dd Jacobi sweep into one program; here it runs as eager
+torch ops, ~2.5M a call at theta1's m = 50 padded to 56 (~390k a sweep,
+6 sweeps; counted on the CPU), most of them a launch on the card, so 'dd'
+stays an explicit choice (ROADMAP's fused dd Jacobi would lift that;
+PERF.md has its launches and time on the H100). Under 'dd'/'dd2' the kit=1 path runs f64 `pcg` inside dd
 refinement and takes no CG kernel, whatever ``cg_kernel`` says.
 
 ``cg_kernel`` (materialized CG route only, `resolve_cg_kernel`): 'ff' is the
@@ -187,21 +193,16 @@ class Options:
         return cls(**options)
 
 
-# option -> (values the port runs, ROADMAP item that ports the rest)
+# option -> (values the port runs, where ROADMAP.md says why not the rest)
 _PORTED = {
-    "kit": ((0, 1), "Queue A item 11 (CG path)"),
-    "precision": (("f64", "dd", "dd2"), "Queue A item 12 (precision tiers)"),
     "chol_backend": (("auto", "f64"), "'Not carried over' (f32-panel Cholesky)"),
     "gemm_backend": (("f64",), "'Not carried over' (int8 Ozaki GEMM)"),
-    "nt_precision": (("auto", "f64"), "Queue A item 12 (precision tiers, 12e dd NT)"),
 }
 
 
-def require_ported(o: Options, mesh=None) -> None:
-    """Raise NotImplementedError for an option value this port does not run
-    yet, naming the ROADMAP item that will port it. ``mesh``: the problem
-    is sharded (`parallel/mesh.py`), where the precision tiers do not run
-    yet."""
+def require_ported(o: Options) -> None:
+    """Raise NotImplementedError for an option value this port does not
+    run, naming where ROADMAP.md says why."""
     for name, (ok, item) in _PORTED.items():
         v = getattr(o, name)
         if v not in ok:
@@ -209,12 +210,6 @@ def require_ported(o: Options, mesh=None) -> None:
                 f"{name}={v!r} is not ported to loraine_tpu_torch yet "
                 f"(runs: {list(ok)}); see ROADMAP.md {item}"
             )
-    if mesh is not None and o.precision != "f64":
-        raise NotImplementedError(
-            f"precision={o.precision!r} on a mesh is not ported to loraine_tpu_torch yet "
-            "(runs: 'f64'; the dd operators need the mesh's collectives on dd pairs); "
-            "see ROADMAP.md Queue A item 14b"
-        )
 
 
 def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:

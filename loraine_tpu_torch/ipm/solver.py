@@ -134,7 +134,7 @@ class Solver:
         self.initial_state = initial_state
         self.mesh = problem.mesh  # set by `parallel.mesh.shard_problem`
         self._apply_auto_downgrades()
-        require_ported(self.opts, self.mesh)
+        require_ported(self.opts)
 
     def _apply_auto_downgrades(self) -> None:
         """kit auto-downgrades (`src/Solvers.jl:421-444`)."""

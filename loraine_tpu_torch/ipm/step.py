@@ -1,9 +1,8 @@
 """One predictor-corrector IPM iteration. Port of the kit=0 and kit=1
 branches of `loraine_tpu/ipm/step.py:build_step` at precision 'f64', 'dd'
 and 'dd2', LP cone included, under every ``step_eig``, ``eigh_backend``,
-``nt_method`` and ``assembly_precision`` (the NT scaling stays f64: no
-native dd NT scaling, ROADMAP.md Queue A item 12e), on one device or, at
-'f64', on a ('blocks', 'schur') mesh.
+``nt_method``, ``assembly_precision`` and ``nt_precision``, on one device
+or on a ('blocks', 'schur') mesh.
 
 Covers the reference's `myIPstep` (`src/Solvers.jl:448-478`) and
 `check_convergence` (`:496-568`): mu, NT scaling, residuals, Schur assembly
@@ -31,8 +30,8 @@ dense and LP data); everything else stays exact.
 Convergence-error convention (reference): err1/err3 use the residuals at
 the start of the iteration, err2/4/5/6 the updated iterate.
 
-On a sharded problem (`parallel/mesh.py`, precision 'f64') each rank steps
-its own blocks, and the step completes every reduction over a sharded axis:
+On a sharded problem (`parallel/mesh.py`) each rank steps its own blocks,
+and the step completes every reduction over a sharded axis:
 traces and DIMACS sums over 'blocks' (`ops/schur.py:bsum`), steplength
 minima and the NT flags min/max-reduced over 'blocks', the data operators'
 collectives inside `Aop`/`Aadj`. When 'schur' splits the rows, H stays in
@@ -44,7 +43,11 @@ JAX package keeps its Pallas CG off a sharded schur axis,
 `loraine_tpu/ipm/step.py:801-806`, because there Hcg stays sharded); the
 matrix-free route's matvec `Aop(W Aadj(x) W)` runs the operators'
 collectives. With the rows whole (a 'schur' axis of 1), H is replicated
-after the 'blocks' sum and every route is the unsharded one. Without a
+after the 'blocks' sum and every route is the unsharded one. Under
+'dd'/'dd2' the dd sums over 'blocks' (mu's trace, the trial trace, <C, X>)
+run through `Mesh.reduce_dd` (`ops/schur.py:bsum_dd`), the dd operators
+shard as the f64 ones do, and the kit=0 dd refinement multiplies by this
+rank's rows of H in dd and gathers the product over 'schur'. Without a
 mesh every path is the unsharded one, op for op.
 
 precision='dd' (the stand-in for the reference's Float64xN solver,
@@ -59,6 +62,16 @@ tails), with mu, the dual residuals, the LP scaling, sigma*mu, the iterate
 updates and the complementarity errors in dd. On kit=1 both tiers wrap f64
 `pcg` in two dd refinement passes; the CG kernels (B3, B4, the polish) are
 not taken, as the JAX package turns its fused CG kernel off in dd mode.
+
+nt_precision='dd' (with 'dd2' only): the NT scaling of `nt_scale_dd`, in
+dd from the dd iterates, whose tails (D_lo, G_lo, W_lo) enter every W and
+G sandwich that feeds the Schur assembly, the right-hand sides and the
+directions, and the corrector's target sig_mu / D in dd
+(`loraine_tpu/ipm/step.py:128-168, 597-609, 645-649, 865-873,
+1019-1044`). 'auto' is the f64 NT scaling on every device (the JAX
+package picks dd on the TPU only, where XLA compiles the dd Jacobi sweep
+into one program; here it is ~2.5M eager ops a call at theta1's m = 50,
+see `config.py`).
 """
 from __future__ import annotations
 
@@ -74,12 +87,12 @@ from ..ops.dd_linalg import dd_const, dd_div, dd_mul
 from ..ops.eigh import eigh_backend_for, eigh_jacobi, eigh_mixed, eigmin_lanczos
 from ..ops.jacobi import eig_bounds_jacobi
 from ..ops.linalg import btrace, chol_reg, cho_solve_inv, eigmin, eigmin_chol, sym, tri_inv
-from ..ops.nt_scaling import NTScaling, nt_scale
+from ..ops.nt_scaling import NTScaling, NTTails, nt_scale, nt_scale_dd
 from ..ops.ozaki import acc_matmul, acc_matvec
 from ..ops.pcg import cg_f64, pcg_kernel_ff, pcg_kernel_mixed
 from ..ops.precond import prep_alpha, prep_beta
-from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, bsum, lp_weight, schur_group,
-                         schur_group_dd, schur_group_mixed, schur_lp, schur_lp_dd,
+from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, bsum, bsum_dd, gather_rows_dd, lp_weight,
+                         schur_group, schur_group_dd, schur_group_mixed, schur_lp, schur_lp_dd,
                          schur_lp_mixed)
 from ..problem import SDPProblem
 from .initial import EXPON, TAU
@@ -166,6 +179,12 @@ def _sandwich_dd(L: torch.Tensor, M: torch.Tensor, R: torch.Tensor) -> DD:
     return DD(s.hi, s.lo + T.lo)
 
 
+def _w_tail(tail: NTTails, W: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """The first-order W-tail terms W_lo M W + W M W_lo of the sandwich
+    W M W under the native dd NT scaling."""
+    return tail.W_lo @ (M @ W) + (W @ M) @ tail.W_lo
+
+
 def _trace_dot_dd(A: torch.Tensor, B: torch.Tensor) -> DD:
     """sum over all entries of A * B in dd."""
     return dd_sum(two_prod(A.reshape(-1), B.reshape(-1)))
@@ -219,6 +238,7 @@ def _group_dirs(
     T_dd: Optional[DD] = None,
     U_dd: Optional[DD] = None,
     Rd_dd: Optional[DD] = None,
+    tail: Optional[NTTails] = None,
 ) -> _GroupDirs:
     """Directions and per-block steplengths (`find_step`,
     `src/predictor_corrector.jl:248-293`; `ipm/step.py:_group_dirs`).
@@ -227,7 +247,9 @@ def _group_dirs(
     delX = -T + W Aadj(dely) W (+ U on the corrector), where dely.lo's
     sandwich keeps A(delX) = Rp past dely's f64 resolution. dd2 (``Rd_dd``
     given): delS from the dd adjoint, and both directions come back with
-    their dd tails. The predictor identity is taken only with
+    their dd tails; ``tail`` (nt_precision='dd') adds the W-tail terms to
+    the W sandwich, the same terms the Schur assembly took. The predictor
+    identity is taken only with
     ``eigrange_fn`` (step_eig 'pallas') and not in dd mode; otherwise
     ``eigmin_fn`` bounds [scaleX; scaleS] in one call."""
     dd_mode = T_dd is not None
@@ -240,7 +262,10 @@ def _group_dirs(
             delS = delS_dd.hi
             # the dd adjoint's hi is the correctly rounded leading word
             WAW = _sandwich_dd(nt.W, adj.hi, nt.W)
-            WAW = DD(WAW.hi, WAW.lo + nt.W @ adj.lo @ nt.W)
+            wlo = nt.W @ adj.lo @ nt.W
+            if tail is not None:
+                wlo = wlo + _w_tail(tail, nt.W, adj.hi)
+            WAW = DD(WAW.hi, WAW.lo + wlo)
         else:
             adj = Aadj(g, dely.hi)
             delS = Rd - adj
@@ -281,6 +306,23 @@ def _group_dirs(
         return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta,
                           delX_lo=delX_dd.lo, delS_lo=delS_dd.lo)
     return _GroupDirs(delX=delX, delS=delS, alpha=alpha, beta=beta)
+
+
+def _corrector_U_dd(nt: NTScaling, tail: NTTails, RNT: torch.Tensor, sig_mu_dd: DD) -> DD:
+    """The corrector's U = G [sig_mu / D + RNT] G^T under the native dd NT
+    scaling (`ipm/step.py:1019-1044`): with D accurate in dd, the quotient
+    sig_mu / D in dd (an f64 one would put u64-relative noise back where
+    mu sinks below the f64 resolution of the spectrum), and the G-tail
+    first-order terms."""
+    GT = nt.G.mT
+    q = dd_div(DD(sig_mu_dd.hi.expand_as(nt.D), sig_mu_dd.lo.expand_as(nt.D)),
+               DD(nt.D, tail.D_lo))
+    s = two_sum(torch.diag_embed(q.hi), RNT)
+    inner = DD(s.hi, s.lo + torch.diag_embed(q.lo))
+    U = _sandwich_dd(nt.G, inner.hi, GT)
+    Ulo = (nt.G @ inner.lo @ GT + tail.G_lo @ (inner.hi @ GT)
+           + (nt.G @ inner.hi) @ tail.G_lo.mT)
+    return DD(U.hi, U.lo + Ulo)
 
 
 class _LinDirs(NamedTuple):
@@ -352,19 +394,24 @@ def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
     return H if problem.rows_split else sym(H)
 
 
-def _schur_dd(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
+def _schur_dd(problem: SDPProblem, nts, tails, lpw: Optional[torch.Tensor],
               lpw_dd: Optional[DD]) -> DD:
     """The symmetrized Schur matrix in dd (`ipm/step.py:642-657`): the dd
-    group contributions, and the LP block in dd under dd2 (``lpw_dd``) or
-    the f64 one under dd."""
-    zero = torch.zeros((problem.n, problem.n), dtype=problem.b.dtype, device=problem.device)
+    group contributions with the NT tails (``tails``, nt_precision='dd'),
+    and the LP block in dd under dd2 (``lpw_dd``) or the f64 one under dd.
+    When the rows are sharded, this rank's rows of H as assembled (see
+    `_schur`)."""
+    r0, r1 = problem.shard.rows if problem.rows_split else (0, problem.n)
+    rows = slice(r0, r1) if problem.rows_split else slice(None)
+    zero = torch.zeros((r1 - r0, problem.n), dtype=problem.b.dtype, device=problem.device)
     H = DD(zero, zero)
-    for g, nt in zip(problem.groups, nts):
-        H = dd_add(H, schur_group_dd(g, nt.W, nt.G))
+    for g, nt, tl in zip(problem.groups, nts, tails):
+        H = dd_add(H, schur_group_dd(g, nt.W, nt.G, W_lo=None if tl is None else tl.W_lo,
+                                     G_lo=None if tl is None else tl.G_lo))
     if problem.nlin:
-        H = dd_add(H, schur_lp_dd(problem.C_lin, lpw_dd) if lpw_dd is not None
-                   else _dd0(schur_lp(problem.C_lin, lpw)))
-    return _dd_sym(H)
+        H = dd_add(H, schur_lp_dd(problem.C_lin, lpw_dd, rows) if lpw_dd is not None
+                   else _dd0(schur_lp(problem.C_lin, lpw, rows)))
+    return H if problem.rows_split else _dd_sym(H)
 
 
 def _polish(Hp: torch.Tensor, rp: torch.Tensor, target: torch.Tensor, maxiter: int):
@@ -484,15 +531,20 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     return solve
 
 
-def _matvec_dd(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], lpw_dd: Optional[DD],
-               x: DD) -> DD:
+def _matvec_dd(problem: SDPProblem, nts, tails, lpw: Optional[torch.Tensor],
+               lpw_dd: Optional[DD], x: DD) -> DD:
     """The Schur operator applied in dd to a dd vector, matrix-free
     (`ipm/step.py:863-885`): Aop_dd(W Aadj(x) W) per group, the sandwich in
-    dd with x.lo's first-order term, plus the LP block (in dd under dd2)."""
+    dd with x.lo's first-order term (and the W-tail terms under
+    nt_precision='dd'), plus the LP block (in dd under dd2)."""
     acc = None
-    for g, nt in zip(problem.groups, nts):
-        T = _sandwich_dd(nt.W, Aadj(g, x.hi), nt.W)
-        T = DD(T.hi, T.lo + nt.W @ Aadj(g, x.lo) @ nt.W)
+    for g, nt, tl in zip(problem.groups, nts, tails):
+        M = Aadj(g, x.hi)
+        T = _sandwich_dd(nt.W, M, nt.W)
+        tlo = nt.W @ Aadj(g, x.lo) @ nt.W
+        if tl is not None:
+            tlo = tlo + _w_tail(tl, nt.W, M)
+        T = DD(T.hi, T.lo + tlo)
         r = Aop_dd(g, T.hi, T.lo)
         acc = r if acc is None else dd_add(acc, r)
     if problem.nlin:
@@ -529,6 +581,9 @@ def step(
     zero = torch.zeros((), dtype=dtype, device=device)
     dd_mode = opts.precision in ("dd", "dd2")
     dd2 = opts.precision == "dd2"
+    # the native dd NT scaling: explicit only ('auto' is f64, see above)
+    nt_dd = dd2 and opts.nt_precision == "dd"
+    mesh = problem.mesh
     C_lin = problem.C_lin
     eigmin_fn, eigrange_fn, cert_mode = _bound_fns(opts)
 
@@ -544,8 +599,8 @@ def step(
     if dd2:
         # <X, S> in dd: near the dd2 floor it cancels over ~20 digits
         tr_dd = _dd0(zero)
-        for Xd, Sd in zip(X_dds, S_dds):
-            tr_dd = dd_add(tr_dd, _dd_inner(Xd, Sd))
+        for g, Xd, Sd in zip(problem.groups, X_dds, S_dds):
+            tr_dd = dd_add(tr_dd, bsum_dd(g, _dd_inner(Xd, Sd)))
         if nlin:
             tr_dd = dd_add(tr_dd, _dd_inner(Xl_dd, Sl_dd))
         mu = dd_to_f64(tr_dd) / denom
@@ -557,17 +612,23 @@ def step(
             tr = tr + torch.dot(st.X_lin, st.S_lin)
         mu = tr / denom
 
-    # ---- NT scaling (prepare_W), f64 on the hi words
-    nts = tuple(
-        nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend)
-        for X, S in zip(st.X, st.S)
-    )
+    # ---- NT scaling (prepare_W): f64 on the hi words, or in dd with tails
+    if nt_dd:
+        pairs = tuple(nt_scale_dd(Xd, Sd, eigh_backend=opts.eigh_backend, mesh=mesh)
+                      for Xd, Sd in zip(X_dds, S_dds))
+        nts = tuple(p_[0] for p_ in pairs)
+        nt_tails = tuple(p_[1] for p_ in pairs)
+    else:
+        nts = tuple(
+            nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend)
+            for X, S in zip(st.X, st.S)
+        )
+        nt_tails = (None,) * ngroups
     nt_ok = torch.ones((), dtype=torch.bool, device=device)
     nt_suspect = torch.zeros((), dtype=torch.bool, device=device)  # certificate broken
     for nt in nts:
         nt_ok = nt_ok & nt.ok
         nt_suspect = nt_suspect | nt.shifted | nt.s_indef
-    mesh = problem.mesh
     if mesh is not None:
         nt_ok = mesh.reduce(nt_ok, "blocks", "min")
         nt_suspect = mesh.reduce(nt_suspect, "blocks", "max")
@@ -622,10 +683,14 @@ def step(
         # direction formula so that the feasibility identity cancels exactly
         if dd2:
             T_dds = []
-            for nt, Rdd, Sd in zip(nts, Rd_dds, S_dds):
+            for nt, tl, Rdd, Sd in zip(nts, nt_tails, Rd_dds, S_dds):
                 M_dd = dd_add(Rdd, Sd)
                 T = _sandwich_dd(nt.W, M_dd.hi, nt.W)
-                T_dds.append(DD(T.hi, T.lo + nt.W @ M_dd.lo @ nt.W))
+                tlo = nt.W @ M_dd.lo @ nt.W
+                if tl is not None:
+                    # keep T consistent with the tailed W of the directions
+                    tlo = tlo + _w_tail(tl, nt.W, M_dd.hi)
+                T_dds.append(DD(T.hi, T.lo + tlo))
             T_dds = tuple(T_dds)
         else:
             T_dds = tuple(_sandwich_dd(nt.W, Rd + S, nt.W) for nt, Rd, S in zip(nts, Rds, st.S))
@@ -650,7 +715,7 @@ def step(
         # Schur assembly + regularized Cholesky (absolute 1e-4 shift,
         # `src/predictor_corrector.jl:74`) + explicit inverse factor
         if dd_mode:
-            Hs_dd = _schur_dd(problem, nts, lpw, lpw_dd)
+            Hs_dd = _schur_dd(problem, nts, nt_tails, lpw, lpw_dd)
             H = Hs_dd.hi
         else:
             H = _schur(problem, nts, lpw, mixed_assembly)
@@ -663,14 +728,16 @@ def step(
         if dd_mode:
             def solve(rhs_dd):
                 # mixed-precision refinement: f64 factor, dd residuals, the
-                # solution returned in dd (`ipm/step.py:685-703`)
-                x = cho_solve_inv(Hli, rhs_dd.hi)
+                # solution returned in dd (`ipm/step.py:685-703`); H x from
+                # this rank's rows, gathered over 'schur' when they are split
+                x = cho_solve_inv(Hli, rhs_dd.hi, rmesh)
                 xlo = torch.zeros_like(x)
                 for _ in range(3):
                     Hx = acc_matvec(Hs_dd.hi, x)
                     s = two_sum(Hx.hi, Hs_dd.lo @ x + Hs_dd.hi @ xlo)
-                    r = dd_add(rhs_dd, dd_neg(DD(s.hi, s.lo + Hx.lo)))
-                    snew = two_sum(x, cho_solve_inv(Hli, dd_to_f64(r)))
+                    Hx = gather_rows_dd(problem, DD(s.hi, s.lo + Hx.lo))
+                    r = dd_add(rhs_dd, dd_neg(Hx))
+                    snew = two_sum(x, cho_solve_inv(Hli, dd_to_f64(r), rmesh))
                     x, xlo = snew.hi, snew.lo + xlo
                 return DD(x, xlo), cg_pre
         else:
@@ -700,7 +767,8 @@ def step(
                 x, iters = solve_f64(rhs_dd.hi)
                 xlo = torch.zeros_like(x)
                 for _ in range(2):
-                    r = dd_add(rhs_dd, dd_neg(_matvec_dd(problem, nts, lpw, lpw_dd, DD(x, xlo))))
+                    r = dd_add(rhs_dd, dd_neg(_matvec_dd(problem, nts, nt_tails, lpw, lpw_dd,
+                                                         DD(x, xlo))))
                     d, itr = solve_f64(dd_to_f64(r))
                     iters = iters + itr
                     snew = two_sum(x, d)
@@ -714,8 +782,9 @@ def step(
     # ---- predictor directions + steplengths
     dirs = tuple(
         _group_dirs(g, nt, Rd, X, dely, predict=True, eigmin_fn=eigmin_fn,
-                    eigrange_fn=eigrange_fn, T_dd=T, Rd_dd=Rdd)
-        for g, nt, Rd, X, T, Rdd in zip(problem.groups, nts, Rds, st.X, T_dds, Rd_dds)
+                    eigrange_fn=eigrange_fn, T_dd=T, Rd_dd=Rdd, tail=tl)
+        for g, nt, Rd, X, T, Rdd, tl in zip(problem.groups, nts, Rds, st.X, T_dds, Rd_dds,
+                                            nt_tails)
     )
     one = torch.ones((), dtype=dtype, device=device)
     if nlin:
@@ -744,7 +813,8 @@ def step(
             Xn = dd_add(X_dds[gi], dd_mul_f64(DD(d.delX, d.delX_lo), d.alpha[:, None, None]))
             Sn = dd_add(S_dds[gi], dd_mul_f64(DD(d.delS, d.delS_lo), d.beta[:, None, None]))
             t = _trace_dot_dd(Xn.hi, Sn.hi)
-            trXnSn_mat = trXnSn_mat + t.hi + (t.lo + ((Xn.hi * Sn.lo).sum() + (Xn.lo * Sn.hi).sum()))
+            t = bsum_dd(g, DD(t.hi, t.lo + ((Xn.hi * Sn.lo).sum() + (Xn.lo * Sn.hi).sum())))
+            trXnSn_mat = trXnSn_mat + t.hi + t.lo
         else:
             Xn = X + d.alpha[:, None, None] * d.delX
             Sn = S + d.beta[:, None, None] * d.delS
@@ -800,10 +870,14 @@ def step(
         # the reference's G[G'RdG + D - sig*mu/D - RNT]G' written as T - U
         # with U = G[sig*mu/D + RNT]G' (exact NT identities), so the same T
         # and U feed the corrector direction (`ipm/step.py:1013-1058`)
-        U_dds = tuple(
-            _sandwich_dd(nt.G, torch.diag_embed(sig_mu / nt.D) + RNT, nt.G.mT)
-            for nt, RNT in zip(nts, RNTs)
-        )
+        if nt_dd:
+            U_dds = tuple(_corrector_U_dd(nt, tl, RNT, sig_mu_dd)
+                          for nt, tl, RNT in zip(nts, nt_tails, RNTs))
+        else:
+            U_dds = tuple(
+                _sandwich_dd(nt.G, torch.diag_embed(sig_mu / nt.D) + RNT, nt.G.mT)
+                for nt, RNT in zip(nts, RNTs)
+            )
         h2_dd = Rp_dd
         for g, T, U in zip(problem.groups, T_dds, U_dds):
             h2_dd = dd_add(h2_dd, Aop_dd(g, T.hi, T.lo))
@@ -834,9 +908,9 @@ def step(
     # ---- corrector directions + final update
     dirs2 = tuple(
         _group_dirs(g, nt, Rd, X, dely2, predict=False, eigmin_fn=eigmin_fn, sig_mu=sig_mu,
-                    RNT=RNT, T_dd=T, U_dd=U, Rd_dd=Rdd)
-        for g, nt, Rd, X, RNT, T, U, Rdd in zip(problem.groups, nts, Rds, st.X, RNTs,
-                                               T_dds, U_dds, Rd_dds)
+                    RNT=RNT, T_dd=T, U_dd=U, Rd_dd=Rdd, tail=tl)
+        for g, nt, Rd, X, RNT, T, U, Rdd, tl in zip(problem.groups, nts, Rds, st.X, RNTs,
+                                                   T_dds, U_dds, Rd_dds, nt_tails)
     )
     if nlin:
         if dd2:
@@ -915,7 +989,7 @@ def step(
             if dd2:
                 s2 = two_sum(t.hi, (g.C * X_new_dds[gi].lo).sum())
                 t = DD(s2.hi, s2.lo + t.lo)
-            trCX_dd = dd_add(trCX_dd, t)
+            trCX_dd = dd_add(trCX_dd, bsum_dd(g, t))
         if dd2:
             # per-block <S, X> in dd: near the floor the f64 product noise
             # exceeds the true barrier value

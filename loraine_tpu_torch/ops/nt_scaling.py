@@ -1,6 +1,7 @@
 """Nesterov-Todd scaling point, batched over a block group. Port of
 `loraine_tpu/ops/nt_scaling.py` (`nt_scale` with methods 'eigh' and
-'svd', and `NTScaling`).
+'svd', `NTScaling`, and the native dd scaling `nt_scale_dd` with its
+`NTTails`).
 
 Reference math (`src/prepare_W.jl:28-94`): per block,
 
@@ -16,17 +17,25 @@ bounded 1e-5*I shift loop; a congruent spectrum below -1e-2 (the
 reference's maximum total S shift) marks the scaling not ok. Method 'svd'
 is the reference's formulation, kept as the parity path: chol of X and S
 together, the library SVD, S^{-1} by two triangular solves.
+
+`nt_scale_dd` (nt_precision='dd', the dd2 tier) runs chol(X), the
+congruence L_x^T S L_x and its Jacobi eigendecomposition on dd pairs
+(`ops/dd_linalg.py`), so the congruent spectrum (~mu) survives below the
+f64 formation noise u64 ||M||; its dd low words come back as `NTTails`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .dd import DD
+from .dd_linalg import (dd_chol, dd_const, dd_div, dd_eigh_jacobi, dd_matmul, dd_mul, dd_sqrt,
+                        dd_sym, dd_transpose)
 from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
 from .linalg import chol_reg, eigh_or_nan, svd_or_nan, sym, tri_solve
 
-__all__ = ["NTScaling", "nt_scale"]
+__all__ = ["NTScaling", "NTTails", "nt_scale", "nt_scale_dd"]
 
 
 def _eigh(M: torch.Tensor, backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,3 +121,92 @@ def nt_scale(
         D=D, G=G, Gi=Gi, W=W, Si=Si, DDsi=DDsi, ok=ok,
         shifted=shifted, s_indef=s_indef,
     )
+
+
+class NTTails(NamedTuple):
+    """dd low words of the NT quantities of `nt_scale_dd`; the hi words are
+    the sibling `NTScaling`'s, and the step folds these in as first-order
+    terms (sandwiches, the Schur assembly, the corrector's target)."""
+
+    D_lo: torch.Tensor  # [nb, m]
+    G_lo: torch.Tensor  # [nb, m, m]
+    W_lo: torch.Tensor  # [nb, m, m]
+    dd_ok: torch.Tensor  # bool scalar: the dd factorizations succeeded everywhere
+
+
+def nt_scale_dd(
+    X: DD,
+    S: DD,
+    reg_eps: float = 1e-5,
+    max_reg: int = 1000,
+    eigh_backend: str = "auto",
+    sweeps: Optional[int] = None,
+    mesh=None,
+) -> Tuple[NTScaling, NTTails]:
+    """NT scaling in double-double from dd-stored iterates
+    (`loraine_tpu/ops/nt_scaling.py:nt_scale_dd`; the reference's
+    `prepare_W` at T = Float64x4, `src/prepare_W.jl:28-94`).
+
+    The f64 `nt_scale` of the hi words is the baseline. Then dd_chol(X),
+    M = L_x^T S L_x in dd, the warm start V0 from the ``eigh_backend``
+    eigenbasis of M.hi (B1's seed plus the f64 refinement under
+    'pallas'/'auto'), `dd_eigh_jacobi` from V0, a 2^-100 relative clamp of
+    the spectrum, and D, D^{-1/2}, G and W in dd; Gi, Si and DDsi from the
+    hi words (their consumers are f64).
+
+    Fallback: where the dd Cholesky meets a nonpositive pivot or the
+    congruent spectrum is not positive in any block, every output selects
+    the f64 baseline with zero tails and ``dd_ok`` is False (a
+    `torch.where` select, no host read). ``mesh``: the group's blocks lie
+    on the mesh's 'blocks' axis, and ``dd_ok`` is reduced over it, so one
+    failing block sends every block to the fallback, as the JAX package's
+    global ``.all()`` does."""
+    base = nt_scale(X.hi, S.hi, reg_eps=reg_eps, max_reg=max_reg, method="eigh",
+                    eigh_backend=eigh_backend)
+
+    Lx, chol_ok = dd_chol(X)
+    M = dd_sym(dd_matmul(dd_transpose(Lx), dd_matmul(S, Lx)))
+    # warm start from the f64 eigenbasis of M.hi: the dd sweeps then only
+    # clean up the ~u64 off-diagonal mass
+    _, V0 = _eigh(sym(M.hi), eigh_backend)
+    lam, V = dd_eigh_jacobi(M, sweeps=sweeps, V0=V0)
+
+    lam_max = lam.hi[..., -1:].clamp_min(1e-300)
+    s_indef = (lam.hi[..., 0] <= 0.0).any()
+    dd_ok = chol_ok.all() & ~s_indef
+    if mesh is not None:
+        dd_ok = mesh.reduce(dd_ok, "blocks", "min")
+    ok = base.ok & ~(lam.hi[..., 0] < -1e-2).any()
+    # 2^-100 relative (the f64 path's is 1e-14): keeps sqrt and the
+    # divides finite in the branch not taken without touching live spectra
+    clamp = 2.0**-100 * lam_max
+    needs = lam.hi < clamp
+    lam = DD(torch.where(needs, clamp, lam.hi), torch.where(needs, 0.0, lam.lo))
+
+    D = dd_sqrt(lam)
+    d_isqrt = dd_div(dd_const(1.0, D.hi), dd_sqrt(D))  # D^{-1/2}
+    LxV = dd_matmul(Lx, V)
+    G = dd_mul(LxV, DD(d_isqrt.hi[..., None, :], d_isqrt.lo[..., None, :]))
+    W = dd_sym(dd_matmul(G, dd_transpose(G)))
+
+    # Gi = D^{1/2} V^T Lx^{-1}, Si = G D^{-1} G^T (exact NT identity),
+    # DDsi = diag(G^T S G)^{-1/2} = D^{-1/2}
+    Gi = torch.sqrt(D.hi)[..., :, None] * tri_solve(Lx.hi, V.hi, trans=True).mT
+    Si = sym((G.hi / D.hi[..., None, :]) @ G.hi.mT)
+    DDsi = d_isqrt.hi
+
+    def pick(dd_val, f64_val):
+        return torch.where(dd_ok, dd_val, f64_val)
+
+    false = torch.zeros((), dtype=torch.bool, device=dd_ok.device)
+    nts = NTScaling(
+        D=pick(D.hi, base.D), G=pick(G.hi, base.G), Gi=pick(Gi, base.Gi),
+        W=pick(W.hi, base.W), Si=pick(Si, base.Si), DDsi=pick(DDsi, base.DDsi),
+        ok=torch.where(dd_ok, ok, base.ok),
+        shifted=torch.where(dd_ok, false, torch.as_tensor(base.shifted, device=dd_ok.device)),
+        s_indef=torch.where(dd_ok, false, base.s_indef),
+    )
+    tails = NTTails(D_lo=pick(D.lo, torch.zeros_like(base.D)),
+                    G_lo=pick(G.lo, torch.zeros_like(base.G)),
+                    W_lo=pick(W.lo, torch.zeros_like(base.W)), dd_ok=dd_ok)
+    return nts, tails

@@ -37,7 +37,10 @@ The double-double counterparts for precision 'dd'/'dd2' (`Aop_dd`,
 `Aadj_dd`, `schur_group_dd` with `_schur_sparse_dd`, `schur_lp_dd`) run
 every GEMM as an Ozaki-sliced exact product (`ops/ozaki.py`) and every
 accumulation in dd, as the JAX package does. The sparse `Aadj_dd` reduces
-each cell's entries in dd over the same two-level layout.
+each cell's entries in dd over the same two-level layout. On a sharded
+group they take the f64 operators' sharding, with the sums over a sharded
+axis completed by `Mesh.reduce_dd` (`bsum_dd`) and the row gathers moving
+both words (`gather_rows_dd`).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from ..problem import BlockGroup
 from .dd import DD, dd_add, dd_sum, two_prod, two_sum
 from .ozaki import acc_matmul, acc_matvec
 
-__all__ = ["bsum", "gather_rows", "gather_blocks", "Aop", "Aadj", "schur_group",
+__all__ = ["bsum", "bsum_dd", "gather_rows", "gather_rows_dd", "gather_blocks", "Aop", "Aadj", "schur_group",
            "schur_group_mixed", "lp_weight", "schur_lp", "schur_lp_mixed", "Aop_dd", "Aadj_dd",
            "schur_group_dd", "schur_lp_dd"]
 
@@ -73,6 +76,24 @@ def gather_rows(group: BlockGroup, x: torch.Tensor, dim: int = 0) -> torch.Tenso
         return x
     r0, r1 = sh.rows
     return sh.mesh.gather(x, "schur", (r1 - r0) * sh.mesh.shape["schur"], r0, dim)
+
+
+def bsum_dd(group: BlockGroup, x: DD) -> DD:
+    """`bsum` for a dd partial: `Mesh.reduce_dd` over 'blocks'."""
+    sh = group.shard
+    return sh.mesh.reduce_dd(x, "blocks") if sh is not None and sh.split_blocks else x
+
+
+def gather_rows_dd(owner, x: DD) -> DD:
+    """`gather_rows` for a dd vector over the rows of ``owner`` (a group or
+    a problem: whatever carries the `Shard`), both words in one gather."""
+    sh = owner.shard
+    if sh is None or not sh.split_rows:
+        return x
+    r0, r1 = sh.rows
+    full = sh.mesh.gather(torch.stack([x.hi, x.lo]), "schur",
+                          (r1 - r0) * sh.mesh.shape["schur"], r0, dim=1)
+    return DD(full[0], full[1])
 
 
 def gather_blocks(group: BlockGroup, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -250,17 +271,23 @@ def _dd_renorm(hi: torch.Tensor, lo: torch.Tensor) -> DD:
     return DD(s, lo - t)
 
 
-def _flat_data(group: BlockGroup) -> torch.Tensor:
-    """The dense data stack as [n, nb*m*m] (constraint-major rows)."""
-    nb, n, m, _ = group.A.shape
-    return group.A.movedim(1, 0).reshape(n, nb * m * m)
+def _flat_data(A: torch.Tensor) -> torch.Tensor:
+    """A dense data stack [nb, n, m, m] as [n, nb*m*m] (constraint-major
+    rows); on a shard the rank's own blocks and rows."""
+    nb, n, m, _ = A.shape
+    return A.movedim(1, 0).reshape(n, nb * m * m)
 
 
 def Aop_dd(group: BlockGroup, M: torch.Tensor, Mlo: Optional[torch.Tensor] = None) -> DD:
     """Aop in double-double: [n] <- sum_b <A_j, M_b> with dd accumulation
     (`schur.py:Aop_dd`); ``Mlo`` is an optional low part of M, entering as
     a plain f64 first-order term. Dense: an Ozaki-exact matvec against the
-    flattened stack; rank-1 and sparse: TwoProd and dd tree sums."""
+    flattened stack; rank-1 and sparse: TwoProd and dd tree sums. Sharded:
+    the blocks summed in dd over 'blocks', the rows gathered over 'schur'."""
+    return gather_rows_dd(group, bsum_dd(group, _aop_dd_local(group, M, Mlo)))
+
+
+def _aop_dd_local(group: BlockGroup, M: torch.Tensor, Mlo: Optional[torch.Tensor]) -> DD:
     if group.is_rank1:
         p = two_prod(group.B @ M, group.B)  # f64 inner product, then exact
         vals = dd_sum(p, axis=-1)  # [nb, n]
@@ -280,7 +307,7 @@ def Aop_dd(group: BlockGroup, M: torch.Tensor, Mlo: Optional[torch.Tensor] = Non
             s = two_sum(w.hi, corr)
             w = DD(s.hi, s.lo + w.lo)
         return w
-    Af = _flat_data(group)
+    Af = _flat_data(group.A)
     r = acc_matvec(Af, M.reshape(-1))
     if Mlo is not None:
         s = two_sum(r.hi, Af @ Mlo.reshape(-1))
@@ -298,7 +325,17 @@ def Aadj_dd(group: BlockGroup, y: DD) -> DD:
       sparse: TwoProd per entry and a dd sum per target cell over the
               two-level `AdjLayout` (each level a dd tree sum, the pad slots
               exact zeros), then placement at the unique cells.
-    """
+
+    Sharded rows: this rank's rows of y, both words, and the partial sum
+    completed in dd over 'schur'."""
+    sh = group.shard
+    if sh is not None and sh.split_rows:
+        r0, r1 = sh.rows
+        return sh.mesh.reduce_dd(_aadj_dd_local(group, DD(y.hi[r0:r1], y.lo[r0:r1])), "schur")
+    return _aadj_dd_local(group, y)
+
+
+def _aadj_dd_local(group: BlockGroup, y: DD) -> DD:
     if group.is_rank1:
         w = group.Bsgn * y.hi[None, :]  # sgn in {-1, 0, 1}: exact product
         wlo = group.Bsgn * y.lo[None, :]
@@ -326,26 +363,31 @@ def Aadj_dd(group: BlockGroup, y: DD) -> DD:
 
         return DD(place(cell.hi), place(cell.lo))
     nb, n, m, _ = group.A.shape
-    AfT = _flat_data(group).mT  # [nb*m*m, n]
+    AfT = _flat_data(group.A).mT  # [nb*m*m, n]
     r = acc_matvec(AfT, y.hi)
     s = two_sum(r.hi, AfT @ y.lo)
     return DD(s.hi.reshape(nb, m, m), (s.lo + r.lo).reshape(nb, m, m))
 
 
-def _schur_sparse_dd(group: BlockGroup, W: torch.Tensor) -> DD:
+def _schur_sparse_dd(group: BlockGroup, W: torch.Tensor,
+                     W_lo: Optional[torch.Tensor] = None) -> DD:
     """Sparse-data Schur contribution in double-double (`schur.py:
     _schur_sparse_dd`): the gather pipeline of `_schur_sparse` with each COO
     slot's outer product v_t (W e_{r_t})(W e_{c_t})^T entering T2 as TwoProd
     pairs summed in dd, and the contraction against Avals as TwoProd plus dd
-    sums; the block axis is summed in dd. Chunks of J constraints with the
-    JAX package's rule J = min(n, max(4, 2^21 // (nb m^2)))."""
-    nb, n, s = group.Avals.shape
+    sums; the block axis is summed in dd. ``W_lo`` (the native dd NT
+    scaling's W tail): the first-order terms of both outer-product factors
+    folded into T2's low words. The rows j are the group's own, the k run
+    over its column operand (`_cols`). Chunks of J constraints with the JAX
+    package's rule J = min(n, max(4, 2^21 // (nb m^2)))."""
+    rows_k, cols_k, vals_k = _cols(group, group.Arows, group.Acols, group.Avals)
+    nb, n, s = vals_k.shape
     m = group.m
     J = int(min(n, max(4, (1 << 21) // max(1, nb * m * m))))
-    flatk = (group.Arows * m + group.Acols).reshape(nb, 1, n * s)
+    flatk = (rows_k * m + cols_k).reshape(nb, 1, n * s)
     bidx = torch.arange(nb, device=W.device)[:, None, None]
     his, los = [], []
-    for j0 in range(0, n, J):
+    for j0 in range(0, group.Avals.shape[1], J):
         r_c, c_c = group.Arows[:, j0 : j0 + J], group.Acols[:, j0 : j0 + J]
         v_c = group.Avals[:, j0 : j0 + J]
         Wa, Wc = W[bidx, r_c], W[bidx, c_c]  # [nb, Jc, s, m]
@@ -356,12 +398,17 @@ def _schur_sparse_dd(group: BlockGroup, W: torch.Tensor) -> DD:
             wc = Wc[:, :, t, None, :]
             outer = two_prod(av.hi[..., :, None], wc)
             acc = dd_add(acc, DD(outer.hi, outer.lo + av.lo[..., :, None] * wc))
+        if W_lo is not None:
+            Wal, Wcl = W_lo[bidx, r_c], W_lo[bidx, c_c]
+            corr = (torch.einsum("bjtp,bjt,bjtq->bjpq", Wal, v_c, Wc)
+                    + torch.einsum("bjtp,bjt,bjtq->bjpq", Wa, v_c, Wcl))
+            acc = DD(acc.hi, acc.lo + corr)
         idx = flatk.expand(nb, Jc, n * s)
         Ghi = torch.gather(acc.hi.reshape(nb, Jc, m * m), 2, idx).reshape(nb, Jc, n, s)
         Glo = torch.gather(acc.lo.reshape(nb, Jc, m * m), 2, idx).reshape(nb, Jc, n, s)
         hrow = DD(W.new_zeros((nb, Jc, n)), W.new_zeros((nb, Jc, n)))
         for t in range(s):
-            av = group.Avals[:, None, :, t]
+            av = vals_k[:, None, :, t]
             p = two_prod(Ghi[..., t], av)
             hrow = dd_add(hrow, DD(p.hi, p.lo + Glo[..., t] * av))
         out = dd_sum(hrow, axis=0)  # [Jc, n]
@@ -370,45 +417,78 @@ def _schur_sparse_dd(group: BlockGroup, W: torch.Tensor) -> DD:
     return DD(torch.cat(his, dim=0), torch.cat(los, dim=0))
 
 
-def schur_group_dd(group: BlockGroup, W: torch.Tensor, G: torch.Tensor) -> DD:
-    """Schur contribution in double-double (`schur.py:schur_group_dd`; the
-    W_lo/G_lo tail terms of the native dd NT scaling are not ported, ROADMAP
-    item 12e): every GEMM an Ozaki-sliced exact product, accumulations dd.
+def schur_group_dd(group: BlockGroup, W: torch.Tensor, G: torch.Tensor,
+                   W_lo: Optional[torch.Tensor] = None,
+                   G_lo: Optional[torch.Tensor] = None) -> DD:
+    """Schur contribution in double-double (`schur.py:schur_group_dd`):
+    every GEMM an Ozaki-sliced exact product, accumulations dd.
 
       rank-1: BG = B G exact, P = BG BG^T exact plus the BG.lo cross terms,
               then the elementwise square in dd and the signed block sum;
       sparse: `_schur_sparse_dd`;
-      dense:  T = W A W in dd, then H = A_flat T_flat^T in dd."""
+      dense:  T = W A W in dd, then H = A_flat T_flat^T in dd.
+
+    ``W_lo``/``G_lo``: the tails of the native dd NT scaling
+    (nt_precision='dd'), entering as first-order f64 terms: W_lo A W +
+    W A W_lo on dense and sparse data, B G_lo folded into BG on rank-1
+    data. They keep H consistent with the tailed W of the directions.
+
+    Sharded: this rank's rows of H against the column operand (`_cols`),
+    summed in dd over 'blocks'. The rows are not symmetrized there (the
+    factorization reads the lower triangle; the dd refinement multiplies
+    by the assembled rows), as in the f64 `schur_group`."""
+    return bsum_dd(group, _schur_group_dd_local(group, W, G, W_lo, G_lo))
+
+
+def _schur_group_dd_local(group: BlockGroup, W: torch.Tensor, G: torch.Tensor,
+                          W_lo: Optional[torch.Tensor], G_lo: Optional[torch.Tensor]) -> DD:
     if group.is_rank1:
-        BG = acc_matmul(group.B, G)  # [nb, n, m]
-        GT = BG.hi.mT
+        Bk, sgnk = _cols(group, group.B, group.Bsgn)
+
+        def bg(B):
+            out = acc_matmul(B, G)  # [nb, n, m]
+            return out if G_lo is None else DD(out.hi, out.lo + B @ G_lo)
+
+        BG = bg(group.B)
+        BGk = BG if Bk is group.B else bg(Bk)
+        GT = BGk.hi.mT
         P = acc_matmul(BG.hi, GT)  # [nb, n, n]
-        # lo-part cross terms BG.lo BG.hi^T and its transpose (BG.lo BG.lo^T
-        # is below dd resolution)
+        # lo-part cross terms BG.lo BGk.hi^T and BG.hi BGk.lo^T (BG.lo
+        # BGk.lo^T is below dd resolution)
         cross = BG.lo @ GT
-        P = _dd_renorm(P.hi, P.lo + cross + cross.mT)
+        cross2 = cross.mT if BGk is BG else BG.hi @ BGk.lo.mT
+        P = _dd_renorm(P.hi, P.lo + cross + cross2)
         sq = two_prod(P.hi, P.hi)
         Psq = _dd_renorm(sq.hi, sq.lo + 2.0 * P.hi * P.lo)
-        sgn = group.Bsgn[:, :, None] * group.Bsgn[:, None, :]
+        sgn = group.Bsgn[:, :, None] * sgnk[:, None, :]
         return dd_sum(DD(Psq.hi * sgn, Psq.lo * sgn), axis=0)
     if group.is_sparse:
-        return _schur_sparse_dd(group, W)
+        return _schur_sparse_dd(group, W, W_lo)
     nb, n, m, _ = group.A.shape
+    (Ak,) = _cols(group, group.A)
     WA = acc_matmul(W[:, None], group.A)  # [nb, n, m, m]
     T = acc_matmul(WA.hi, W[:, None])
-    T = _dd_renorm(T.hi, T.lo + WA.lo @ W[:, None])
-    Af = _flat_data(group)
+    Tlo = WA.lo @ W[:, None]
+    if W_lo is not None:
+        Tlo = Tlo + W_lo[:, None] @ (group.A @ W[:, None]) + WA.hi @ W_lo[:, None]
+    T = _dd_renorm(T.hi, T.lo + Tlo)
     Thf = T.hi.movedim(1, 0).reshape(n, -1)
     Tlf = T.lo.movedim(1, 0).reshape(n, -1)
+    Af = _flat_data(Ak)
     H = acc_matmul(Af, Thf.mT)
-    return _dd_renorm(H.hi, H.lo + Af @ Tlf.mT)
+    if Ak is group.A:
+        return _dd_renorm(H.hi, H.lo + Af @ Tlf.mT)
+    # this rank's rows j: the whole product's columns j, transposed (the
+    # unsharded H's entries (k, j): T is formed for the own rows only)
+    return _dd_renorm(H.hi.mT, (H.lo + Af @ Tlf.mT).mT)
 
 
-def schur_lp_dd(C_lin: torch.Tensor, w: DD) -> DD:
+def schur_lp_dd(C_lin: torch.Tensor, w: DD, rows: slice = slice(None)) -> DD:
     """schur_lp at dd accuracy (`schur.py:schur_lp_dd`): the C*w scaling by
     TwoProd, the big product Ozaki-exact, the w.lo first-order term a plain
-    f64 GEMM."""
-    p = two_prod(C_lin, w.hi[None, :])
+    f64 GEMM; its ``rows`` only when given (the LP data is replicated)."""
+    Cr = C_lin[rows]
+    p = two_prod(Cr, w.hi[None, :])
     H = acc_matmul(p.hi, C_lin.mT)
-    s = two_sum(H.hi, (p.lo + C_lin * w.lo[None, :]) @ C_lin.mT)
+    s = two_sum(H.hi, (p.lo + Cr * w.lo[None, :]) @ C_lin.mT)
     return _dd_renorm(s.hi, s.lo + H.lo)

@@ -29,9 +29,12 @@ Launcher, one process per rank (a FileStore rendezvous, no port)::
 It prints one line per gate with the sharded and single-rank values, the
 iterations and each rank's B1/B2/B3 launches in the sharded run, and exits
 non-zero when a gate or a rank fails. ``--case sdplib:NAME`` solves
-tests/data/NAME.dat-s on the (1, N) mesh with ``--opts`` (``--step``: one
-step, held against one rank's), and ``--case two_process`` is the
-counterpart of tests/multiprocess_worker.py (mesh (N, 1)).
+tests/data/NAME.dat-s on the (1, N) mesh with ``--opts`` (``--step``:
+one step, held against one rank's), ``--case two_process`` is the
+counterpart of tests/multiprocess_worker.py (mesh (N, 1)), and ``--case
+dd_steps`` takes the one-step cases of the precision tiers (`DD_STEPS`,
+tests/test_torch_parallel.py's) on the (N, 1) mesh, each held against one
+rank's at tests/test_parallel.py's dd2 tolerances.
 """
 from __future__ import annotations
 
@@ -135,6 +138,176 @@ GATE_OPTS = {
 }
 
 
+def nolp_blocks(device):
+    """tests/test_parallel.py `_dense_noLP_problem`: 4 dense 6x6 blocks,
+    n = 12, no LP cone (seed 7)."""
+    import loraine_tpu_torch as ltt
+
+    rng = np.random.default_rng(7)
+    nb, n, m = 4, 12, 6
+    As, Cs = [], []
+    for _ in range(nb):
+        A = rng.standard_normal((n, m, m))
+        As.append((A + A.transpose(0, 2, 1)) / 2)
+        C = rng.standard_normal((m, m))
+        Cs.append(C @ C.T + m * np.eye(m))
+    b = rng.standard_normal(n)
+    return ltt.problem_from_dense(As, Cs, b, storage="dense", device=device)
+
+
+def lp_blocks(device):
+    """tests/test_parallel.py `_multiblock_problem`: 4 dense 8x8 blocks,
+    n = 16, and 4 LP variables (seed 0)."""
+    import loraine_tpu_torch as ltt
+
+    rng = np.random.default_rng(0)
+    nb, n, m, nlin = 4, 16, 8, 4
+    As, Cs = [], []
+    for _ in range(nb):
+        A = rng.standard_normal((n, m, m))
+        As.append((A + A.transpose(0, 2, 1)) / 2)
+        C = rng.standard_normal((m, m))
+        Cs.append(C @ C.T + m * np.eye(m))
+    b = rng.standard_normal(n)
+    C_lin = rng.standard_normal((n, nlin))
+    d_lin = np.abs(rng.standard_normal(nlin)) + 1.0
+    return ltt.problem_from_dense(As, Cs, b, C_lin=C_lin, d_lin=d_lin, device=device)
+
+
+def sparse_blocks(device):
+    """tests/test_parallel.py `test_sharded_sparse_storage_matches`'s data:
+    4 sparse 8x8 blocks, n = 16 (seed 4)."""
+    import loraine_tpu_torch as ltt
+
+    rng = np.random.default_rng(4)
+    nb, n, m = 4, 16, 8
+    As = []
+    for _ in range(nb):
+        A = np.zeros((n, m, m))
+        for j in range(n):
+            r, c = rng.integers(0, m, 2)
+            v = rng.standard_normal()
+            A[j, r, c] += v
+            A[j, c, r] += v * (r != c)
+        As.append(A)
+    Cs = [np.eye(m) * (m + i) for i in range(nb)]
+    b = rng.standard_normal(n)
+    return ltt.problem_from_dense(As, Cs, b, storage="sparse", device=device)
+
+
+def rank1_blocks(device):
+    """Gate 3's rank-1 data: 4 blocks, n = 24, m = 16."""
+    import loraine_tpu_torch as ltt
+
+    d = gate_data(2)[3]
+    kw = {k: v for k, v in d.items() if k not in ("As", "Cs", "b")}
+    return ltt.problem_from_dense(d["As"], d["Cs"], d["b"], device=device, **kw)
+
+
+# The one-step cases of the precision tiers on the mesh (tests/
+# test_torch_parallel.py, and ``--case dd_steps``): name -> (problem,
+# options, start). The step starts from the initial point (start 0) or
+# from the unsharded f64 solve's iterate after ``start`` iterations (zero
+# tails), where the dd NT scaling departs from the f64 one; "_indef" then
+# moves block 1's X off the PSD cone, so that block's dd Cholesky fails
+# and every block (on every rank) takes the f64 fallback.
+NT_DD = {"precision": "dd2", "nt_precision": "dd"}
+DD_STEPS = {
+    "dd2": (nolp_blocks, {"precision": "dd2"}, 0),
+    "dd": (nolp_blocks, {"precision": "dd"}, 0),
+    "dd2_kit1": (nolp_blocks, {"precision": "dd2", "kit": 1, "preconditioner": 1}, 0),
+    "dd2_ntdd": (nolp_blocks, NT_DD, 12),
+    "dd2_ntdd_indef": (nolp_blocks, NT_DD, 12),
+    "dd2_sparse": (sparse_blocks, {"precision": "dd2"}, 0),
+    "dd2_lp": (lp_blocks, {"precision": "dd2"}, 0),
+    "dd2_rank1": (rank1_blocks, {"precision": "dd2", "datarank": -1}, 0),
+}
+
+
+def _dd_start(key: str, problem, o, device):
+    """The state `DD_STEPS[key]`'s step starts from (unsharded)."""
+    import dataclasses
+
+    import loraine_tpu_torch as ltt
+    from ..ipm.initial import initial_point
+
+    start = DD_STEPS[key][2]
+    st = initial_point(problem, o)
+    if start:
+        st = ltt.solve(problem, dict(kit=0, verb=0, datasparsity=0, maxit=start, eDIMACS=1e-30),
+                       device=device).final_state
+    st = ltt.Solver(problem, o, device=device)._normalize_tails(st)
+    if key.endswith("_indef"):
+        X = list(st.X[0])
+        lam = torch.linalg.eigvalsh(X[1])
+        X[1] = X[1] - (lam[0] + 1e-6 * lam[-1]) * torch.eye(X[1].shape[-1], dtype=X[1].dtype,
+                                                             device=X[1].device)
+        st = dataclasses.replace(st, X=(torch.stack(X),) + st.X[1:])
+    return st
+
+
+def _dd_ok(problem, st, o) -> List[bool]:
+    """Each group's `NTTails.dd_ok` of the dd NT scaling of ``st`` (on a
+    mesh: reduced over 'blocks', as the step does)."""
+    from ..ops.dd import DD
+    from ..ops.nt_scaling import nt_scale_dd
+
+    return [bool(nt_scale_dd(DD(X, Xl), DD(S, Sl), eigh_backend=o.eigh_backend,
+                             mesh=problem.mesh)[1].dd_ok)
+            for X, Xl, S, Sl in zip(st.X, st.X_lo, st.S, st.S_lo)]
+
+
+def dd_step_pair(key: str, mesh, device) -> Dict[str, np.ndarray]:
+    """One step of the case ``key`` of `DD_STEPS`, unsharded and on
+    ``mesh``: y, each group's X (gathered) and DIMACS as [unsharded,
+    sharded] pairs, the sharded step's seconds and this rank's B1/B2/B3
+    launches in it, and under nt_precision='dd' each group's dd_ok."""
+    import loraine_tpu_torch as ltt
+    from ..ipm.step import step
+    from ..ops.schur import gather_blocks
+    from .mesh import shard_problem, shard_state
+
+    build, extra = DD_STEPS[key][:2]
+    problem = build(device)
+    o = ltt.Options(**{"kit": 0, "verb": 0, "datasparsity": 0, **extra}).validated()
+    st = _dd_start(key, problem, o, device)
+    ref_state, ref_stats = step(problem, st, o)
+    sp, ss = shard_problem(problem, mesh), shard_state(st, problem, mesh)
+    before = _launches()
+    t0 = time.perf_counter()
+    out_state, out_stats = step(sp, ss, o)
+    out_h = out_stats.to_host(mesh)
+    R = {"seconds": np.array(time.perf_counter() - t0),
+         "launches": np.array([a - b for a, b in zip(_launches(), before)]),
+         "y": np.stack([ref_state.y.cpu().numpy(), out_state.y.cpu().numpy()]),
+         "dimacs": np.array([float(ref_stats.dimacs), out_h["dimacs"]]),
+         "ok": np.array([bool(out_h["nt_ok"]) and bool(out_h["h_ok"])])}
+    for gi, (g, Xr, Xs) in enumerate(zip(sp.groups, ref_state.X, out_state.X)):
+        R[f"X{gi}"] = np.stack([Xr.cpu().numpy(), gather_blocks(g, Xs).cpu().numpy()])
+    if o.nt_precision == "dd":
+        R["dd_ok"] = np.array([_dd_ok(problem, st, o), _dd_ok(sp, ss, o)])
+    return R
+
+
+def check_dd_step(key: str, R: Dict[str, np.ndarray]) -> float:
+    """`dd_step_pair`'s result for ``key`` at tests/test_parallel.py::
+    test_sharded_dd2_step_matches_single_device's tolerances: y within 1e-9
+    relative (1e-10 absolute), X within 1e-8 (1e-9), DIMACS within 1e-8;
+    both steps ok; the dd_ok flags equal, False in the "_indef" case and
+    True otherwise. Returns the largest |dX|."""
+    np.testing.assert_allclose(R["y"][1], R["y"][0], rtol=1e-9, atol=1e-10)
+    err_x = 0.0
+    for k in [k for k in R if k.startswith("X")]:
+        np.testing.assert_allclose(R[k][1], R[k][0], rtol=1e-8, atol=1e-9)
+        err_x = max(err_x, float(np.abs(R[k][1] - R[k][0]).max()))
+    np.testing.assert_allclose(R["dimacs"][1], R["dimacs"][0], rtol=1e-8)
+    assert R["ok"].all(), f"{key}: the sharded step reported failure"
+    if "dd_ok" in R:
+        assert (R["dd_ok"][1] == R["dd_ok"][0]).all(), (key, R["dd_ok"])
+        assert (R["dd_ok"] == (not key.endswith("_indef"))).all(), (key, R["dd_ok"])
+    return err_x
+
+
 def _launches() -> List[int]:
     """This process's B1, B2 and B3 launches so far."""
     from ..ops.jacobi import jacobi_bounds_cuda, jacobi_eigh_cuda
@@ -230,7 +403,8 @@ def run_sdplib(name: str, opts: dict, device, one_step: bool) -> dict:
     p = ltt.load_problem(os.path.join(DATA, f"{name}.dat-s"), o, device=device)
     mesh = make_mesh((1, distributed.world_size()))
     rec = {"case": f"sdplib:{name}" + (" step" if one_step else ""),
-           "mesh": [1, mesh.size], "n": p.n}
+           "mesh": [1, mesh.size], "n": p.n,
+           "sparse": all(g.is_sparse for g in p.groups)}
     sp = shard_problem(p, mesh)
     if one_step:
         st = initial_point(p, o)
@@ -250,9 +424,29 @@ def run_sdplib(name: str, opts: dict, device, one_step: bool) -> dict:
         res = ltt.solve(sp, dict(opts), device=device)
         rec["seconds"] = time.perf_counter() - t0
         rec.update(sharded=res.objective, iters=[res.iterations], status=res.status,
-                   median_iter_s=float(np.median(res.iteration_times)))
+                   median_iter_s=float(np.median(res.iteration_times)), dimacs=res.dimacs,
+                   errs=res.errs)
     rec["launches"] = [a - b for a, b in zip(_launches(), before)]
     return rec
+
+
+def run_dd_steps(device) -> List[dict]:
+    """Every case of `DD_STEPS` on the (N, 1) mesh (the blocks split), each
+    held against one rank's by `check_dd_step`."""
+    from .mesh import make_mesh
+
+    mesh = make_mesh((distributed.world_size(), 1))
+    recs = []
+    for key in DD_STEPS:
+        R = dd_step_pair(key, mesh, device)
+        err_x = check_dd_step(key, R)
+        recs.append({"case": f"dd_steps {key}", "mesh": [mesh.size, 1],
+                     "single": float(R["dimacs"][0]), "sharded": float(R["dimacs"][1]),
+                     "iters": [1], "rel": _rel(R["dimacs"][1], R["dimacs"][0]),
+                     "max_abs_dX": err_x, "seconds": float(R["seconds"]),
+                     "launches": R["launches"].tolist(),
+                     "dd_ok": R["dd_ok"].tolist() if "dd_ok" in R else None})
+    return recs
 
 
 def run_two_process(device) -> dict:
@@ -317,6 +511,9 @@ def _rank_main(a) -> None:
     elif a.case == "two_process":
         rec = run_two_process(device)
         print("RECORD " + json.dumps({"rank": a.rank, **rec}), flush=True)
+    elif a.case == "dd_steps":
+        for rec in run_dd_steps(device):
+            print("RECORD " + json.dumps({"rank": a.rank, **rec}), flush=True)
     else:
         opts = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0, **json.loads(a.opts),
                 **modes}
@@ -359,7 +556,7 @@ def main(argv=None) -> int:
     ap.add_argument("--modes", choices=("auto", "cpu"), default="auto")
     ap.add_argument("--gates", default="1,2,3,4,5,6,7")
     ap.add_argument("--case", default="gates",
-                    help="'gates', 'two_process' or 'sdplib:NAME'")
+                    help="'gates', 'two_process', 'dd_steps' or 'sdplib:NAME'")
     ap.add_argument("--step", action="store_true", help="sdplib: one step only")
     ap.add_argument("--opts", default="{}", help="sdplib: solver options (JSON) over "
                     "kit=0, eDIMACS 1e-7, initpoint 1")

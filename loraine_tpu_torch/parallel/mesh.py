@@ -30,6 +30,10 @@ PyTorch's Gloo backend offers for CUDA tensors, so one code path serves
 NCCL across cards and Gloo for ranks that share one card. A row gather is
 an all-reduce of a zero-filled full array (exact: each entry has one
 non-zero term), so gathered values are the same bits on every rank.
+
+The precision tiers reduce double-double (hi, lo) partials with
+``reduce_dd``: each rank's pair is gathered exactly, then summed in dd in
+rank order, the same on every rank (the JAX package leaves this to GSPMD).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..ipm.state import IPMState
+from ..ops.dd import DD, dd_sum
 from ..problem import SDPProblem, Shard, adjoint_layout
 from . import distributed
 
@@ -100,6 +105,18 @@ class Mesh:
         full.narrow(dim, lo, x.shape[dim]).copy_(x)
         dist.all_reduce(full, group=self._groups[axis])
         return full
+
+    def reduce_dd(self, x: DD, axis: str) -> DD:
+        """The dd sum over ``axis`` of each rank's dd partial ``x``: every
+        rank's (hi, lo) gathered exactly into a leading axis of k entries
+        (one all-reduce), then `dd_sum` over it in rank order, identically
+        on every rank. All-reducing hi and lo apart would lose the hi
+        words' rounding errors."""
+        k = self.shape[axis]
+        if k == 1:
+            return x
+        parts = self.gather(torch.stack([x.hi, x.lo])[None], axis, k, self.coords[axis])
+        return dd_sum(DD(parts[:, 0], parts[:, 1]), axis=0)
 
     def agree(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as global rank 0 holds it, on every rank (one broadcast).

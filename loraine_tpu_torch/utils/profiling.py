@@ -71,6 +71,19 @@ def lp_synthetic(device="cuda"):
                                   storage="dense", device=device)
 
 
+def dd_nt_case(device="cuda"):
+    """The problem of tests/test_precision.py::test_dd_nt_e2e_cpu: one dense
+    8x8 block, n = 10, seed 5 (the native dd NT scaling's end-to-end case)."""
+    rng = np.random.default_rng(5)
+    m, n = 8, 10
+    A = rng.standard_normal((n, m, m))
+    A = (A + A.transpose(0, 2, 1)) / 2
+    C = rng.standard_normal((m, m))
+    C = C @ C.T + m * np.eye(m)
+    return ltt.problem_from_dense([A], [C], np.einsum("jpp->j", A), storage="dense",
+                                  device=device)
+
+
 def tru3_sparse(device="cuda"):
     """SDPLIB tru3 forced to sparse storage (tests/test_precision.py:158-160)."""
     return ltt.problem_from_sdpa("tests/data/tru3.dat-s", storage="sparse", device=device)
@@ -102,6 +115,10 @@ DD2 = dict(DD, eDIMACS=5e-13, precision="dd2", datasparsity=0)
 CG_DD = {"precision": "dd", "kit": 1, "preconditioner": 1, "eDIMACS": 1e-9, "tol_cg_min": 1e-9,
          "initpoint": 1, "verb": 0, "maxit": 40}
 CG_DD2 = dict(CG_DD, precision="dd2", eDIMACS=1e-10, tol_cg_min=1e-10, datasparsity=0)
+# the native dd NT scaling end to end (tests/test_precision.py::test_dd_nt_e2e_cpu;
+# `chip_smoke.py` phase 38)
+DD2_NT = {"kit": 0, "eDIMACS": 1e-12, "verb": 0, "precision": "dd2", "nt_precision": "dd",
+          "maxit": 40}
 
 # name -> (SDPA file or a function of the device that builds the problem, options)
 CASES = {

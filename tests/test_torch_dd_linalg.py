@@ -1,13 +1,13 @@
 """loraine_tpu_torch.ops.dd_linalg against the mpmath oracles of
 tests/test_dd_linalg.py and against the JAX package.
 
-Every case of tests/test_dd_linalg.py that the port covers runs here with
-the same tolerances (the native dd NT scaling, `nt_scale_dd`, is ROADMAP
-item 12e and not ported yet). The JAX test's alias check guards against
-XLA:CPU's simplifier; the port runs eagerly, so the same computation is
-held to the same oracle without jit. On the same inputs `dd_chol` and
-`dd_eigh_jacobi` agree with the JAX package's within the JAX test's own
-tolerances.
+Every case of tests/test_dd_linalg.py runs here with the same tolerances,
+the native dd NT scaling (`ops/nt_scaling.py:nt_scale_dd`) included. The
+JAX test's alias check guards against XLA:CPU's simplifier; the port runs
+eagerly, so the same computation is held to the same oracle without jit.
+On the same inputs `dd_chol` and `dd_eigh_jacobi` agree with the JAX
+package's within the JAX test's own tolerances, and `nt_scale_dd` with the
+JAX package's in every field, tail and flag (its tolerances below).
 """
 import mpmath as mp
 import numpy as np
@@ -17,11 +17,13 @@ import torch
 import jax.numpy as jnp
 
 from loraine_tpu.ops import dd_linalg as jdl
+from loraine_tpu.ops import nt_scaling as jnts
 from loraine_tpu.ops.dd import DD as JDD
 from loraine_tpu_torch.ops.dd import DD, dd_add, dd_to_f64
 from loraine_tpu_torch.ops.dd_linalg import (dd_abs, dd_chol, dd_const, dd_div, dd_eigh_jacobi,
                                              dd_matmul, dd_mul, dd_sqr, dd_sqrt, dd_sym)
 from loraine_tpu_torch.ops.eigh import round_robin_pairs
+from loraine_tpu_torch.ops.nt_scaling import nt_scale, nt_scale_dd
 
 mp.mp.dps = 50
 
@@ -204,3 +206,109 @@ def test_dd_eigh_odd_size(m):
     refs = _eigs(A, m)
     for i in range(m):
         assert abs(_dd_val(lam.hi[0, i], lam.lo[0, i]) - refs[i]) < 1e-29, i
+
+
+def _stack_dd(parts):
+    return DD(torch.stack([p.hi for p in parts]), torch.stack([p.lo for p in parts]))
+
+
+@pytest.mark.parametrize("backend", ["jacobi", "auto"])
+def test_nt_scale_dd_identities_beyond_f64(backend):
+    """tests/test_dd_linalg.py::test_nt_scale_dd_identities_beyond_f64 with
+    its bounds: X with a spectrum down to ~1e-16 (below f64 absolute
+    resolution), so the f64 D is formation noise on the small end, while
+    the dd scaling keeps D to 1e-14 relative across the whole spectrum
+    and W S W = X, G^T S G = diag(D) to dd class. 'jacobi' is the JAX
+    test's warm start; 'auto' the port's default (B1's plain version on the
+    CPU, then the f64 refinement)."""
+    m = 8
+    Xmp, Xdd = _graded_spd(m, 16, seed=11)
+    Smp, Sdd = _graded_spd(m, 12, seed=13)
+    X, S = _stack_dd([Xdd]), _stack_dd([Sdd])
+    nts, tails = nt_scale_dd(X, S, eigh_backend=backend)
+    assert bool(tails.dd_ok)
+
+    E, _ = mp.eigsy(mp.cholesky(Xmp).T * Smp * mp.cholesky(Xmp))
+    refs = sorted([mp.sqrt(E[i]) for i in range(m)])
+    for i in range(m):
+        rel = abs((_dd_val(nts.D[0, i], tails.D_lo[0, i]) - refs[i]) / refs[i])
+        assert rel < 1e-14, (i, float(rel))
+    base = nt_scale(X.hi, S.hi, method="eigh", eigh_backend=backend)
+    f64_rel = abs((mp.mpf(float(base.D[0, 0])) - refs[0]) / refs[0])
+    got0 = _dd_val(nts.D[0, 0], tails.D_lo[0, 0])
+    assert f64_rel > 1e4 * abs((got0 - refs[0]) / refs[0])
+
+    W = DD(nts.W, tails.W_lo)
+    WSW = dd_matmul(W, dd_matmul(S, W))
+    scale = float(X.hi.abs().max())
+    assert float((dd_to_f64(WSW) - dd_to_f64(X)).abs().max()) < 1e-25 * scale
+
+    G = DD(nts.G, tails.G_lo)
+    GSG = dd_to_f64(dd_matmul(DD(G.hi.mT, G.lo.mT), dd_matmul(S, G)))[0]
+    offdiag = GSG - torch.diag(torch.diag(GSG))
+    assert float(offdiag.abs().max()) < 1e-25 * float(GSG.abs().max())
+
+    # fallback: an X indefinite at dd resolution selects the f64 result with
+    # zero tails and dd_ok False
+    Xbad_hi = X.hi.clone()
+    Xbad_hi[0, -1, -1] = -1.0
+    Xbad, Sgood = DD(Xbad_hi, torch.zeros_like(X.lo)), DD(S.hi, torch.zeros_like(S.lo))
+    nts_b, tails_b = nt_scale_dd(Xbad, Sgood, eigh_backend=backend)
+    assert not bool(tails_b.dd_ok)
+    base = nt_scale(Xbad.hi, Sgood.hi, method="eigh", eigh_backend=backend)
+    np.testing.assert_allclose(nts_b.W.numpy(), base.W.numpy())
+    assert float(tails_b.W_lo.abs().max()) == 0.0
+
+
+def _nt_case(case):
+    """Two graded dd iterates per batch (X spectra down to 1e-16, S to
+    1e-12) at m = 8 or the odd m = 7; 'fallback': the m = 8 batch with one
+    block of X indefinite, so every block takes the f64 scaling."""
+    m = 7 if case == "m7" else 8
+    X = _stack_dd([_graded_spd(m, 16, seed=s)[1] for s in (11, 12)])
+    S = _stack_dd([_graded_spd(m, 12, seed=s)[1] for s in (13, 14)])
+    if case == "fallback":
+        hi = X.hi.clone()
+        hi[1, -1, -1] = -1.0
+        X = DD(hi, X.lo)
+    return X, S
+
+
+@pytest.mark.parametrize("case", ["m8", "m7", "fallback"])
+def test_nt_scale_dd_matches_jax(case):
+    """`nt_scale_dd` against the JAX package's on the same dd iterates, both
+    warm-started by their f64 Jacobi ('jacobi'): the flags equal; D + D_lo
+    within the identities test's 1e-14 relative per entry; G + G_lo and
+    W + W_lo within 1e-17 of their scale (measured on the CPU: 7e-20 and
+    5e-21, the graded dd Cholesky's forward error); Gi, Si and DDsi, formed
+    from the hi words, within 1e-13 of their scale (measured 7e-17). In the
+    fallback each package returns its own f64 `nt_scale`, bit for bit, with
+    zero tails (the two f64 scalings differ by formation noise on the small
+    end of the graded spectrum, and the indefinite block is NaN in both)."""
+    X, S = _nt_case(case)
+    nts, tails = nt_scale_dd(X, S, eigh_backend="jacobi")
+    jX = JDD(jnp.asarray(X.hi.numpy()), jnp.asarray(X.lo.numpy()))
+    jS = JDD(jnp.asarray(S.hi.numpy()), jnp.asarray(S.lo.numpy()))
+    jn, jt = jnts.nt_scale_dd(jX, jS, eigh_backend="jacobi")
+    assert bool(tails.dd_ok) == bool(jt.dd_ok) == (case != "fallback")
+    for f in ("ok", "shifted", "s_indef"):
+        assert bool(getattr(nts, f)) == bool(getattr(jn, f)), f
+    if case == "fallback":
+        base = nt_scale(X.hi, S.hi, method="eigh", eigh_backend="jacobi")
+        jbase = jnts.nt_scale(jX.hi, jS.hi, method="eigh", eigh_backend="jacobi")
+        for f in ("D", "G", "Gi", "W", "Si", "DDsi"):
+            np.testing.assert_array_equal(getattr(nts, f).numpy(), getattr(base, f).numpy())
+            np.testing.assert_array_equal(np.asarray(getattr(jn, f)), np.asarray(getattr(jbase, f)))
+        for lo in ("D_lo", "G_lo", "W_lo"):
+            assert float(getattr(tails, lo).abs().max()) == 0.0
+            assert float(np.abs(np.asarray(getattr(jt, lo))).max()) == 0.0
+        return
+    D, Dj = nts.D.numpy() + tails.D_lo.numpy(), np.asarray(jn.D) + np.asarray(jt.D_lo)
+    assert np.abs((D - Dj) / Dj).max() <= 1e-14
+    for f, lo in (("G", "G_lo"), ("W", "W_lo")):
+        a, b = getattr(nts, f).numpy(), np.asarray(getattr(jn, f))
+        diff = (a - b) + (getattr(tails, lo).numpy() - np.asarray(getattr(jt, lo)))
+        assert np.abs(diff).max() <= 1e-17 * np.abs(b).max(), f
+    for f in ("Gi", "Si", "DDsi"):
+        a, b = getattr(nts, f).numpy(), np.asarray(getattr(jn, f))
+        assert np.abs(a - b).max() <= 1e-13 * np.abs(b).max(), f

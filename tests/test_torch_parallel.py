@@ -3,16 +3,20 @@ mesh as Gloo CPU ranks, one process each (tests/torch_mesh_worker.py,
 launched with a FileStore rendezvous), on a (2, 2) mesh (both axes
 sharded: 4 blocks over 2, n = 16 rows over 2) and a (1, 4) mesh (the
 schur axis only) in place of the JAX suite's (2, 4). Each JAX test has its
-counterpart, sharded against the unsharded port, with the JAX tolerances;
-the dd2 step becomes the check that dd2 on a mesh raises
-NotImplementedError (ROADMAP item 14b).
+counterpart, sharded against the unsharded port, with the JAX tolerances.
+The JAX suite's (slow) dd2 step runs here in tier 1, beside one step of
+each other precision-tier path on the mesh (dd, dd2 on kit=1, dd2 on
+sparse, rank-1 and LP data, and dd2 under nt_precision='dd' from a late
+iterate, also with one block of X indefinite), all at the dd2 step's
+tolerances (the cases and the check are `parallel/dryrun.py`'s
+`DD_STEPS` and `check_dd_step`), and `Mesh.reduce_dd` is held against
+the single-process `dd_sum` at 2 and 4 ranks.
 
 Then the seven gates of `loraine_tpu_torch.parallel.dryrun` (the port of
 `__graft_entry__.dryrun_multichip`) at 2 and 4 ranks, under the JAX CPU
 run's eigen modes (eigh_backend 'mixed', step_eig 'exact'), and each
 4-rank sharded objective against the JAX package's unsharded solve of the
 same numpy-built problem under the same modes, at the gate's tolerance."""
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +30,7 @@ from loraine_tpu.ipm.initial import initial_point
 from loraine_tpu.ipm.step import build_step
 from loraine_tpu.models.maxcut import maxcut_problem
 from loraine_tpu_torch.models.maxcut import maxcut_problem as tmaxcut
+from loraine_tpu_torch.ops.dd import DD, dd_sum
 from loraine_tpu_torch.ops import schur as tschur
 from loraine_tpu_torch.parallel import dryrun, shard_problem
 from loraine_tpu_torch.parallel.distributed import launch
@@ -105,12 +110,47 @@ def test_shard_state_preserves_dd2_tails(shape, tmp_path_factory):
         assert (R["dd2_X_lo"][0] != 0).all()
 
 
+def _assert_dd_step(R, key):
+    """tests/test_parallel.py::test_sharded_dd2_step_matches_single_device's
+    tolerances on the step ``key`` of `dryrun.DD_STEPS`
+    (`dryrun.check_dd_step`)."""
+    dryrun.check_dd_step(key, {k[len(key) + 1:]: v for k, v in R.items()
+                               if k.startswith(key + ".")})
+
+
 @pytest.mark.parametrize("shape", SHAPES)
-def test_sharded_dd2_step_raises_not_ported(shape, tmp_path_factory):
-    """The JAX suite's -m slow dd2 step on the mesh: the port's dd tiers do
-    not run on a mesh yet, and say so."""
-    msg = str(_parallel(shape, tmp_path_factory)[0]["dd2_raises"][0])
-    assert "precision='dd2' on a mesh" in msg and "item 14b" in msg
+def test_sharded_dd2_step_matches_single_device(shape, tmp_path_factory):
+    """One dd2 step on the 4-block problem (n = 12, m = 6), sharded against
+    unsharded."""
+    for R in _parallel(shape, tmp_path_factory):
+        _assert_dd_step(R, "dd2")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("key", ["dd", "dd2_kit1", "dd2_ntdd", "dd2_ntdd_indef", "dd2_sparse",
+                                 "dd2_rank1", "dd2_lp"])
+def test_sharded_dd_steps_match_single_device(shape, key, tmp_path_factory):
+    """The other precision-tier paths on the mesh, one step each, sharded
+    against unsharded at the dd2 step's tolerances. The nt_precision='dd'
+    steps start from a late iterate; in "_indef" one block's X is
+    indefinite, and on (2, 2) the ranks holding the other blocks must also
+    take the f64 fallback (dd_ok False everywhere)."""
+    for R in _parallel(shape, tmp_path_factory):
+        _assert_dd_step(R, key)
+
+
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_reduce_dd_matches_dd_sum(nproc, tmp_path):
+    """`Mesh.reduce_dd` over 'schur' and over 'blocks' gives every rank the
+    single-process `dd_sum` of the ranks' partials in rank order, bit for
+    bit."""
+    launch([WORKER, "reduce_dd", "--out", str(tmp_path)], nproc, timeout=300)
+    for r in range(nproc):
+        R = np.load(tmp_path / f"rank{r}.npz")
+        want = dd_sum(DD(torch.from_numpy(R["hi"]), torch.from_numpy(R["lo"])), axis=0)
+        for axis in ("schur", "blocks"):
+            np.testing.assert_array_equal(R[axis][0], want.hi.numpy())
+            np.testing.assert_array_equal(R[axis][1], want.lo.numpy())
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -225,13 +265,11 @@ def _spd(rng, nb, m):
 
 
 def _schur_problems():
-    sys.path.insert(0, WORKER.rsplit("/", 1)[0])
-    import torch_mesh_worker as w
-
     rng = np.random.default_rng(11)
     A = np.triu(rng.random((24, 24)) < 0.3, 1).astype(float)
     rank1 = tmaxcut(A + A.T, datarank=-1, device="cpu")
-    return {"dense": w.dense_nolp_problem(), "sparse": w.sparse_problem(), "rank1": rank1}
+    return {"dense": dryrun.nolp_blocks("cpu"), "sparse": dryrun.sparse_blocks("cpu"),
+            "rank1": rank1}
 
 
 @pytest.mark.parametrize("storage", ["dense", "sparse", "rank1"])
@@ -256,6 +294,34 @@ def test_row_sharded_schur_rows_need_no_collective(storage, mixed):
         tol = 1e-6 if mixed and storage == "dense" else 1e-12
         np.testing.assert_allclose(Hk.numpy(), H[r0:r1].numpy(), rtol=0,
                                    atol=tol * float(H.abs().max()))
+
+
+@pytest.mark.parametrize("storage", ["dense", "sparse", "rank1"])
+@pytest.mark.parametrize("tails", [False, True])
+def test_row_sharded_schur_dd_rows_need_no_collective(storage, tails):
+    """`schur_group_dd` on a mesh that splits only the rows, with and
+    without the NT tails of nt_precision='dd': each rank's rows from its own
+    rows and the column operand, no collective, and the rows of the
+    unsharded dd H to dd accuracy (the dense rows are the transposed
+    columns, the rank-1 cross term another f64 rounding)."""
+    p = _schur_problems()[storage]
+    g = p.groups[0]
+    rng = np.random.default_rng(13)
+    W = torch.from_numpy(_spd(rng, g.nb, g.m))
+    G = torch.linalg.cholesky(W)
+    kw = {}
+    if tails:
+        kw = {"W_lo": W * 2.0**-54 * torch.from_numpy(_spd(rng, g.nb, g.m)),
+              "G_lo": G * 2.0**-54 * torch.from_numpy(rng.standard_normal((g.nb, g.m, g.m)))}
+    H = tschur.schur_group_dd(g, W, G, **kw)
+    scale = float(H.hi.abs().max())
+    for k in range(2):
+        gs = shard_problem(p, _NoCollectiveMesh((1, 2), (0, k))).groups[0]
+        r0, r1 = gs.shard.rows
+        Hk = tschur.schur_group_dd(gs, W, G, **kw)
+        assert Hk.hi.shape == (r1 - r0, p.n)
+        diff = (Hk.hi - H.hi[r0:r1]) + (Hk.lo - H.lo[r0:r1])
+        assert float(diff.abs().max()) <= 1e-28 * scale, float(diff.abs().max()) / scale
 
 
 @pytest.mark.parametrize("case", ["theta1-kit0", "control1-kit1", "tru3-sparse"])

@@ -152,7 +152,6 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("opts,exc,match", [
-    ({"precision": "dd2", "nt_precision": "dd"}, NotImplementedError, "item 12"),
     ({"gemm_backend": "int8"}, NotImplementedError, "Not carried over"),
     ({"assembly_precision": "f32", "precision": "dd"}, ValueError, "conflicts"),
     ({"chol_backend": "mixed"}, NotImplementedError, "Not carried over"),
@@ -164,6 +163,18 @@ def test_unported_options_raise(opts, exc, match):
     p = ltt.load_problem(str(DATA / "theta1.dat-s"), device="cpu")
     with pytest.raises(exc, match=match):
         ltt.Solver(p, dict(PORT_OPTS, **opts), device="cpu")
+
+
+def test_nt_precision_dd_runs():
+    """nt_precision='dd' raised NotImplementedError until ROADMAP item 12e
+    ported the native dd NT scaling; now a dd2 step runs under it, and its
+    NT tails reach the iterate (tests/test_torch_precision.py holds the step
+    against the JAX package)."""
+    p = ltt.problem_from_sdpa(str(DATA / "tru3.dat-s"), device="cpu")
+    o = dict(PORT_OPTS, precision="dd2", nt_precision="dd", maxit=2, eDIMACS=1e-9)
+    r = ltt.Solver(p, o, device="cpu").solve()
+    assert r.iterations == 2 and np.isfinite(r.dimacs)
+    assert r.final_state.X_lo is not None
 
 
 @pytest.mark.parametrize("option", ["profile_dir", "timing"])

@@ -16,60 +16,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import loraine_tpu_torch as ltt  # noqa: E402
 from loraine_tpu_torch.ipm.initial import initial_point  # noqa: E402
 from loraine_tpu_torch.ipm.step import step  # noqa: E402
+from loraine_tpu_torch.ops.dd import DD  # noqa: E402
 from loraine_tpu_torch.ops.linalg import chol_blocked, chol_reg, cho_solve_inv, tri_inv  # noqa: E402
 from loraine_tpu_torch.ops.schur import gather_blocks  # noqa: E402
 from loraine_tpu_torch.parallel import (auto_mesh, distributed, make_mesh,  # noqa: E402
                                         shard_problem, shard_state)
+from loraine_tpu_torch.parallel import dryrun  # noqa: E402
 
 Q = {"verb": 0}
-
-
-def multiblock_problem():
-    """tests/test_parallel.py `_multiblock_problem`, on the CPU."""
-    rng = np.random.default_rng(0)
-    nb, n, m, nlin = 4, 16, 8, 4
-    As, Cs = [], []
-    for _ in range(nb):
-        A = rng.standard_normal((n, m, m))
-        As.append((A + A.transpose(0, 2, 1)) / 2)
-        C = rng.standard_normal((m, m))
-        Cs.append(C @ C.T + m * np.eye(m))
-    b = rng.standard_normal(n)
-    C_lin = rng.standard_normal((n, nlin))
-    d_lin = np.abs(rng.standard_normal(nlin)) + 1.0
-    return ltt.problem_from_dense(As, Cs, b, C_lin=C_lin, d_lin=d_lin, device="cpu")
-
-
-def sparse_problem():
-    """tests/test_parallel.py `test_sharded_sparse_storage_matches`'s data."""
-    rng = np.random.default_rng(4)
-    nb, n, m = 4, 16, 8
-    As = []
-    for _ in range(nb):
-        A = np.zeros((n, m, m))
-        for j in range(n):
-            r, c = rng.integers(0, m, 2)
-            v = rng.standard_normal()
-            A[j, r, c] += v
-            A[j, c, r] += v * (r != c)
-        As.append(A)
-    Cs = [np.eye(m) * (m + i) for i in range(nb)]
-    b = rng.standard_normal(n)
-    return ltt.problem_from_dense(As, Cs, b, storage="sparse", device="cpu")
-
-
-def dense_nolp_problem():
-    """tests/test_parallel.py `_dense_noLP_problem`."""
-    rng = np.random.default_rng(7)
-    nb, n, m = 4, 12, 6
-    As, Cs = [], []
-    for _ in range(nb):
-        A = rng.standard_normal((n, m, m))
-        As.append((A + A.transpose(0, 2, 1)) / 2)
-        C = rng.standard_normal((m, m))
-        Cs.append(C @ C.T + m * np.eye(m))
-    b = rng.standard_normal(n)
-    return ltt.problem_from_dense(As, Cs, b, storage="dense", device="cpu")
 
 
 def _solve_pair(problem, mesh, opts):
@@ -83,7 +37,7 @@ def case_parallel(shape, out):
     mesh = make_mesh(shape)
     R = {}
     # test_sharded_step_matches_single_device
-    problem = multiblock_problem()
+    problem = dryrun.lp_blocks("cpu")
     opts = ltt.Options(kit=0, verb=0).validated()
     state = initial_point(problem, opts)
     ref_state, ref_stats = step(problem, state, opts)
@@ -98,7 +52,7 @@ def case_parallel(shape, out):
     R["auto_shape"] = np.array([amesh.shape["blocks"], amesh.shape["schur"]])
     R["full"] = np.array(_solve_pair(problem, amesh, {"kit": 0, "eDIMACS": 1e-7, **Q}))
     # test_sharded_sparse_storage_matches
-    sparse = sparse_problem()
+    sparse = dryrun.sparse_blocks("cpu")
     R["sparse_all"] = np.array([all(g.is_sparse for g in sparse.groups)])
     R["sparse"] = np.array(_solve_pair(sparse, mesh, {"kit": 0, "eDIMACS": 1e-7, **Q}))
     # test_sharded_initpoint1_preserves_group_norms
@@ -108,7 +62,7 @@ def case_parallel(shape, out):
     R["initpoint1"] = np.array(_solve_pair(problem, mesh,
                                            {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, **Q}))
     # test_shard_state_preserves_dd2_tails
-    dnl = dense_nolp_problem()
+    dnl = dryrun.nolp_blocks("cpu")
     o2 = ltt.Options(kit=0, verb=0, precision="dd2", datasparsity=0).validated()
     st2 = ltt.Solver(dnl, o2, device="cpu")._normalize_tails(initial_point(dnl, o2))
     # non-zero tails, so that carrying them is seen
@@ -122,12 +76,8 @@ def case_parallel(shape, out):
                               np.concatenate([gather_blocks(g, x).numpy().ravel()
                                               for g, x in zip(sp2.groups, ss2.X_lo)])])
     R["dd2_y_lo"] = np.stack([st2.y_lo.numpy(), ss2.y_lo.numpy()])
-    # test_sharded_dd2_step_matches_single_device: dd2 on a mesh is item 14b
-    try:
-        ltt.Solver(sp2, o2, device="cpu")
-        R["dd2_raises"] = np.array([""])
-    except NotImplementedError as e:
-        R["dd2_raises"] = np.array([str(e)])
+    # test_sharded_dd2_step_matches_single_device, and the other dd steps
+    R.update(dd_steps(mesh))
     # test_sharded_full_solve_kit1_halpha
     R["kit1"] = np.array(_solve_pair(problem, mesh, {"kit": 1, "preconditioner": 1,
                                                      "eDIMACS": 1e-5, "tol_cg_min": 1e-6, **Q}))
@@ -139,6 +89,30 @@ def case_parallel(shape, out):
         R[key] = np.array(_solve_pair(problem, mesh, {"kit": 1, "eDIMACS": 1e-5,
                                                       "tol_cg_min": 1e-6, **extra, **Q}))
     np.savez(os.path.join(out, f"rank{distributed.rank()}.npz"), **R)
+
+
+def dd_steps(mesh):
+    """One step of each `dryrun.DD_STEPS` case, unsharded and on ``mesh``
+    (`dryrun.dd_step_pair`), under the keys "<case>.<field>"."""
+    return {f"{key}.{k}": v for key in dryrun.DD_STEPS
+            for k, v in dryrun.dd_step_pair(key, mesh, "cpu").items()}
+
+
+def case_reduce_dd(out):
+    """`Mesh.reduce_dd` over 'schur' on the (1, N) mesh and over 'blocks' on
+    the (N, 1) mesh, of seeded partials with live low words; every rank's
+    partials are made from the same seed, so each rank also returns all."""
+    nproc, rank = distributed.world_size(), distributed.rank()
+    rng = np.random.default_rng(21)
+    hi = rng.standard_normal((nproc, 5, 3)) * 10.0 ** rng.integers(-3, 4, (nproc, 5, 3))
+    lo = hi * 2.0**-60 * rng.standard_normal(hi.shape)
+    R = {"hi": hi, "lo": lo}
+    for shape, axis in (((1, nproc), "schur"), ((nproc, 1), "blocks")):
+        mesh = make_mesh(shape)
+        x = DD(torch.from_numpy(hi[rank]), torch.from_numpy(lo[rank]))
+        r = mesh.reduce_dd(x, axis)
+        R[axis] = np.stack([r.hi.numpy(), r.lo.numpy()])
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **R)
 
 
 def _spd(n, seed):
@@ -189,7 +163,7 @@ def case_linalg(out):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("case", choices=("parallel", "linalg"))
+    ap.add_argument("case", choices=("parallel", "linalg", "reduce_dd"))
     ap.add_argument("--out", required=True)
     ap.add_argument("--shape", default="2,2")
     ap.add_argument("--rank", type=int, required=True)
@@ -200,6 +174,8 @@ def main():
     distributed.initialize(a.init, a.nproc, a.rank, backend="gloo", device="cpu", timeout_s=240)
     if a.case == "parallel":
         case_parallel(tuple(int(s) for s in a.shape.split(",")), a.out)
+    elif a.case == "reduce_dd":
+        case_reduce_dd(a.out)
     else:
         case_linalg(a.out)
     distributed.shutdown()
