@@ -6,8 +6,8 @@ CUDA card and no network, and exits non-zero on the first failed check.
 
 Phases:
   1. setup: card name and power limit, build of the CUDA kernels
-     (csrc/jacobi.cu and csrc/pcg.cu, one nvcc each for sm_90a, started
-     together) from the checkout.
+     (csrc/jacobi.cu, csrc/pcg.cu and csrc/int8gemm.cu, one nvcc each for
+     sm_90a, started together) from the checkout.
   2. each Jacobi kernel against its plain PyTorch version on the card, at
      the solver's shapes (nb, m) in {(1, 16), (2, 16), (1, 56), (2, 56),
      (1, 144), (1, 152), (1, 800), (2, 800), (1, 808)} (tru3, vib3 and
@@ -198,12 +198,31 @@ Phases:
      tests/test_parallel.py's dd2 tolerances.
  39. the examples: each examples/torch_*.py run in this process with
      ``--device cuda`` (its own asserts, those of its JAX twin).
+ 40. the last two option values ported: gemm_backend='int8' (the integer
+     Ozaki GEMM: O1 slicing, O2 the int8 tensor-core product, csrc/
+     int8gemm.cu) and chol_backend='mixed' (f32 panels + f64 Newton,
+     `ops/mixed_chol.py`). (a) O1 and O2 against their plain versions on
+     the card at maxG11's and thetaG11's shapes, a batch of two, odd
+     shapes and tests/test_int8gemm.py's graded and cancellation cases:
+     bit for bit, and within 2^-52 |A||B| of the dd Ozaki product; at
+     maxG11's and thetaG11's shapes the kernels', the plain versions',
+     torch.matmul's (f64) times and the bounds. (b) maxG11 and thetaG11 at
+     full size under 'int8': OPTIMAL at the JAX CPU run's objectives,
+     maxG11's iterations within one of phase 4's, ms per iteration beside
+     the f64 runs'. (c) theta1, maxG11 and tru9 under 'mixed': OPTIMAL,
+     iterations within 2 of the f64 runs', with the panels, f64 fallbacks
+     and host syncs. (d) `chol_mixed_blocked` on tests/test_mixed_chol.py's
+     (n, cond) grid against the f64 factor (residual < 1e-13, forward
+     difference <= 8 u sqrt(cond)), the panel inverse and `chol_reg`'s
+     shifts. (e) the kit=1 materialized route under 'int8' (a max-cut
+     graph, n = 200, rank-1: theta1-cg's dense data has no rank-1 group)
+     beside 'f64': OPTIMAL, same objective to 1e-6, iterations within one.
 
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
-15, 18-26, 28-33, 38) runs with the launch counts set to 0 just before it and read
+15, 18-26, 28-33, 38, 40) runs with the launch counts set to 0 just before it and read
 just after (phases 34-37: in each rank's own process, around its sharded run), and fails if a kernel of its path was not launched (B1 and B2
-in every precision-tier solve) or, in phases 22-24, if a Jacobi kernel ran
+in every precision-tier solve, O1 and O2 under 'int8') or, in phases 22-24, if a Jacobi kernel ran
 where its mode does not resolve to it. The line before
 the last two is a JSON object with one entry per kernel; then the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -262,6 +281,16 @@ LP_KIT0 = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
 MAXG11_OPTS = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "datarank": -1, "verb": 0}
 MAXG11_DD = dict(MAXG11_OPTS, eDIMACS=1e-8, precision="dd")
 KERNELS = ("B1", "B2", "B3", "B4", "polish")
+# the integer Ozaki GEMM's kernels (gemm_backend='int8'; phase 40 only)
+OZAKI = ("O1", "O2")
+# the int8 tensor cores' dense peak (NVIDIA data sheet, H100 SXM)
+PEAK_INT8 = 1979e12
+# phase 40(a): (batch, n, k, c) of the int8 GEMM: maxG11's B G and
+# (B G)(B G)^T, thetaG11's B G and (B G)(B G)^T, a batch of two, odd shapes
+OZAKI_SHAPES = ((1, 800, 800, 800), (1, 2401, 801, 801), (1, 2401, 801, 2401),
+                (2, 800, 800, 800), (1, 17, 23, 9), (1, 128, 40, 96), (1, 33, 801, 65))
+# phase 40(d): tests/test_mixed_chol.py:24-25
+MIXED_CHOL_GRID = ((64, 128, 200, 333), (1e2, 1e6, 1e10, 1e14))
 # the kernels of the kit=1 materialized route (B3 and the polish after it)
 KIT1_NEEDS = ("B1", "B2", "B3", "polish")
 # what the JAX package's CPU 'auto' resolves to at maxG11's m = 800
@@ -678,10 +707,11 @@ class Launches:
     size mp, every kernel per regime): reset before each solve, read after,
     summed over the solves."""
 
-    def __init__(self, tj, tp):
+    def __init__(self, tj, tp, ti):
         self.jacobi = {"B1": tj.jacobi_eigh_cuda, "B2": tj.jacobi_bounds_cuda}
         self.cg = {"B3": tp.cg_minres_f64_cuda, "B4": tp.cg_f32_cuda, "polish": tp.cg_f64_cuda}
-        self.total = dict.fromkeys(KERNELS, 0)
+        self.ozaki = {"O1": ti.ozaki_slice_s8_cuda, "O2": ti.ozaki_gemm_s8_cuda}
+        self.total = dict.fromkeys(KERNELS + OZAKI, 0)
 
     def run(self, label: str, needs, solve):
         for fn in self.jacobi.values():
@@ -690,6 +720,8 @@ class Launches:
         for fn in self.cg.values():
             fn.launches = 0
             fn.launches_by_regime.clear()
+        for fn in self.ozaki.values():
+            fn.launches = 0
         r = solve()
         # the Jacobi kernels' launches per padded size mp, and every
         # kernel's per regime, of this solve
@@ -697,8 +729,8 @@ class Launches:
         self.by_regime = {k: dict(sorted(fn.launches_by_regime.items()))
                           for k, fn in {**self.jacobi, **self.cg}.items()}
         got = {k: sum(v.values()) for k, v in self.by_mp.items()}
-        got.update({k: fn.launches for k, fn in self.cg.items()})
-        for k in KERNELS:
+        got.update({k: fn.launches for k, fn in {**self.cg, **self.ozaki}.items()})
+        for k in KERNELS + OZAKI:
             self.total[k] += got[k]
         # the IPM iterations of the result (a model's ModelResult carries the
         # solver's Result as .raw; a model function's plain values have none)
@@ -1602,6 +1634,202 @@ def examples_phase() -> None:
         print(f"phase 39 {path} --device cuda: ok in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def ozaki_bounds(nb: int, n: int, k: int, c: int, s: int, pairs: int):
+    """(O1 on A [nb, n, k], O2 for [nb, n, k] @ [nb, k, c]) bounds. O1: per
+    element and slice an f64 multiply, a rounding, a multiply and a
+    subtraction; X and e read once, s int8 slices written once. O2: 2 n c k
+    int8 operations per slice pair; both operands' slices and scales read
+    once, the f64 product written once."""
+    kp = (k + 15) // 16 * 16
+    o1 = bound_ms(4 * s * nb * n * k, 8 * nb * n * k + 4 * nb * n + s * nb * n * kp, PEAK_F64)
+    o2 = bound_ms(2 * nb * n * c * k * pairs,
+                  s * nb * (n + c) * kp + 8 * nb * (n + c) + 8 * nb * n * c, PEAK_INT8)
+    return o1, o2
+
+
+def ozaki_vs_plain(ti) -> dict:
+    """Phase 40(a): O1 and O2 (csrc/int8gemm.cu) against their plain
+    versions on the card at `OZAKI_SHAPES` and on tests/test_int8gemm.py's
+    graded and cancellation cases: the slices and the products bit for
+    bit, and the product within 2^-52 |A| |B| of the dd-accurate Ozaki
+    product (`ops/ozaki.py:acc_matmul`, ~2^-106). At maxG11's and thetaG11's
+    shapes: O1's, O2's, the plain versions', the whole product's and
+    torch.matmul's (f64, the same operands) times and the bounds. Returns
+    maxG11's times per kernel and each kernel's largest difference from its
+    plain version."""
+    from loraine_tpu_torch.ops.ozaki import acc_matmul
+
+    s = 11
+    sched = ti.pair_schedule(s, 55)
+    tmax, pairs = sched[-1][0], sum(len(ps) for _, ps in sched)
+    rng = np.random.default_rng(40)
+    cases = []
+    for nb, n, k, c in OZAKI_SHAPES:
+        cases.append((f"{nb}x[{n},{k}]@[{k},{c}]", rng.standard_normal((nb, n, k)),
+                      rng.standard_normal((nb, k, c))))
+    g = np.random.default_rng(0)
+    cases.append(("graded 1e+-100", (g.standard_normal((32, 48))
+                                     * np.logspace(-100, 100, 32)[:, None])[None],
+                  (g.standard_normal((48, 16)) * np.logspace(80, -80, 16)[None, :])[None]))
+    kc = 1 << 14
+    big = np.random.default_rng(2).standard_normal(kc // 2) * 1e8
+    Ac = np.concatenate([big, -big])[None, None, :]
+    Ac[0, 0, -1] += 1.0
+    cases.append(("cancellation k=2^14", Ac, np.ones((1, kc, 1))))
+    out, worst = {}, {"O1": 0.0, "O2": 0.0}
+    for label, An, Bn in cases:
+        A, B = torch.from_numpy(An).cuda(), torch.from_numpy(Bn).cuda()
+        nb, n, k = A.shape
+        c = B.shape[-1]
+        ea, sa = ti.fiber_exponents(A, -1)
+        eb, sb = ti.fiber_exponents(B, -2)
+        Asl = ti.ozaki_slice_s8_cuda(A, ea[..., 0], s)
+        Bsl = ti.ozaki_slice_s8_cuda(B.mT, eb[:, 0], s)
+        O = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa[..., 0], sb[:, 0], tmax)
+        pa, _ = ti._slice_int8(A, -1, s)
+        pb, _ = ti._slice_int8(B, -2, s)
+        P = ti._ozaki_sum(pa, pb, sa, sb, 55)
+        whole, whole_p = ti.matmul_f64_mxu(A, B), ti.matmul_f64_int8_plain(A, B)
+        torch.cuda.synchronize()
+        same_sl = (torch.equal(Asl[..., :k], pa) and torch.equal(Bsl[..., :k], pb.mT)
+                   and not Asl[..., k:].any() and not Bsl[..., k:].any())
+        same = torch.equal(O, P) and torch.equal(whole, whole_p)
+        diff = float((O - P).abs().max())
+        diff_sl = max(int((Asl[..., :k].int() - pa.int()).abs().max()),
+                      int((Bsl[..., :k].int() - pb.mT.int()).abs().max()))
+        worst = {"O1": max(worst["O1"], float(diff_sl)), "O2": max(worst["O2"], diff)}
+        ref = acc_matmul(A, B)
+        scale = A.abs() @ B.abs()
+        rel = float((((whole - ref.hi) - ref.lo).abs() / scale).max())
+        print(f"phase 40a {label}: O1 slices bitwise_equal_plain={same_sl} O2 and the whole "
+              f"product bitwise_equal_plain={same} max|O2-plain|={diff:.1e} "
+              f"max err/(|A||B|) vs dd product={rel:.2e} (f64 GEMM: "
+              f"{float((((A @ B - ref.hi) - ref.lo).abs() / scale).max()):.2e})", flush=True)
+        check(same_sl, f"phase 40a {label}: O1 differs from its plain version")
+        check(same, f"phase 40a {label}: O2 differs from its plain version")
+        check(rel <= 2.0**-52, f"phase 40a {label}: error {rel:.2e} > 2^-52 |A||B|")
+        if label.startswith("cancellation"):
+            check(abs(float(whole[0, 0, 0]) - 1.0) <= 1e-6, "phase 40a: cancellation residual")
+        if (nb, n, k, c) not in OZAKI_SHAPES[:3]:
+            continue
+        (b1, by1), (b2, by2) = ozaki_bounds(nb, n, k, c, s, pairs)
+        reps = 20
+        t = {
+            "O1": {"ms": cuda_ms(lambda: ti.ozaki_slice_s8_cuda(A, ea[..., 0], s), reps),
+                   "plain_ms": cuda_ms(lambda: ti._slice_int8(A, -1, s), reps),
+                   "library_ms": None, "bound_ms": b1, "bound_by": by1, "shape": [nb, n, k]},
+            "O2": {"ms": cuda_ms(lambda: ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa[..., 0], sb[:, 0],
+                                                               tmax), reps),
+                   "plain_ms": cuda_ms(lambda: ti._ozaki_sum(pa, pb, sa, sb, 55), reps),
+                   "library_ms": cuda_ms(lambda: torch.matmul(A, B), reps),
+                   "bound_ms": b2, "bound_by": by2, "shape": [nb, n, k, c]},
+        }
+        o1_b = cuda_ms(lambda: ti.ozaki_slice_s8_cuda(B.mT, eb[:, 0], s), reps)
+        whole_ms = cuda_ms(lambda: ti.matmul_f64_mxu(A, B), reps)
+        print(f"phase 40a time {label}: O1 (A) ms={t['O1']['ms']:.4f} (B, strided read: "
+              f"{o1_b:.4f}) plain={t['O1']['plain_ms']:.4f} bound={b1:.4f} ({by1}) | O2 "
+              f"ms={t['O2']['ms']:.4f} plain={t['O2']['plain_ms']:.4f} bound={b2:.4f} ({by2}) | "
+              f"whole matmul_f64_mxu ms={whole_ms:.4f} | torch.matmul f64 "
+              f"ms={t['O2']['library_ms']:.4f} | {pairs} int8 products", flush=True)
+        if (nb, n, k, c) == OZAKI_SHAPES[0]:
+            out.update(t)
+    for kname in worst:
+        out[kname]["max_abs_err"] = worst[kname]
+    return out
+
+
+def int8_mixed_phase(launches, ltt, maxg11, thetag11, f64_runs, card: str) -> None:
+    """Phase 40(b)-(e): the two option values ported last, on the card."""
+    from loraine_tpu_torch.models.maxcut import maxcut_problem
+    from loraine_tpu_torch.ops import mixed_chol as tm
+    from loraine_tpu_torch.ops.linalg import chol_reg
+    from loraine_tpu_torch.utils.profiling import THETA1_CG
+
+    def med(r):
+        return 1e3 * float(np.median(r.iteration_times))
+
+    # ---- (b) maxG11 and thetaG11 under gemm_backend='int8'
+    for name, path, opts, ref, f64 in (("maxG11", MAXG11, MAXG11_OPTS, MAXG11_REF, maxg11),
+                                       ("thetaG11", THETAG11, THETAG11_OPTS, THETAG11_REF,
+                                        thetag11)):
+        r = large_case(launches, "40b", path, dict(opts, gemm_backend="int8"), ref, ltt,
+                       needs=("B1", "B2") + OZAKI)[0]
+        print(f"phase 40b {name} gemm_backend=int8: it {r.iterations} (f64 {f64.iterations}) "
+              f"median ms/it {med(r):.2f} (f64 {med(f64):.2f}) obj {r.objective!r} "
+              f"(f64 {f64.objective!r}) on '{card}'", flush=True)
+        if name == "maxG11":
+            check(abs(r.iterations - f64.iterations) <= 1, "phase 40b maxG11 iterations vs f64")
+
+    # ---- (c) theta1, maxG11 and tru9 under chol_backend='mixed'
+    for name, path, opts, ref, f64 in (
+            ("theta1", THETA1, THETA1_K0, (THETA1_OPT, None), f64_runs["theta1"]),
+            ("maxG11", MAXG11, MAXG11_OPTS, MAXG11_REF, maxg11),
+            ("tru9", TRU9, LARGE_KIT0, TRU9_REF, f64_runs["tru9"])):
+        before = dict(tm.STATS)
+        r = large_case(launches, "40c", path, dict(opts, chol_backend="mixed"), ref, ltt)[0]
+        d = {k: tm.STATS[k] - before[k] for k in tm.STATS}
+        print(f"phase 40c {name} chol_backend=mixed: it {r.iterations} (f64 {f64.iterations}) "
+              f"panels {d['panels']} ({d['panels'] / r.iterations:.1f}/it) f64 fallbacks "
+              f"{d['fallbacks']} host syncs {d['syncs']} ({d['syncs'] / r.iterations:.1f}/it) "
+              f"median ms/it {med(r):.2f} (f64 {med(f64):.2f}) on '{card}'", flush=True)
+        check(d["panels"] > 0, f"phase 40c {name}: no mixed panel")
+        check(abs(r.iterations - f64.iterations) <= 2, f"phase 40c {name} iterations vs f64")
+
+    # ---- (d) the mixed factorization against the f64 factor on the card
+    u = 2.0**-53
+    for n in MIXED_CHOL_GRID[0]:
+        line = []
+        for cond in MIXED_CHOL_GRID[1]:
+            rng = np.random.default_rng(n)
+            Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+            M = torch.from_numpy(Q @ np.diag(np.logspace(0, -np.log10(cond), n)) @ Q.T).cuda()
+            before = tm.STATS["fallbacks"]
+            L = tm.chol_mixed_blocked(M)
+            L64 = torch.linalg.cholesky(M)
+            resid = float(torch.linalg.norm(M - L @ L.T) / torch.linalg.norm(M))
+            fwd = float(torch.linalg.norm(L - L64) / torch.linalg.norm(L64))
+            line.append(f"cond {cond:.0e}: resid {resid:.1e} vs f64 factor {fwd:.1e} "
+                        f"fallbacks {tm.STATS['fallbacks'] - before}")
+            check(not bool(torch.isnan(L).any()) and resid < 1e-13
+                  and float(torch.triu(L, 1).abs().max()) == 0.0,
+                  f"phase 40d n={n} cond={cond:.0e}: resid {resid:.1e}")
+            check(fwd <= 8 * u * math.sqrt(cond), f"phase 40d n={n} cond={cond:.0e}: {fwd:.1e}")
+        print(f"phase 40d chol_mixed_blocked n={n}: " + "; ".join(line), flush=True)
+    rng = np.random.default_rng(11)
+    Q = np.linalg.qr(rng.standard_normal((128, 128)))[0]
+    M = torch.from_numpy(Q @ np.diag(np.logspace(0, -8, 128)) @ Q.T).cuda()
+    L, Li = tm.panel_chol_mixed(M)
+    err = float(torch.linalg.norm(Li @ L - torch.eye(128, dtype=M.dtype, device=M.device)))
+    rng = np.random.default_rng(3)
+    Q = np.linalg.qr(rng.standard_normal((160, 160)))[0]
+    M = torch.from_numpy(Q @ np.diag(np.logspace(0, -6, 160)) @ Q.T - 1.5e-4 * np.eye(160)).cuda()
+    r64, rmx = chol_reg(M, 1e-4, 10, backend="f64"), chol_reg(M, 1e-4, 10, backend="mixed")
+    print(f"phase 40d panel_chol_mixed n=128 cond 1e8: |Li L - I| {err:.1e}; chol_reg of an "
+          f"indefinite n=160: shifts f64 {r64.shifts} mixed {rmx.shifts}", flush=True)
+    check(err < 1e-11, "phase 40d panel inverse")
+    check(r64.shifts == rmx.shifts > 0 and r64.ok and rmx.ok, "phase 40d chol_reg shifts")
+
+    # ---- (e) the kit=1 materialized route under 'int8': theta1-cg's data is
+    # dense (no rank-1 group), so a max-cut graph (rank-1, n = 200) takes it
+    rng = np.random.default_rng(40)
+    Wg = np.triu(rng.random((200, 200)) < 0.05, 1) * rng.integers(1, 10, (200, 200))
+    p = maxcut_problem((Wg + Wg.T).astype(float), datarank=-1, device="cuda")
+    check(p.groups[0].is_rank1, "phase 40e: max-cut data not rank-1")
+    res = {}
+    for backend, needs in (("f64", KIT1_NEEDS), ("int8", KIT1_NEEDS + OZAKI)):
+        res[backend] = launches.run(f"phase 40e (max-cut N=200 kit=1 {backend})", needs,
+                                    lambda: ltt.solve(p, dict(THETA1_CG, gemm_backend=backend),
+                                                      device="cuda"))
+        print(solve_line(f"40e max-cut N=200 kit=1 materialized gemm_backend={backend}",
+                         res[backend]), flush=True)
+        check(res[backend].status == 1, f"phase 40e {backend} not OPTIMAL")
+    check(abs(res["int8"].iterations - res["f64"].iterations) <= 1, "phase 40e iterations")
+    check(abs(res["int8"].objective - res["f64"].objective)
+          <= 1e-6 * abs(res["f64"].objective), "phase 40e objective")
+    print("phase 40e theta1-cg: dense data, no rank-1 group: gemm_backend='int8' leaves it "
+          "as it is", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs one NVIDIA GPU",
@@ -1616,7 +1844,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     import loraine_tpu_torch as ltt
     import loraine_tpu_torch.ipm.step as S
-    from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
+    from loraine_tpu_torch.ops import int8gemm as ti, jacobi as tj, pcg as tp
     from loraine_tpu_torch.utils.cuda_build import BUILD_DIR, build_libraries
     from loraine_tpu_torch.utils.profiling import CONTROL1_CG, THETA1_CG, theta_g100
 
@@ -1624,15 +1852,16 @@ def main() -> int:
     print(f"phase 1 python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card '{card}' count {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build_libraries("jacobi", "pcg")
+    build_libraries("jacobi", "pcg", "int8gemm")
     tj._lib()
     tp._lib()
-    print(f"phase 1 built+loaded csrc/jacobi.cu and csrc/pcg.cu in "
+    ti._lib()
+    print(f"phase 1 built+loaded csrc/jacobi.cu, csrc/pcg.cu and csrc/int8gemm.cu in "
           f"{time.perf_counter() - t0:.2f} s into {BUILD_DIR}", flush=True)
 
     # ---- phase 2: Jacobi kernels vs plain versions on the card
     k = kernels_vs_plain(tj)
-    launches = Launches(tj, tp)
+    launches = Launches(tj, tp, ti)
 
     # ---- phase 3: theta1, card against the port's CPU run
     opts = THETA1_K0
@@ -1753,13 +1982,13 @@ def main() -> int:
     sparse_determinism(ltt)
 
     # ---- phase 15: thetaG11 at full size (rank-1, mp=816)
-    large_case(launches, "15", THETAG11, THETAG11_OPTS, THETAG11_REF, ltt)
+    thetag11_f64 = large_case(launches, "15", THETAG11, THETAG11_OPTS, THETAG11_REF, ltt)[0]
     check(launches.by_mp["B1"].get(816, 0) > 0, "thetaG11: B1 not launched at mp 816")
 
     # ---- phase 16: the solves went through all five kernels
     print("phase 16 launches in the solve phases: "
-          + " ".join(f"{k_}={v}" for k_, v in launches.total.items()), flush=True)
-    check(all(v > 0 for v in launches.total.values()), "a kernel was not launched")
+          + " ".join(f"{k_}={launches.total[k_]}" for k_ in KERNELS), flush=True)
+    check(all(launches.total[k_] > 0 for k_ in KERNELS), "a kernel was not launched")
 
     # ---- phases 17-21: the precision tiers
     exactness_probe()
@@ -1798,6 +2027,12 @@ def main() -> int:
     examples_phase()
     print(f"phase 39 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 40: gemm_backend='int8' (O1, O2) and chol_backend='mixed'
+    t0 = time.perf_counter()
+    ko = ozaki_vs_plain(ti)
+    int8_mixed_phase(launches, ltt, maxg11_f64[0], thetag11_f64, f64_runs, card)
+    print(f"phase 40 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     rows = []
     for key, kname, name, src, line in (
             ("eigh", "B1", "jacobi_eigh_f32", "jacobi", "jacobi_pallas.py:109"),
@@ -1821,6 +2056,16 @@ def main() -> int:
             "max_abs_err": kc["err"][kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "n": 464, "regime": t["regime"], "regime_ms": t["regime_ms"],
+        })
+    for kname, name, line in (("O1", "ozaki_slice_s8", "int8gemm.py:41"),
+                              ("O2", "ozaki_gemm_s8", "int8gemm.py:70")):
+        t = ko[kname]  # maxG11's shape
+        rows.append({
+            "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/int8gemm.cu",
+            "replaces": f"loraine_tpu/ops/{line}", "launches": launches.total[kname],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"],
         })
     print(json.dumps({"kernels": rows}))
     print(card)

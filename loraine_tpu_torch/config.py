@@ -2,19 +2,16 @@
 
 Same names, defaults and validation/auto-correction as the JAX package (which
 mirrors Loraine.jl `src/Solvers.jl:169-302`). Every value the JAX package
-accepts is accepted here too; `require_ported` then names the values this
-port does not run yet, and `Solver` raises `NotImplementedError` for them.
+accepts is accepted and runs here too.
 
 What the port runs: ``kit`` 0 and 1, ``precision`` 'f64', 'dd' and 'dd2'
 (both paths, every storage, the LP cone), every value of ``dtype``,
 ``nt_method``, ``nt_precision``, ``eigh_backend``, ``step_eig``,
-``assembly_precision``, ``cg_kernel`` and ``cg_materialize``,
-``chol_backend`` 'auto'/'f64' and ``gemm_backend='f64'``, ``timing``
-(``timing >= 2`` prints the per-phase table of `utils/diagnostics.py`
-after the solve) and ``profile_dir`` (a `torch.profiler` trace of the
-solve loop written into that directory, CUDA activity included on a
-card). Still raising `NotImplementedError`: ``chol_backend='mixed'`` and
-``gemm_backend='int8'`` (not carried over).
+``assembly_precision``, ``cg_kernel``, ``cg_materialize``,
+``chol_backend`` and ``gemm_backend``, ``timing`` (``timing >= 2`` prints
+the per-phase table of `utils/diagnostics.py` after the solve) and
+``profile_dir`` (a `torch.profiler` trace of the solve loop written into
+that directory, CUDA activity included on a card).
 
 On a ('blocks', 'schur') mesh (`parallel/`: one process per rank,
 `torch.distributed`; Gloo ranks on the CPU, ``python -m
@@ -76,6 +73,24 @@ stays an explicit choice (ROADMAP's fused dd Jacobi would lift that;
 PERF.md has its launches and time on the H100). Under 'dd'/'dd2' the kit=1 path runs f64 `pcg` inside dd
 refinement and takes no CG kernel, whatever ``cg_kernel`` says.
 
+``gemm_backend``: 'f64' (the default) leaves every product to the library
+(cuBLAS DGEMM on the card); 'int8' computes the rank-1 Schur products
+(kit=0 and the kit=1 materialized route) by the integer Ozaki scheme
+(`ops/int8gemm.py`: 76 exact int8 products per f64-accurate GEMM, in the
+hand-written kernels O1/O2 of `csrc/int8gemm.cu` on the card's int8
+tensor cores, their plain PyTorch version on the CPU); dense and sparse
+groups ignore it. On the H100 it is expected to be slower than DGEMM
+(PERF.md has both times), so it stays opt-in, as in the JAX package.
+
+``chol_backend``: 'auto' (the default) resolves to 'f64' on every device
+(`ops/linalg.py:chol_backend_for`), as the JAX package's 'auto' does off
+the TPU; 'f64' is the library's f64 Cholesky (cuSOLVER on the card);
+'mixed' the f32-panel Cholesky with f64 Newton refinement and a per-panel
+f64 fallback (`ops/mixed_chol.py`: library calls, no kernel, up to two
+host syncs a 128-column panel), for the NT scaling's factor of X and the
+kit=0 Schur factor. On a row-split mesh the Schur factor stays the
+distributed f64 one, as in the JAX package.
+
 ``cg_kernel`` (materialized CG route only, `resolve_cg_kernel`): 'ff' is the
 single-launch f64 CG kernel B3 and 'pallas' the f32 CG kernel B4
 (`ops/pcg.py`, CUDA C++ in `csrc/pcg.cu`); on a CPU tensor each runs its
@@ -120,8 +135,8 @@ class Options:
     profile_dir: str = ""
     nt_method: str = "eigh"
     eigh_backend: str = "auto"
-    gemm_backend: str = "f64"
-    chol_backend: str = "auto"
+    gemm_backend: str = "f64"  # "int8": rank-1 Schur products by the O1/O2 kernels
+    chol_backend: str = "auto"  # "auto" = "f64"; "mixed": f32 panels + f64 Newton
     precision: str = "f64"
     assembly_precision: str = "f64"
     nt_precision: str = "auto"
@@ -191,25 +206,6 @@ class Options:
         if unknown:
             raise ValueError(f"Unknown option(s): {sorted(unknown)}; known: {sorted(fields)}")
         return cls(**options)
-
-
-# option -> (values the port runs, where ROADMAP.md says why not the rest)
-_PORTED = {
-    "chol_backend": (("auto", "f64"), "'Not carried over' (f32-panel Cholesky)"),
-    "gemm_backend": (("f64",), "'Not carried over' (int8 Ozaki GEMM)"),
-}
-
-
-def require_ported(o: Options) -> None:
-    """Raise NotImplementedError for an option value this port does not
-    run, naming where ROADMAP.md says why."""
-    for name, (ok, item) in _PORTED.items():
-        v = getattr(o, name)
-        if v not in ok:
-            raise NotImplementedError(
-                f"{name}={v!r} is not ported to loraine_tpu_torch yet "
-                f"(runs: {list(ok)}); see ROADMAP.md {item}"
-            )
 
 
 def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:

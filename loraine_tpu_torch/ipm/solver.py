@@ -52,7 +52,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..config import Options, require_ported
+from ..config import Options
 from ..ops.schur import gather_blocks
 from ..problem import SDPProblem, problem_from_sdpa
 from ..utils.device import resolve_device
@@ -134,7 +134,6 @@ class Solver:
         self.initial_state = initial_state
         self.mesh = problem.mesh  # set by `parallel.mesh.shard_problem`
         self._apply_auto_downgrades()
-        require_ported(self.opts)
 
     def _apply_auto_downgrades(self) -> None:
         """kit auto-downgrades (`src/Solvers.jl:421-444`)."""

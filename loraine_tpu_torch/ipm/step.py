@@ -27,6 +27,13 @@ iterate for err2/err4.
 route comes from `schur_group_mixed` and `schur_lp_mixed` (f32 GEMMs on
 dense and LP data); everything else stays exact.
 
+``gemm_backend='int8'``: the rank-1 Schur products of kit=0 and of the
+kit=1 materialized route are the integer Ozaki GEMM (`ops/int8gemm.py`,
+the O1/O2 kernels on a card). ``chol_backend='mixed'``: the NT scaling's
+and the kit=0 Schur `chol_reg` factor with the f32-panel Cholesky
+(`ops/mixed_chol.py`), except on a row-split mesh, where the Schur factor
+is the distributed f64 one.
+
 Convergence-error convention (reference): err1/err3 use the residuals at
 the start of the iteration, err2/4/5/6 the updated iterate.
 
@@ -378,17 +385,20 @@ def _lin_dirs_dd(
 
 
 def _schur(problem: SDPProblem, nts, lpw: Optional[torch.Tensor],
-           mixed: bool = False) -> torch.Tensor:
-    """The symmetrized Schur matrix H = sum over groups of schur_group, plus
-    the LP block C_lin diag(lpw) C_lin^T; with ``mixed`` the f32 assembly
-    (`schur_group_mixed`, `schur_lp_mixed`). When the rows are sharded,
+           mixed: bool = False, gemm_backend: str = "f64") -> torch.Tensor:
+    """The symmetrized Schur matrix H = sum over groups of schur_group (its
+    rank-1 products by ``gemm_backend``, `loraine_tpu/ipm/step.py:664,735`),
+    plus the LP block C_lin diag(lpw) C_lin^T; with ``mixed`` the f32
+    assembly (`schur_group_mixed`, `schur_lp_mixed`, which keep the rank-1
+    groups in f64 as the JAX package does). When the rows are sharded,
     this rank's rows [r0, r1) of H as assembled: the factorization reads
     the lower triangle only, so no transpose is gathered to symmetrize."""
-    group_fn, lp_fn = (schur_group_mixed, schur_lp_mixed) if mixed else (schur_group, schur_lp)
     r0, r1 = problem.shard.rows if problem.rows_split else (0, problem.n)
     H = torch.zeros((r1 - r0, problem.n), dtype=problem.b.dtype, device=problem.device)
     for g, nt in zip(problem.groups, nts):
-        H = H + group_fn(g, nt.W, nt.G)
+        H = H + (schur_group_mixed(g, nt.W, nt.G) if mixed
+                 else schur_group(g, nt.W, nt.G, gemm_backend))
+    lp_fn = schur_lp_mixed if mixed else schur_lp
     if problem.nlin:
         H = H + lp_fn(problem.C_lin, lpw, slice(r0, r1))
     return H if problem.rows_split else sym(H)
@@ -452,7 +462,7 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     n = problem.n
     mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
     if mat_cg:
-        Hcg = _schur(problem, nts, lpw, mixed)
+        Hcg = _schur(problem, nts, lpw, mixed, opts.gemm_backend)
         if problem.rows_split:
             # whole on every rank (n <= 512 under 'auto'): the CG below is
             # the unsharded route, with no collective inside it
@@ -620,7 +630,8 @@ def step(
         nt_tails = tuple(p_[1] for p_ in pairs)
     else:
         nts = tuple(
-            nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend)
+            nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend,
+                     chol_backend=opts.chol_backend)
             for X, S in zip(st.X, st.S)
         )
         nt_tails = (None,) * ngroups
@@ -718,9 +729,9 @@ def step(
             Hs_dd = _schur_dd(problem, nts, nt_tails, lpw, lpw_dd)
             H = Hs_dd.hi
         else:
-            H = _schur(problem, nts, lpw, mixed_assembly)
+            H = _schur(problem, nts, lpw, mixed_assembly, opts.gemm_backend)
         rmesh = mesh if problem.rows_split else None
-        hc = chol_reg(H, 1e-4, 1000, mesh=rmesh)
+        hc = chol_reg(H, 1e-4, 1000, backend=opts.chol_backend, mesh=rmesh)
         h_shifts, h_ok = hc.shifts, hc.ok
         Hli = tri_inv(hc.L, mesh=rmesh)
         cg_pre = cg_cor = torch.zeros((), dtype=torch.int32, device=device)

@@ -6,7 +6,8 @@ The Cholesky factorization and triangular solves are f64 library calls
 (cuSOLVER / cuBLAS on the card, LAPACK on the CPU): the JAX package also
 computes them outside any Pallas kernel. On one device the library
 routines replace the JAX package's TPU-shaped blocked variants and compute
-the same factors to rounding.
+the same factors to rounding; ``chol_backend='mixed'`` factors with the
+f32-panel Cholesky of `ops/mixed_chol.py` instead.
 
 With a mesh whose 'schur' axis splits the rows (``mesh=``), `chol_blocked`,
 `tri_inv` and `cho_solve_inv` work on row-sharded matrices: the JAX
@@ -25,6 +26,7 @@ __all__ = [
     "sym",
     "btrace",
     "chol_blocked",
+    "chol_backend_for",
     "chol_reg",
     "CholResult",
     "tri_solve",
@@ -56,11 +58,11 @@ class CholResult(NamedTuple):
 
 
 def _chol_nan(D: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of D, NaN on and below the diagonal where it
-    fails, as `jnp.linalg.cholesky` returns it."""
+    """Lower Cholesky factor of each matrix of D, NaN on and below the
+    diagonal where it fails, as `jnp.linalg.cholesky` returns it."""
     L, info = torch.linalg.cholesky_ex(D)
-    bad = (info != 0) | torch.isnan(L).any()
-    return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
+    bad = (info != 0) | torch.isnan(L).flatten(-2).any(-1)
+    return torch.where(bad[..., None, None], torch.full_like(L, float("nan")).tril(), L)
 
 
 def chol_blocked(M_rows: torch.Tensor, mesh, base: int = 128) -> torch.Tensor:
@@ -105,7 +107,16 @@ def chol_blocked(M_rows: torch.Tensor, mesh, base: int = 128) -> torch.Tensor:
     return L
 
 
-def chol_reg(M: torch.Tensor, eps: float, max_tries: int = 1000, mesh=None) -> CholResult:
+def chol_backend_for(backend: str, n: int) -> str:
+    """Resolve ``chol_backend``: 'auto' is 'f64' on every device of the port,
+    as `loraine_tpu/ops/linalg.py:107-116` resolves it off the TPU (the
+    mixed panels exist there for the TPU's f64 latency); an explicit
+    'mixed' or 'f64' stays."""
+    return "f64" if backend == "auto" else backend
+
+
+def chol_reg(M: torch.Tensor, eps: float, max_tries: int = 1000, backend: str = "f64",
+             mesh=None) -> CholResult:
     """Cholesky with bounded diagonal-shift regularization
     (`loraine_tpu/ops/linalg.py:chol_reg`, reference `try_cholesky` and the
     Schur regularization loop, `src/prepare_W.jl:5-26`,
@@ -117,16 +128,27 @@ def chol_reg(M: torch.Tensor, eps: float, max_tries: int = 1000, mesh=None) -> C
     the factor. Failed factors come back as NaN, as in the JAX package, so a
     give-up propagates into the step's status. One host sync per round.
 
+    ``backend`` (`chol_backend_for`): 'f64' is the library's f64
+    factorization, 'mixed' the f32-panel factorization of
+    `ops/mixed_chol.py` (f64 fallback per panel, the same NaN semantics).
+
     ``mesh``: M is one n x n matrix whose rows [r0, r1) this rank holds
-    (`chol_blocked`); the shift goes onto the local rows' diagonal, and the
-    failure flag is all-reduced over 'schur', so every rank shifts the same
-    number of times.
+    (`chol_blocked`, f64 whatever ``backend`` says, as
+    `loraine_tpu/ops/linalg.py:139-143`); the shift goes onto the local
+    rows' diagonal, and the failure flag is all-reduced over 'schur', so
+    every rank shifts the same number of times.
     """
     if mesh is not None:
         return _chol_reg_rows(M, eps, max_tries, mesh)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    mixed = chol_backend_for(backend, M.shape[-1]) == "mixed"
 
     def attempt(Mc):
+        if mixed:
+            from .mixed_chol import chol_mixed_blocked
+
+            L = chol_mixed_blocked(Mc)
+            return L, torch.isnan(L).any(dim=(-1, -2))
         L, info = torch.linalg.cholesky_ex(Mc)
         bad = (info != 0) | torch.isnan(L).any(dim=(-1, -2))
         return L, bad

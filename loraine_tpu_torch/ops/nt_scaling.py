@@ -69,12 +69,14 @@ def nt_scale(
     max_reg: int = 1000,
     method: str = "eigh",
     eigh_backend: str = "auto",
+    chol_backend: str = "f64",
 ) -> NTScaling:
     """NT scaling for a stacked group of blocks [nb, m, m] by ``method``
-    'eigh' or 'svd' (see the module docstring)."""
+    'eigh' or 'svd' (see the module docstring); ``chol_backend`` goes to
+    both `chol_reg` calls (`loraine_tpu/ops/nt_scaling.py:82-84,103`)."""
     nb, m = X.shape[0], X.shape[-1]
     if method == "svd":
-        cboth = chol_reg(torch.cat([X, S], dim=0), reg_eps, max_reg)
+        cboth = chol_reg(torch.cat([X, S], dim=0), reg_eps, max_reg, backend=chol_backend)
         Lx, Ls = cboth.L[:nb], cboth.L[nb:]
         # singular values come descending, as from jnp.linalg.svd
         _, D, Vt = svd_or_nan(Ls.mT @ Lx)
@@ -89,7 +91,7 @@ def nt_scale(
         eye = torch.eye(m, dtype=X.dtype, device=X.device).expand_as(X)
         Si = sym(tri_solve(Ls, tri_solve(Ls, eye), trans=True))
     else:
-        cx = chol_reg(X, reg_eps, max_reg)
+        cx = chol_reg(X, reg_eps, max_reg, backend=chol_backend)
         Lx = cx.L
         # eig(L_x^T S L_x) = V D^2 V^T with the same V as svd(L_s^T L_x)
         M = Lx.mT @ S @ Lx

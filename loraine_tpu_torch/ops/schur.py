@@ -12,7 +12,9 @@ data (A_j = sgn_j b_j b_j^T): H = sum_b sgn sgn' o ((B G)(B G)^T)^2
 (`makeBBBB_rank1`, `src/makeBBBB.jl:1-20`). Sparse data: gathers and
 rank-s outer products, chunked over constraints. All are gathers and GEMMs
 left to torch and cuBLAS, as the JAX package leaves them to XLA; none is a
-Pallas kernel there.
+Pallas kernel there. Under ``gemm_backend='int8'`` the two rank-1 products
+are the integer Ozaki GEMM (`ops/int8gemm.py`, hand-written kernels on the
+card).
 
     Aop(group, X)  = [ sum_b <A_j^{(b)}, X_b> ]_j          ([n])
     Aadj(group, y) = sum_j y_j A_j^{(b)}                    ([nb, m, m])
@@ -50,6 +52,7 @@ import torch
 
 from ..problem import BlockGroup
 from .dd import DD, dd_add, dd_sum, two_prod, two_sum
+from .int8gemm import matmul_f64_mxu
 from .ozaki import acc_matmul, acc_matvec
 
 __all__ = ["bsum", "bsum_dd", "gather_rows", "gather_rows_dd", "gather_blocks", "Aop", "Aadj", "schur_group",
@@ -149,14 +152,23 @@ def _cols(group: BlockGroup, *own: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return sh.cols if sh is not None and sh.split_rows else own
 
 
-def schur_group(group: BlockGroup, W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+def schur_group(group: BlockGroup, W: torch.Tensor, G: torch.Tensor,
+                gemm_backend: str = "f64") -> torch.Tensor:
     """[n, n] <- this group's contribution to H; on a sharded group this
     rank's rows [r0, r1) of it, its own rows against the whole column
-    operand."""
+    operand.
+
+    ``gemm_backend='int8'`` routes the rank-1 path's two large products
+    through the integer Ozaki GEMM (`ops/int8gemm.py`), as
+    `loraine_tpu/ops/schur.py:149-158` does; on a sharded group the column
+    operand Bk G goes through it too, so that this rank's rows equal the
+    single-rank rows bit for bit (a row's slices depend on that row only).
+    Dense and sparse groups ignore the option."""
     if group.is_rank1:
         Bk, sgnk = _cols(group, group.B, group.Bsgn)
-        BG = group.B @ G  # [nb, n, m]
-        P = BG @ (BG if Bk is group.B else Bk @ G).mT  # [nb, n, n]
+        mm = matmul_f64_mxu if gemm_backend == "int8" else torch.matmul
+        BG = mm(group.B, G)  # [nb, n, m]
+        P = mm(BG, (BG if Bk is group.B else mm(Bk, G)).mT)  # [nb, n, n]
         sgn = group.Bsgn
         H = ((sgn[:, :, None] * sgnk[:, None, :]) * P * P).sum(0)
     elif group.is_sparse:

@@ -90,7 +90,8 @@ def profile_phases(
         return _timed(fn, *args, repeats=repeats, cuda=device.type == "cuda")
 
     def all_nt(X, S):
-        return tuple(nt_scale(x, s, method=opts.nt_method, eigh_backend=opts.eigh_backend)
+        return tuple(nt_scale(x, s, method=opts.nt_method, eigh_backend=opts.eigh_backend,
+                              chol_backend=opts.chol_backend)
                      for x, s in zip(X, S))
 
     out["prepare_W (NT scaling)"] = timed(all_nt, st.X, st.S)
@@ -113,7 +114,7 @@ def profile_phases(
     def schur(nts):
         H = torch.zeros((problem.n, problem.n), dtype=dtype, device=device)
         for g, nt in zip(problem.groups, nts):
-            H = H + schur_group(g, nt.W, nt.G)
+            H = H + schur_group(g, nt.W, nt.G, opts.gemm_backend)
         if problem.nlin:
             H = H + schur_lp(problem.C_lin, lpw)
         return sym(H)
@@ -123,7 +124,7 @@ def profile_phases(
         H = schur(nts)
 
         def hchol(H):
-            return tri_inv(chol_reg(H, 1e-4, 1000).L)
+            return tri_inv(chol_reg(H, 1e-4, 1000, backend=opts.chol_backend).L)
 
         out["H Cholesky + tri_inv"] = timed(hchol, H)
         Li = hchol(H)

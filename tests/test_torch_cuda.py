@@ -1,4 +1,5 @@
-"""The CUDA kernels of loraine_tpu_torch (ops/jacobi.py, ops/pcg.py) on a card.
+"""The CUDA kernels of loraine_tpu_torch (ops/jacobi.py, ops/pcg.py,
+ops/int8gemm.py) on a card.
 
 Needs an NVIDIA GPU (marker `cuda`; skips without one). This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
+from loraine_tpu_torch.ops import int8gemm as ti, jacobi as tj, pcg as tp
 from torch_cases import spectrum_matrix
 
 
@@ -223,3 +224,35 @@ def test_dd_arithmetic_card_equals_cpu(k):
     B = torch.from_numpy(rng.standard_normal((k, 48)) * np.exp(rng.uniform(-8, 8, (k, 48))))
     card = Z.acc_matmul(A.cuda(), B.cuda())
     assert all(torch.equal(u.cpu(), v) for u, v in zip(card, Z.acc_matmul(A, B)))
+
+
+# (batch, n, k, c): odd shapes, a batch, maxG11's 800^3 and thetaG11's
+# [2401, 801] @ [801, 801]
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n,k,c", [(1, 17, 23, 9), (2, 128, 40, 96), (1, 800, 800, 800),
+                                      (1, 2401, 801, 801)])
+def test_ozaki_kernels_match_plain_on_card(nb, n, k, c):
+    """O1 and O2 (csrc/int8gemm.cu) against their plain versions on the same
+    inputs on the card: every operation but the sum over t is exact and
+    that sum runs in the plain version's order, so both are bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(n + k + c)
+    A = torch.from_numpy(rng.standard_normal((nb, n, k))).cuda()
+    B = torch.from_numpy(rng.standard_normal((nb, k, c)) * np.logspace(-30, 30, c)).cuda()
+    s, tmax = 11, ti.pair_schedule(11, 55)[-1][0]
+    ea, sa = ti.fiber_exponents(A, -1)
+    eb, sb = ti.fiber_exponents(B, -2)
+    before = (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches)
+    Asl = ti.ozaki_slice_s8_cuda(A, ea[..., 0], s)
+    Bsl = ti.ozaki_slice_s8_cuda(B.mT, eb[:, 0], s)
+    out = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa[..., 0], sb[:, 0], tmax)
+    assert (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches) == (
+        before[0] + 2, before[1] + 1)
+    pa, _ = ti._slice_int8(A, -1, s)
+    pb, _ = ti._slice_int8(B, -2, s)
+    torch.cuda.synchronize()
+    assert torch.equal(Asl[..., :k], pa) and torch.equal(Bsl[..., :k], pb.mT)
+    assert not Asl[..., k:].any() and not Bsl[..., k:].any()
+    assert torch.equal(out, ti._ozaki_sum(pa, pb, sa, sb, 55))
+    assert torch.equal(ti.matmul_f64_mxu(A, B), ti.matmul_f64_int8_plain(A, B))

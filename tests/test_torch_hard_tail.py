@@ -9,7 +9,11 @@ its own 'auto' (eigh_backend and step_eig 'pallas', the plain versions of
 B1 and B2 here) against the JAX package under the same modes (its Pallas
 kernels in interpret mode): both end with status 3 after 8 iterations
 (>5 Schur regularizations: H is singular at every iterate of this problem
-by construction), DIMACS within 1e-4 relative.
+by construction), DIMACS within 1e-4 relative. And
+`test_redundant_sum_constraint_shift_is_rounding`: under the JAX CPU run's
+modes the two packages end that case with different statuses (1 and 3);
+the test shows why, the exact last pivot of both packages' singular H
+within a few ulps of its scale.
 """
 import numpy as np
 import pytest
@@ -428,3 +432,71 @@ def test_redundant_sum_constraint_kernel_modes():
     assert rj.status == rt.status == 3
     assert rj.iterations == rt.iterations == 8
     assert abs(rt.dimacs - rj.dimacs) <= 1e-4 * rj.dimacs
+
+
+def _exact_pivots(H):
+    """The pivots of Gaussian elimination on the f64 entries of H, in exact
+    rational arithmetic: the last one is what the Cholesky's last pivot
+    would be without any rounding inside the factorization."""
+    from fractions import Fraction
+
+    F = [[Fraction(float(x)) for x in row] for row in H]
+    for k in range(len(F)):
+        for i in range(k + 1, len(F)):
+            f = F[i][k] / F[k][k]
+            for j in range(k + 1, len(F)):
+                F[i][j] -= f * F[k][j]
+    return [F[k][k] for k in range(len(F))]
+
+
+def test_redundant_sum_constraint_shift_is_rounding():
+    # test_redundant_sum_constraint's problem under the JAX CPU run's modes
+    # ('jacobi', 'exact'): both packages take 9 iterations, but the port
+    # ends with status 1 and the JAX package with 3, because they shift the
+    # Schur Cholesky at different iterations (the sixth shift gives up).
+    # H is singular by construction (A3 = A1 + A2), so its last pivot is a
+    # rounding residue: from the same iterate (JAX's 8th), both packages'
+    # H have an exact last pivot within a few ulps of max|H| (measured 2.98
+    # and 0.29 ulps at iteration 9, of either sign at earlier iterations),
+    # and whether potrf sees it as positive is rounding. The trajectories
+    # agree meanwhile (DIMACS within 1e-10 relative up to iteration 9).
+    import jax
+
+    from loraine_tpu.ops.nt_scaling import nt_scale as jnt_scale
+    from loraine_tpu.ops.schur import schur_group as jschur_group
+    from loraine_tpu_torch.convert import problem_from_numpy, state_from_numpy
+    from loraine_tpu_torch.ops.nt_scaling import nt_scale as tnt_scale
+    from loraine_tpu_torch.ops.schur import schur_group as tschur_group
+
+    rng = np.random.default_rng(3)
+    A1 = rng.standard_normal((5, 5));  A1 = A1 + A1.T
+    A2 = rng.standard_normal((5, 5));  A2 = A2 + A2.T
+    As = np.stack([A1, A2, A1 + A2])
+    y0 = np.array([0.1, -0.2, 0.05])
+    S0 = rng.standard_normal((5, 5)); S0 = S0 @ S0.T + 5 * np.eye(5)
+    C = np.einsum("j,jpq->pq", y0, As) + S0
+    Z = rng.standard_normal((5, 5)); X0 = Z @ Z.T + 5 * np.eye(5)
+    b = np.einsum("jpq,pq->j", As, X0)
+    opts = {**Q, "eDIMACS": 5e-4, "maxit": 60, "eigh_backend": "jacobi", "step_eig": "exact"}
+    pj = loraine_tpu.problem_from_dense([As], [C], b)
+    rj = loraine_tpu.solve(pj, opts)
+    rt = ltt.solve(ltt.problem_from_dense([As], [C], b, device="cpu"), opts, device="cpu")
+    assert rj.iterations == rt.iterations == 9
+    assert (rj.status, rt.status) == (3, 1)
+    for hj, ht in zip(rj.history[:8], rt.history[:8]):
+        assert abs(ht["dimacs"] - hj["dimacs"]) <= 1e-8 * hj["dimacs"]
+
+    mid = jax.device_get(loraine_tpu.solve(pj, dict(opts, maxit=8)).final_state)
+    ntj = jnt_scale(mid.X[0], mid.S[0], eigh_backend="jacobi")
+    Hj = np.asarray(jschur_group(pj.groups[0], ntj.W, ntj.G))
+    pt = problem_from_numpy(jax.device_get(pj), device="cpu")
+    st = state_from_numpy(mid, device="cpu")
+    ntt = tnt_scale(st.X[0], st.S[0], eigh_backend="jacobi")
+    Ht = tschur_group(pt.groups[0], ntt.W, ntt.G).numpy()
+    for H in (Hj, Ht):
+        H = (H + H.T) / 2
+        piv = _exact_pivots(H)
+        scale = float(np.abs(H).max())
+        assert min(piv[:-1]) > 1e-3 * scale  # the first two are far from 0
+        assert abs(float(piv[-1])) <= 8 * 2.0**-53 * scale, float(piv[-1]) / (2.0**-53 * scale)
+    assert np.abs(Ht - Hj).max() <= 1e-12 * np.abs(Hj).max()

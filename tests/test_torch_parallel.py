@@ -16,7 +16,9 @@ Then the seven gates of `loraine_tpu_torch.parallel.dryrun` (the port of
 `__graft_entry__.dryrun_multichip`) at 2 and 4 ranks, under the JAX CPU
 run's eigen modes (eigh_backend 'mixed', step_eig 'exact'), and each
 4-rank sharded objective against the JAX package's unsharded solve of the
-same numpy-built problem under the same modes, at the gate's tolerance."""
+same numpy-built problem under the same modes, at the gate's tolerance.
+And gemm_backend='int8' on a (1, 2) Gloo mesh: the rank-1 Schur rows bit
+for bit, and a solve with chol_backend='mixed' too."""
 
 import jax
 import jax.numpy as jnp
@@ -294,6 +296,27 @@ def test_row_sharded_schur_rows_need_no_collective(storage, mixed):
         tol = 1e-6 if mixed and storage == "dense" else 1e-12
         np.testing.assert_allclose(Hk.numpy(), H[r0:r1].numpy(), rtol=0,
                                    atol=tol * float(H.abs().max()))
+
+
+def test_row_sharded_int8_schur_bitwise(tmp_path):
+    """gemm_backend='int8' on a (1, 2) Gloo mesh: each rank's rows of the
+    rank-1 Schur contribution equal the single-process rows bit for bit (a
+    row's slices depend on that row only, and the column operand Bk G goes
+    through the same scheme whole), and a solve under 'int8' with
+    chol_backend='mixed' (the NT factor mixed, the row-split Schur factor
+    the distributed f64 one) matches the unsharded solve."""
+    launch([WORKER, "int8", "--out", str(tmp_path)], 2, timeout=300)
+    g = _schur_problems()["rank1"].groups[0]
+    for r in range(2):
+        R = np.load(tmp_path / f"rank{r}.npz")
+        W = torch.from_numpy(R["W"])
+        H = tschur.schur_group(g, W, torch.linalg.cholesky(W), "int8").numpy()
+        r0, r1 = R["rows"]
+        assert (r0, r1) == (r * H.shape[0] // 2, (r + 1) * H.shape[0] // 2)
+        np.testing.assert_array_equal(R["H"], H[r0:r1])
+        st_ref, st_sh, obj_ref, obj_sh = R["solve"]
+        assert int(st_ref) == int(st_sh) == 1
+        np.testing.assert_allclose(obj_sh, obj_ref, rtol=1e-8)
 
 
 @pytest.mark.parametrize("storage", ["dense", "sparse", "rank1"])

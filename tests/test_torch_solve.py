@@ -23,7 +23,7 @@ from loraine_tpu.io.sdpa import SDPAData as JaxSDPAData
 from loraine_tpu.problem import problem_from_sdpa as jax_problem_from_sdpa
 from loraine_tpu_torch.convert import problem_from_numpy, state_from_numpy
 from loraine_tpu_torch.ipm.step import step as torch_step
-from torch_cases import maxcut_sdpa
+from torch_cases import errs_agree, jax_cpu_modes, maxcut_sdpa, solve_pair
 
 DATA = pathlib.Path(__file__).parent / "data"
 PORT_OPTS = {"kit": 0, "eDIMACS": 1e-6, "initpoint": 1, "verb": 0}
@@ -152,17 +152,60 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("opts,exc,match", [
-    ({"gemm_backend": "int8"}, NotImplementedError, "Not carried over"),
+    ({"nt_precision": "dd", "precision": "dd"}, ValueError, "requires precision"),
     ({"assembly_precision": "f32", "precision": "dd"}, ValueError, "conflicts"),
-    ({"chol_backend": "mixed"}, NotImplementedError, "Not carried over"),
+    ({"precision": "dd", "dtype": "float32"}, ValueError, "requires dtype"),
 ])
 def test_unported_options_raise(opts, exc, match):
-    """The option values the port does not run raise NotImplementedError
-    naming their ROADMAP item; a combination the JAX package rejects raises
-    its ValueError."""
+    """Every option value runs in the port (the last two, gemm_backend='int8'
+    and chol_backend='mixed', since they were ported: the tests below); a
+    combination the JAX package rejects raises its ValueError."""
     p = ltt.load_problem(str(DATA / "theta1.dat-s"), device="cpu")
     with pytest.raises(exc, match=match):
         ltt.Solver(p, dict(PORT_OPTS, **opts), device="cpu")
+
+
+INT8_MIXED = {"gemm_backend": "int8", "chol_backend": "mixed"}
+
+
+@pytest.fixture(scope="module")
+def maxcut192_runs():
+    """maxcut_sdpa at N = 192 (X and H 192 x 192: two 128-column panels of
+    the mixed Cholesky) under gemm_backend='int8' and chol_backend='mixed',
+    in both packages under the JAX CPU run's modes ('mixed', 'exact')."""
+    pt = ltt.problem_from_sdpa(maxcut_sdpa(N=192), datarank=-1, device="cpu")
+    pj = jax_problem_from_sdpa(maxcut_sdpa(N=192, cls=JaxSDPAData), datarank=-1)
+    opts = dict(PORT_OPTS, **INT8_MIXED, **jax_cpu_modes(pt))
+    return lt.solve(pj, opts), ltt.solve(pt, opts, device="cpu")
+
+
+def test_int8_mixed_maxcut_matches_jax(maxcut192_runs):
+    """Both options together on the blocked path: the int8 Schur products
+    are the JAX package's bit for bit, the mixed factors agree to
+    ~u sqrt(cond) (tests/test_torch_mixed_chol.py), so the two solves take
+    the same iterations and the per-iteration errors agree to ~1e-6
+    (measured DIMACS <= 5.1e-7 relative)."""
+    from loraine_tpu_torch.ops import mixed_chol
+
+    rj, rt = maxcut192_runs
+    assert rt.status == rj.status == 1
+    assert rt.iterations == rj.iterations == 13
+    assert abs(rt.objective - rj.objective) <= 1e-9 * abs(rj.objective)
+    errs_agree(rj, rt, rtol=1e-5)
+    assert mixed_chol.STATS["panels"] > 0
+
+
+@pytest.mark.parametrize("option", [{"gemm_backend": "int8"}, {"chol_backend": "mixed"}])
+def test_theta1_option_matches_jax(option):
+    """theta1 under each option alone, against the JAX package under the
+    same modes (its dense group ignores 'int8'; its H (104) and X (50) are
+    single mixed panels)."""
+    rj, rt = solve_pair(str(DATA / "theta1.dat-s"), dict(PORT_OPTS, **option),
+                        {"eigh_backend": "jacobi", "step_eig": "exact"})
+    assert rt.status == rj.status == 1
+    assert rt.iterations == rj.iterations
+    assert abs(rt.objective - rj.objective) <= 1e-8 * abs(rj.objective)
+    errs_agree(rj, rt, rtol=1e-5)
 
 
 def test_nt_precision_dd_runs():

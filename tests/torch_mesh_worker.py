@@ -18,7 +18,8 @@ from loraine_tpu_torch.ipm.initial import initial_point  # noqa: E402
 from loraine_tpu_torch.ipm.step import step  # noqa: E402
 from loraine_tpu_torch.ops.dd import DD  # noqa: E402
 from loraine_tpu_torch.ops.linalg import chol_blocked, chol_reg, cho_solve_inv, tri_inv  # noqa: E402
-from loraine_tpu_torch.ops.schur import gather_blocks  # noqa: E402
+from loraine_tpu_torch.models.maxcut import maxcut_problem  # noqa: E402
+from loraine_tpu_torch.ops.schur import gather_blocks, schur_group  # noqa: E402
 from loraine_tpu_torch.parallel import (auto_mesh, distributed, make_mesh,  # noqa: E402
                                         shard_problem, shard_state)
 from loraine_tpu_torch.parallel import dryrun  # noqa: E402
@@ -161,9 +162,30 @@ def case_linalg(out):
     np.savez(os.path.join(out, f"rank{distributed.rank()}.npz"), **R)
 
 
+def case_int8(out):
+    """The rank-1 Schur rows under gemm_backend='int8' on the (1, N) mesh
+    (max-cut data, 24 nodes; W and G from a seed), and a solve sharded and
+    unsharded under gemm_backend='int8' with chol_backend='mixed'."""
+    nproc = distributed.world_size()
+    mesh = make_mesh((1, nproc))
+    rng = np.random.default_rng(11)
+    A = np.triu(rng.random((24, 24)) < 0.3, 1).astype(float)
+    problem = maxcut_problem(A + A.T, datarank=-1, device="cpu")
+    g = problem.groups[0]
+    Z = np.random.default_rng(12).standard_normal((g.nb, g.m, g.m))
+    W = torch.from_numpy(Z @ Z.transpose(0, 2, 1) / g.m + np.eye(g.m))
+    gs = shard_problem(problem, mesh).groups[0]
+    R = {"W": W.numpy(), "rows": np.array(gs.shard.rows),
+         "H": schur_group(gs, W, torch.linalg.cholesky(W), "int8").numpy(),
+         "solve": np.array(_solve_pair(problem, mesh, {"kit": 0, "eDIMACS": 1e-7,
+                                                       "gemm_backend": "int8",
+                                                       "chol_backend": "mixed", **Q}))}
+    np.savez(os.path.join(out, f"rank{distributed.rank()}.npz"), **R)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("case", choices=("parallel", "linalg", "reduce_dd"))
+    ap.add_argument("case", choices=("parallel", "linalg", "reduce_dd", "int8"))
     ap.add_argument("--out", required=True)
     ap.add_argument("--shape", default="2,2")
     ap.add_argument("--rank", type=int, required=True)
@@ -176,6 +198,8 @@ def main():
         case_parallel(tuple(int(s) for s in a.shape.split(",")), a.out)
     elif a.case == "reduce_dd":
         case_reduce_dd(a.out)
+    elif a.case == "int8":
+        case_int8(a.out)
     else:
         case_linalg(a.out)
     distributed.shutdown()
