@@ -203,20 +203,26 @@ Phases:
      int8gemm.cu) and chol_backend='mixed' (f32 panels + f64 Newton,
      `ops/mixed_chol.py`). (a) O1 and O2 against their plain versions on
      the card at maxG11's and thetaG11's shapes, a batch of two, odd
-     shapes and tests/test_int8gemm.py's graded and cancellation cases:
-     bit for bit, and within 2^-52 |A||B| of the dd Ozaki product; at
-     maxG11's and thetaG11's shapes the kernels', the plain versions',
-     torch.matmul's (f64) times and the bounds. (b) maxG11 and thetaG11 at
-     full size under 'int8': OPTIMAL at the JAX CPU run's objectives,
-     maxG11's iterations within one of phase 4's, ms per iteration beside
-     the f64 runs'. (c) theta1, maxG11 and tru9 under 'mixed': OPTIMAL,
-     iterations within 2 of the f64 runs', with the panels, f64 fallbacks
-     and host syncs. (d) `chol_mixed_blocked` on tests/test_mixed_chol.py's
-     (n, cond) grid against the f64 factor (residual < 1e-13, forward
-     difference <= 8 u sqrt(cond)), the panel inverse and `chol_reg`'s
-     shifts. (e) the kit=1 materialized route under 'int8' (a max-cut
-     graph, n = 200, rank-1: theta1-cg's dense data has no rank-1 group)
-     beside 'f64': OPTIMAL, same objective to 1e-6, iterations within one.
+     shapes, tests/test_int8gemm.py's graded and cancellation cases and
+     fiber maxima at and just below powers of two: O1's slices, exponents
+     and scales and O2's product (as planned and in one chunk) bit for
+     bit, and within 2^-52 |A||B| of the dd Ozaki product; at maxG11's and
+     thetaG11's shapes the kernels', the plain versions', the whole
+     product's and torch.matmul's (f64) times, the bounds and the device
+     kernels of one whole product (3, or 4 when O2's planner splits the
+     weights: the nodes of a CUDA graph captured from it, on every case).
+     (b) maxG11 and thetaG11 at full size under 'int8': OPTIMAL at the JAX
+     CPU run's objectives, maxG11's iterations within one of phase 4's, ms
+     per iteration beside the f64 runs', and `profile_phases`' Schur
+     assembly and whole step under either backend. (c) theta1, maxG11 and
+     tru9 under 'mixed': OPTIMAL, iterations within 2 of the f64 runs', with
+     the panels, f64 fallbacks and host syncs. (d) `chol_mixed_blocked` on
+     tests/test_mixed_chol.py's (n, cond) grid against the f64 factor
+     (residual < 1e-13, forward difference <= 8 u sqrt(cond)), the panel
+     inverse and `chol_reg`'s shifts. (e) the kit=1 materialized route under
+     'int8' (a max-cut graph, n = 200, rank-1: theta1-cg's dense data has no
+     rank-1 group) beside 'f64': OPTIMAL, same objective to 1e-6, iterations
+     within one.
 
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
@@ -1637,24 +1643,70 @@ def examples_phase() -> None:
 def ozaki_bounds(nb: int, n: int, k: int, c: int, s: int, pairs: int):
     """(O1 on A [nb, n, k], O2 for [nb, n, k] @ [nb, k, c]) bounds. O1: per
     element and slice an f64 multiply, a rounding, a multiply and a
-    subtraction; X and e read once, s int8 slices written once. O2: 2 n c k
-    int8 operations per slice pair; both operands' slices and scales read
-    once, the f64 product written once."""
+    subtraction; X read once, s slices and each fiber's exponent (int32) and
+    scale (f64) written once. O2: 2 n c k int8 operations per slice pair;
+    both operands' slices and scales read once, the f64 product written
+    once."""
     kp = (k + 15) // 16 * 16
-    o1 = bound_ms(4 * s * nb * n * k, 8 * nb * n * k + 4 * nb * n + s * nb * n * kp, PEAK_F64)
+    o1 = bound_ms(4 * s * nb * n * k, 8 * nb * n * k + 12 * nb * n + s * nb * n * kp, PEAK_F64)
     o2 = bound_ms(2 * nb * n * c * k * pairs,
                   s * nb * (n + c) * kp + 8 * nb * (n + c) + 8 * nb * n * c, PEAK_INT8)
     return o1, o2
 
 
+def pow2_maxima(n: int, k: int, c: int, seed: int):
+    """A [1, n, k] and B [1, k, c] whose row and column maxima are exactly
+    2^j or the double just below it (j from -60 to 59)."""
+    rng = np.random.default_rng(seed)
+    A, B = rng.uniform(-1, 1, (1, n, k)), rng.uniform(-1, 1, (1, k, c))
+    js = rng.integers(-60, 60, max(n, c))
+    for i in range(n):
+        top = 2.0 ** js[i]
+        A[0, i] *= top / 2
+        A[0, i, i % k] = top if i % 2 else np.nextafter(top, 0)
+    for j in range(c):
+        top = 2.0 ** js[j]
+        B[0, :, j] *= top / 2
+        B[0, j % k, j] = -top if j % 2 else -np.nextafter(top, 0)
+    return A, B
+
+
+def graph_kernels(fn) -> tuple:
+    """(kernels, all nodes) of a CUDA graph captured from one call of ``fn``:
+    every launch the call makes on its stream becomes a node, so this counts
+    exactly where a torch.profiler trace can miss an activity (it read 0
+    after phases 38-39, and one kernel short once in a fresh process)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(t.value)
+    g.reset()
+    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
 def ozaki_vs_plain(ti) -> dict:
     """Phase 40(a): O1 and O2 (csrc/int8gemm.cu) against their plain
-    versions on the card at `OZAKI_SHAPES` and on tests/test_int8gemm.py's
-    graded and cancellation cases: the slices and the products bit for
-    bit, and the product within 2^-52 |A| |B| of the dd-accurate Ozaki
-    product (`ops/ozaki.py:acc_matmul`, ~2^-106). At maxG11's and thetaG11's
-    shapes: O1's, O2's, the plain versions', the whole product's and
-    torch.matmul's (f64, the same operands) times and the bounds. Returns
+    versions on the card at `OZAKI_SHAPES`, on tests/test_int8gemm.py's
+    graded and cancellation cases and on maxima at and just below powers of
+    two: O1's slices, exponents and scales and O2's product bit for bit (O2
+    as the planner splits it and in one chunk), and the product within
+    2^-52 |A| |B| of the dd-accurate Ozaki product (`ops/ozaki.py:acc_matmul`,
+    ~2^-106). At maxG11's and thetaG11's shapes: O1's, O2's, the plain
+    versions', the whole product's and torch.matmul's (f64, the same
+    operands) times and the bounds. On every case, the device kernels of
+    one whole product (at most 4), from a captured CUDA graph. Returns
     maxG11's times per kernel and each kernel's largest difference from its
     plain version."""
     from loraine_tpu_torch.ops.ozaki import acc_matmul
@@ -1676,38 +1728,51 @@ def ozaki_vs_plain(ti) -> dict:
     Ac = np.concatenate([big, -big])[None, None, :]
     Ac[0, 0, -1] += 1.0
     cases.append(("cancellation k=2^14", Ac, np.ones((1, kc, 1))))
+    cases.append(("maxima at and below 2^j", *pow2_maxima(300, 200, 260, 12)))
     out, worst = {}, {"O1": 0.0, "O2": 0.0}
     for label, An, Bn in cases:
         A, B = torch.from_numpy(An).cuda(), torch.from_numpy(Bn).cuda()
         nb, n, k = A.shape
         c = B.shape[-1]
-        ea, sa = ti.fiber_exponents(A, -1)
-        eb, sb = ti.fiber_exponents(B, -2)
-        Asl = ti.ozaki_slice_s8_cuda(A, ea[..., 0], s)
-        Bsl = ti.ozaki_slice_s8_cuda(B.mT, eb[:, 0], s)
-        O = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa[..., 0], sb[:, 0], tmax)
-        pa, _ = ti._slice_int8(A, -1, s)
-        pb, _ = ti._slice_int8(B, -2, s)
-        P = ti._ozaki_sum(pa, pb, sa, sb, 55)
+        Asl, ea, sa = ti.ozaki_slice_s8_cuda(A, s)
+        Bsl, eb, sb = ti.ozaki_slice_s8_cuda(B.mT, s)
+        plan = ti.gemm_plan(nb, n, c, Asl.shape[-1], s, tmax,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        O = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa, sb, tmax, plan=plan)
+        O1c = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa, sb, tmax,
+                                    plan=ti.plan_for(nb, n, c, s, (0, tmax + 1)))
+        pa, pea, psa = ti.slice_plain(A, s)
+        pb, peb, psb = ti.slice_plain(B.mT, s)
+        qa, qb = ti._slice_int8(A, -1, s)[0], ti._slice_int8(B, -2, s)[0]
+        P = ti._ozaki_sum(qa, qb, psa[..., None], psb[:, None], 55)
         whole, whole_p = ti.matmul_f64_mxu(A, B), ti.matmul_f64_int8_plain(A, B)
         torch.cuda.synchronize()
-        same_sl = (torch.equal(Asl[..., :k], pa) and torch.equal(Bsl[..., :k], pb.mT)
-                   and not Asl[..., k:].any() and not Bsl[..., k:].any())
-        same = torch.equal(O, P) and torch.equal(whole, whole_p)
-        diff = float((O - P).abs().max())
-        diff_sl = max(int((Asl[..., :k].int() - pa.int()).abs().max()),
-                      int((Bsl[..., :k].int() - pb.mT.int()).abs().max()))
+        same_sl = torch.equal(Asl, pa) and torch.equal(Bsl, pb)
+        same_e = (torch.equal(ea, pea) and torch.equal(eb, peb) and torch.equal(sa, psa)
+                  and torch.equal(sb, psb))
+        same = torch.equal(O, P) and torch.equal(O1c, P) and torch.equal(whole, whole_p)
+        diff = max(float((O - P).abs().max()), float((O1c - P).abs().max()))
+        diff_sl = max(int((Asl.int() - pa.int()).abs().max()),
+                      int((Bsl.int() - pb.int()).abs().max()),
+                      int((ea - pea).abs().max()), int((eb - peb).abs().max()))
         worst = {"O1": max(worst["O1"], float(diff_sl)), "O2": max(worst["O2"], diff)}
         ref = acc_matmul(A, B)
         scale = A.abs() @ B.abs()
         rel = float((((whole - ref.hi) - ref.lo).abs() / scale).max())
-        print(f"phase 40a {label}: O1 slices bitwise_equal_plain={same_sl} O2 and the whole "
-              f"product bitwise_equal_plain={same} max|O2-plain|={diff:.1e} "
+        kernels, nodes = graph_kernels(lambda: ti.matmul_f64_mxu(A, B))
+        print(f"phase 40a {label}: O1 slices bitwise_equal_plain={same_sl} exponents and scales "
+              f"bitwise_equal_plain={same_e} | O2 (chunks {plan.tlo}, and one chunk) and the "
+              f"whole product bitwise_equal_plain={same} max|O2-plain|={diff:.1e} "
               f"max err/(|A||B|) vs dd product={rel:.2e} (f64 GEMM: "
-              f"{float((((A @ B - ref.hi) - ref.lo).abs() / scale).max()):.2e})", flush=True)
-        check(same_sl, f"phase 40a {label}: O1 differs from its plain version")
+              f"{float((((A @ B - ref.hi) - ref.lo).abs() / scale).max()):.2e}) | whole product: "
+              f"{kernels} device kernels, {nodes} graph nodes", flush=True)
+        check(same_sl and same_e, f"phase 40a {label}: O1 differs from its plain version")
         check(same, f"phase 40a {label}: O2 differs from its plain version")
         check(rel <= 2.0**-52, f"phase 40a {label}: error {rel:.2e} > 2^-52 |A||B|")
+        # O1 twice, O2, and its epilogue when the planner splits the weights
+        check(kernels == nodes == 3 + (len(plan.order) > 1),
+              f"phase 40a {label}: a whole product ran {kernels} device kernels "
+              f"({nodes} graph nodes), planned chunks {plan.tlo}")
         if label.startswith("cancellation"):
             check(abs(float(whole[0, 0, 0]) - 1.0) <= 1e-6, "phase 40a: cancellation residual")
         if (nb, n, k, c) not in OZAKI_SHAPES[:3]:
@@ -1715,22 +1780,34 @@ def ozaki_vs_plain(ti) -> dict:
         (b1, by1), (b2, by2) = ozaki_bounds(nb, n, k, c, s, pairs)
         reps = 20
         t = {
-            "O1": {"ms": cuda_ms(lambda: ti.ozaki_slice_s8_cuda(A, ea[..., 0], s), reps),
-                   "plain_ms": cuda_ms(lambda: ti._slice_int8(A, -1, s), reps),
+            "O1": {"ms": cuda_ms(lambda: ti.ozaki_slice_s8_cuda(A, s), reps),
+                   "plain_ms": cuda_ms(lambda: ti.slice_plain(A, s), reps),
                    "library_ms": None, "bound_ms": b1, "bound_by": by1, "shape": [nb, n, k]},
-            "O2": {"ms": cuda_ms(lambda: ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa[..., 0], sb[:, 0],
-                                                               tmax), reps),
-                   "plain_ms": cuda_ms(lambda: ti._ozaki_sum(pa, pb, sa, sb, 55), reps),
+            "O2": {"ms": cuda_ms(lambda: ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa, sb, tmax), reps),
+                   "plain_ms": cuda_ms(lambda: ti._ozaki_sum(qa, qb, sa[..., None],
+                                                             sb[:, None], 55), reps),
                    "library_ms": cuda_ms(lambda: torch.matmul(A, B), reps),
                    "bound_ms": b2, "bound_by": by2, "shape": [nb, n, k, c]},
         }
-        o1_b = cuda_ms(lambda: ti.ozaki_slice_s8_cuda(B.mT, eb[:, 0], s), reps)
+        o1_b = cuda_ms(lambda: ti.ozaki_slice_s8_cuda(B.mT, s), reps)
+        o2_one = cuda_ms(lambda: ti.ozaki_gemm_s8_cuda(
+            Asl, Bsl, sa, sb, tmax, plan=ti.plan_for(nb, n, c, s, (0, tmax + 1))), reps)
         whole_ms = cuda_ms(lambda: ti.matmul_f64_mxu(A, B), reps)
+        # O2 in one chunk: each CTA runs all 76 pairs of its tile, and each
+        # pair moves 128 + 128 / CLUSTER bytes per k (whole 128-byte
+        # k-tiles) from L2 into it: the average L2-to-SM rate of the kernel
+        one = ti.plan_for(nb, n, c, s, (0, tmax + 1))
+        slots = torch.cuda.get_device_properties(0).multi_processor_count // ti.CLUSTER
+        l2_rate = (one.tiles * pairs * (128 + 128 // ti.CLUSTER) * 128
+                   * -(-Asl.shape[-1] // 128) / (1e-3 * o2_one) / 1e12)
         print(f"phase 40a time {label}: O1 (A) ms={t['O1']['ms']:.4f} (B, strided read: "
               f"{o1_b:.4f}) plain={t['O1']['plain_ms']:.4f} bound={b1:.4f} ({by1}) | O2 "
-              f"ms={t['O2']['ms']:.4f} plain={t['O2']['plain_ms']:.4f} bound={b2:.4f} ({by2}) | "
-              f"whole matmul_f64_mxu ms={whole_ms:.4f} | torch.matmul f64 "
-              f"ms={t['O2']['library_ms']:.4f} | {pairs} int8 products", flush=True)
+              f"ms={t['O2']['ms']:.4f} (chunks {plan.tlo}; one chunk {o2_one:.4f}) "
+              f"plain={t['O2']['plain_ms']:.4f} bound={b2:.4f} ({by2}) | whole matmul_f64_mxu "
+              f"ms={whole_ms:.4f}, {kernels} device kernels | torch.matmul f64 "
+              f"ms={t['O2']['library_ms']:.4f} | {pairs} int8 products | one chunk: "
+              f"{one.tiles // ti.CLUSTER} clusters on {slots} cluster slots, L2 to SM "
+              f"{l2_rate:.2f} TB/s on average", flush=True)
         if (nb, n, k, c) == OZAKI_SHAPES[0]:
             out.update(t)
     for kname in worst:
@@ -1743,6 +1820,7 @@ def int8_mixed_phase(launches, ltt, maxg11, thetag11, f64_runs, card: str) -> No
     from loraine_tpu_torch.models.maxcut import maxcut_problem
     from loraine_tpu_torch.ops import mixed_chol as tm
     from loraine_tpu_torch.ops.linalg import chol_reg
+    from loraine_tpu_torch.utils.diagnostics import profile_phases
     from loraine_tpu_torch.utils.profiling import THETA1_CG
 
     def med(r):
@@ -1759,6 +1837,15 @@ def int8_mixed_phase(launches, ltt, maxg11, thetag11, f64_runs, card: str) -> No
               f"(f64 {f64.objective!r}) on '{card}'", flush=True)
         if name == "maxG11":
             check(abs(r.iterations - f64.iterations) <= 1, "phase 40b maxG11 iterations vs f64")
+        # the layer: one Schur assembly and one whole step at an iterate
+        # three steps in, under each backend in turn (CUDA events)
+        prob = ltt.load_problem(path, opts, device="cuda")
+        rows = {gb: profile_phases(prob, dict(opts, gemm_backend=gb)) for gb in ("f64", "int8")}
+        print(f"phase 40b {name} profile_phases: Schur assembly (BBBB) ms f64 "
+              f"{1e3 * rows['f64']['Schur assembly (BBBB)']:.3f} int8 "
+              f"{1e3 * rows['int8']['Schur assembly (BBBB)']:.3f} | full step ms f64 "
+              f"{1e3 * rows['f64']['full fused step']:.2f} int8 "
+              f"{1e3 * rows['int8']['full fused step']:.2f} on '{card}'", flush=True)
 
     # ---- (c) theta1, maxG11 and tru9 under chol_backend='mixed'
     for name, path, opts, ref, f64 in (

@@ -227,32 +227,71 @@ def test_dd_arithmetic_card_equals_cpu(k):
 
 
 # (batch, n, k, c): odd shapes, a batch, maxG11's 800^3 and thetaG11's
-# [2401, 801] @ [801, 801]
+# [2401, 801] @ [801, 801] and [2401, 801] @ [801, 2401]
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,n,k,c", [(1, 17, 23, 9), (2, 128, 40, 96), (1, 800, 800, 800),
-                                      (1, 2401, 801, 801)])
+                                      (1, 2401, 801, 801), (1, 2401, 801, 2401)])
 def test_ozaki_kernels_match_plain_on_card(nb, n, k, c):
     """O1 and O2 (csrc/int8gemm.cu) against their plain versions on the same
-    inputs on the card: every operation but the sum over t is exact and
-    that sum runs in the plain version's order, so both are bit for bit."""
+    inputs on the card: O1's exponents use the log2 torch's does, every
+    operation but the sum over t is exact and that sum runs in the plain
+    version's order, so the slices, exponents, scales and products are bit
+    for bit, whichever split of the weights O2 runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     rng = np.random.default_rng(n + k + c)
     A = torch.from_numpy(rng.standard_normal((nb, n, k))).cuda()
     B = torch.from_numpy(rng.standard_normal((nb, k, c)) * np.logspace(-30, 30, c)).cuda()
+    _check_ozaki_on_card(A, B)
+
+
+@pytest.mark.cuda
+def test_ozaki_exponents_at_powers_of_two_on_card():
+    """Fibers whose maxima are exactly 2^j or the double just below: O1's
+    exponents, scales and slices equal the plain version's there too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(12)
+    n, k, c = 96, 200, 80
+    A = rng.uniform(-1, 1, (1, n, k))
+    B = rng.uniform(-1, 1, (1, k, c))
+    js = rng.integers(-60, 60, max(n, c))
+    for i in range(n):
+        top = 2.0 ** js[i]
+        A[0, i] *= top / 2
+        A[0, i, i % k] = top if i % 2 else np.nextafter(top, 0)
+    for j in range(c):
+        top = 2.0 ** js[j]
+        B[0, :, j] *= top / 2
+        B[0, j % k, j] = -top if j % 2 else -np.nextafter(top, 0)
+    _check_ozaki_on_card(torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda())
+
+
+def _check_ozaki_on_card(A, B):
+    nb, n, k = A.shape
+    c = B.shape[-1]
     s, tmax = 11, ti.pair_schedule(11, 55)[-1][0]
-    ea, sa = ti.fiber_exponents(A, -1)
-    eb, sb = ti.fiber_exponents(B, -2)
     before = (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches)
-    Asl = ti.ozaki_slice_s8_cuda(A, ea[..., 0], s)
-    Bsl = ti.ozaki_slice_s8_cuda(B.mT, eb[:, 0], s)
-    out = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa[..., 0], sb[:, 0], tmax)
+    Asl, ea, sa = ti.ozaki_slice_s8_cuda(A, s)
+    Bsl, eb, sb = ti.ozaki_slice_s8_cuda(B.mT, s)
+    out = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa, sb, tmax)
+    # the planner's split and a single chunk (no epilogue)
+    one = ti.plan_for(nb, n, c, s, (0, tmax + 1))
+    out1 = ti.ozaki_gemm_s8_cuda(Asl, Bsl, sa, sb, tmax, plan=one)
     assert (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2, before[1] + 2)
+    for X, sl, e, sc in ((A, Asl, ea, sa), (B.mT, Bsl, eb, sb)):
+        psl, pe, psc = ti.slice_plain(X, s)
+        torch.cuda.synchronize()
+        assert torch.equal(e, pe) and torch.equal(sc, psc)
+        assert torch.equal(sl, psl)
     pa, _ = ti._slice_int8(A, -1, s)
     pb, _ = ti._slice_int8(B, -2, s)
-    torch.cuda.synchronize()
-    assert torch.equal(Asl[..., :k], pa) and torch.equal(Bsl[..., :k], pb.mT)
-    assert not Asl[..., k:].any() and not Bsl[..., k:].any()
-    assert torch.equal(out, ti._ozaki_sum(pa, pb, sa, sb, 55))
-    assert torch.equal(ti.matmul_f64_mxu(A, B), ti.matmul_f64_int8_plain(A, B))
+    P = ti._ozaki_sum(pa, pb, sa[..., None], sb[:, None], 55)
+    assert torch.equal(out, P) and torch.equal(out1, P)
+    # a whole product: O1 twice and O2 once
+    before = (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches)
+    whole = ti.matmul_f64_mxu(A, B)
+    assert (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(whole, ti.matmul_f64_int8_plain(A, B))

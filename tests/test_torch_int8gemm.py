@@ -9,8 +9,13 @@ differs only at exact powers of two, which these inputs do not hit; the
 test asserts the exponents agree). The rank-1 Schur contribution under
 gemm_backend='int8' is held against the JAX one the same way; the (1, 2)
 mesh case is in tests/test_torch_parallel.py, the kernels' case on a card
-in tests/test_torch_cuda.py.
+in tests/test_torch_cuda.py. The last tests model, in numpy, the order in
+which csrc/int8gemm.cu's O2 sums (one int32 sum per weight t, then the
+f64 sum in ascending t) and check `gemm_plan`'s work split.
 """
+import ast
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -179,3 +184,147 @@ def test_routes_by_device():
     M = torch.empty((2, 2), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="no int8 GEMM route"):
         matmul_f64_mxu(M, M)
+
+
+# ---------------------------------------------------------------------------
+# O2's order and work split (csrc/int8gemm.cu), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _o2_model(Asl, Bsl, a_scale, b_scale, plan, tmax):
+    """O2 as csrc/int8gemm.cu orders it, in numpy: one exact integer sum per
+    weight t over all of its pairs (int64 here, asserted to fit int32 as the
+    kernel holds it), the first chunk's f64 sum over its t in ascending
+    order, then the epilogue's continuation over the later chunks' t, then
+    the scales. Asl [s, n, k], Bsl [s, k, c] int8 (one batch element)."""
+    s = Asl.shape[0]
+    A64, B64 = Asl.astype(np.int64), Bsl.astype(np.int64)
+    acc = {}
+    for t, ps in tint8._pairs(s, tmax):
+        a = sum(A64[p] @ B64[t - p] for p in ps)
+        assert np.abs(a).max() < 2**31
+        acc[t] = a.astype(np.int32)
+    res = None
+    for t in range(plan.tlo[-1]):  # chunk 0's t, then the epilogue's
+        term = acc[t].astype(np.float64) * 2.0 ** (-tint8.INT8_BETA * (t + 2))
+        res = term if res is None else res + term
+    return res * (a_scale * b_scale)
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_o2_order_equals_ozaki_sum_bitwise(case):
+    """One int32 sum per t, then the ascending-t f64 sum, whatever the chunks:
+    bit for bit the plain version's pair-by-pair f64 sums."""
+    A, B = _cases()[case]
+    A, B = (A[None], B[None]) if A.ndim == 2 else (A, B)
+    s, tmax = 11, 11
+    for b in range(A.shape[0]):
+        At, Bt = torch.from_numpy(A[b]), torch.from_numpy(B[b])
+        Asl, a_scale = tint8._slice_int8(At, -1, s)
+        Bsl, b_scale = tint8._slice_int8(Bt, -2, s)
+        want = tint8._ozaki_sum(Asl, Bsl, a_scale, b_scale, 55).numpy()
+        n, c = At.shape[0], Bt.shape[1]
+        for tlo in ((0, 12), (0, 8, 12), (0, 5, 7, 9, 10, 12)):
+            plan = tint8.plan_for(1, n, c, s, tlo)
+            got = _o2_model(Asl.numpy(), Bsl.numpy(), a_scale.numpy(), b_scale.numpy(), plan,
+                            tmax)
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("q", [32, 33, -33])
+def test_o2_order_at_the_largest_slices_and_contraction(q):
+    """Every slice at |q| = 32 or 33, k = K_MAX: a t's int32 sum reaches
+    11 * 33^2 * 2^17 and still equals the plain version's f64 sums."""
+    s, k = 11, tint8.K_MAX
+    Asl = np.full((s, 2, k), q, np.int8)
+    Asl[:, 1, ::2] = -q  # the second row cancels
+    Bsl = np.full((s, k, 1), q, np.int8)
+    a_scale, b_scale = np.array([[1.0], [2.0**-20]]), np.array([[2.0**30]])
+    want = tint8._ozaki_sum(torch.from_numpy(Asl), torch.from_numpy(Bsl),
+                            torch.from_numpy(a_scale), torch.from_numpy(b_scale), 55).numpy()
+    plan = tint8.plan_for(1, 2, 1, s, (0, 6, 12))
+    np.testing.assert_array_equal(_o2_model(Asl, Bsl, a_scale, b_scale, plan, 11), want)
+    # t = 10 has 11 pairs: its sum is the largest an accumulator holds
+    top = sum(Asl[p, 0].astype(np.int64) @ Bsl[10 - p, :, 0].astype(np.int64)
+              for p in range(11))
+    assert top == 11 * q * q * k < 2**31
+
+
+def test_int32_accumulator_bound():
+    """11 pairs of k <= K_MAX products of slices |q| <= Q_MAX fit int32, and
+    the slices of graded and random inputs stay within Q_MAX (in fact 32)."""
+    assert 11 * tint8.Q_MAX**2 * tint8.K_MAX < 2**31
+    assert 16 * tint8.Q_MAX**2 * tint8.K_MAX >= 2**31  # O2 checks s Q_MAX^2 kp < 2^31
+    for A, B in _cases():
+        for X, axis in ((A, -1), (B, -2)):
+            sl, _ = tint8._slice_int8(torch.from_numpy(X), axis, 11)
+            assert int(sl.abs().max()) <= 32
+
+
+def _smoke_shapes():
+    """chip_smoke.py's OZAKI_SHAPES, read without importing the script."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "OZAKI_SHAPES":
+            return ast.literal_eval(node.value)
+    raise AssertionError("chip_smoke.py has no OZAKI_SHAPES")
+
+
+@pytest.mark.parametrize("shape", _smoke_shapes())
+def test_gemm_plan_covers_every_pair_once(shape):
+    """The planner's units, mapped to tiles as the kernel maps its blocks,
+    cover every (batch, tile, t, p) of the product exactly once; the CTAs of
+    a cluster run one chunk on adjacent row tiles of one column; the chunks
+    cut t = 0..tmax into ascending runs, chunk 0 first (the order of the f64
+    sum), and launch longest first."""
+    nb, n, k, c = shape
+    s, tmax = 11, tint8.pair_schedule(11, 55)[-1][0]
+    kp = (k + 15) // 16 * 16
+    plan = tint8.gemm_plan(nb, n, c, kp, s, tmax, 132)
+    tn, tc = -(-n // tint8.TILE), -(-c // tint8.TILE)
+    assert plan.tc == tc and plan.tn == -(-tn // tint8.CLUSTER) * tint8.CLUSTER
+    assert plan.tlo[0] == 0 and plan.tlo[-1] == tmax + 1
+    assert all(a < b for a, b in zip(plan.tlo, plan.tlo[1:]))
+    pairs = dict(tint8._pairs(s, tmax))
+    weight = [sum(len(pairs[t]) for t in range(plan.tlo[i], plan.tlo[i + 1]))
+              for i in range(len(plan.order))]
+    units = plan.units()
+    assert [weight[u[0]] for u in units] == sorted((weight[u[0]] for u in units), reverse=True)
+    seen = {}
+    for u0 in range(0, len(units), tint8.CLUSTER):
+        cl = units[u0:u0 + tint8.CLUSTER]
+        assert len({(ch, b, tj) for ch, b, _, tj in cl}) == 1
+        assert [ti for _, _, ti, _ in cl] == list(range(cl[0][2], cl[0][2] + tint8.CLUSTER))
+        for ch, b, ti, tj in cl:
+            for t in range(plan.tlo[ch], plan.tlo[ch + 1]):
+                for p in pairs[t]:
+                    key = (b, ti, tj, t, p)
+                    seen[key] = seen.get(key, 0) + 1
+    want = {(b, ti, tj, t, p) for b in range(nb) for ti in range(plan.tn) for tj in range(tc)
+            for t in range(tmax + 1) for p in pairs[t]}
+    assert set(seen) == want and set(seen.values()) == {1}
+    assert plan.tn - tn < tint8.CLUSTER  # padding only to whole clusters
+
+
+@pytest.mark.parametrize("j", [-1000, -600, -60, -1, 0, 1, 7, 60, 600, 1000])
+def test_slice_exponents_at_powers_of_two(j):
+    """Fiber maxima of exactly 2^j and of the double just below: e is
+    floor(log2(mx)) + 2 (j + 2 at 2^j; j + 1 or j + 2 below it, as log2
+    rounds), 2^e covers 2 mx, every slice stays within 32, and the slices
+    rebuild the fiber to 2^(e - 6 s)."""
+    top = 2.0**j
+    rng = np.random.default_rng(abs(j))
+    X = rng.uniform(-1, 1, (2, 40)) * (top / 2)
+    X[0, 3], X[1, 5] = top, -np.nextafter(top, 0)
+    e, scale = tint8.fiber_exponents(torch.from_numpy(X), -1)
+    e = e[:, 0].numpy()
+    assert e[0] == j + 2 and e[1] in (j + 1, j + 2)
+    assert (scale[:, 0].numpy() >= 2 * np.abs(X).max(axis=1)).all()
+    sl, _ = tint8._slice_int8(torch.from_numpy(X), -1, 11)
+    assert int(sl.abs().max()) <= 32
+    for r in range(2):
+        if e[r] - 6 * 11 < -1000:  # the rebuilt sum would leave the normal range
+            continue
+        rebuilt = sum(np.ldexp(sl[p, r].numpy().astype(np.float64), int(e[r]) - 6 * (p + 1))
+                      for p in range(11))
+        assert np.abs(rebuilt - X[r]).max() <= np.ldexp(1.0, int(e[r]) - 6 * 11)
