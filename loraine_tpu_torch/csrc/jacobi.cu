@@ -29,7 +29,7 @@
 // (ops/jacobi.py::regime_for, which mirrors the byte counts below): "sm"
 // where it fits and is the faster (B1 below mp 144, B2 below 192, or more
 // matrices than one wave of clusters holds), else "cluster" where it fits,
-// else "rounds":
+// else "grid" where it fits (to mp 2400), else "rounds":
 //
 // (a) "sm": one block per matrix, the matrix (and, for B1, the eigenvector
 //     rows) in the block's shared memory for the whole call, one launch.
@@ -73,22 +73,52 @@
 //     their columns never mix: a second cluster of 16 blocks per matrix
 //     holds them by column ranges, two columns a thread, and replays the
 //     angles that the first cluster writes to a log in global memory, one
-//     flagged entry per round and pair (put_angle below). The consumer only waits for the producer,
+//     flagged entry per round and pair (put_pair below). The consumer only waits for the producer,
 //     never the reverse, and the host launches at most as many
 //     matrices at once as cudaOccupancyMaxActiveClusters lets be resident
 //     (producers first in the grid); a consumer that waits 20 s traps, so a
 //     fault ends the launch instead of hanging the card.
 //
-// (c) "rounds": beyond a cluster's capacity (mp > 912), one launch per
-//     round over the whole card: a thread owns one 2x2 block
+// (c) "rounds": past (d)'s capacity (mp > 2400 on an H100 SXM's 132 SMs),
+//     one launch per round over the whole card: a thread owns one 2x2 block
 //     (and, for B1, one eigenvector column pair), a block of 256 threads a
 //     16 x 16 tile of pair blocks, recomputing the angles it needs from the
 //     previous A buffer; the host table `pairs` ([mp-1, 2, mp/2] int32)
-//     gives each round's labels.
+//     gives each round's labels. sweeps * (mp - 1) dependent launches a call: 10,070
+//     for B1 at mp 1008, each moving A (and V) through L2.
+//
+// (d) "grid": past a cluster's capacity (912 < mp, to 2400 on 132 SMs), one
+//     cooperative launch a call: (b) with the whole card in place of a
+//     cluster. It replaces (c)'s launch per round. Each matrix gets G blocks
+//     of 1024 threads, one per SM (G = the card's SMs / the matrices a
+//     launch holds: 132 on an H100 SXM at nb = 1; fewer SMs hold smaller
+//     matrices), and block b owns the rows of its pair positions, as pair_lo
+//     lays them out, in shared memory, so rotations touch local memory
+//     only. There is no distributed shared memory across a grid: a block
+//     publishes its pairs' next-round angles, its two leaving rows and the
+//     edge values its neighbours need to exchange buffers in global memory,
+//     each value beside the round's flag in one store (put_pair, as (b)'s
+//     angle log), double buffered by round parity; the next round, every
+//     block waits for all of the round's angles and its two arriving rows,
+//     each thread for its own entries. No grid barrier: a block waits for
+//     exactly what it reads, as soon as it is written. Bound, on an H100,
+//     by a round's chain of L2 round trips (publish, see the flag, compute
+//     the next angles), not by each SM's shared-memory traffic (at mp 1008
+//     a block holds 8 of A's rows, 32 KB). B1's eigenvector rows travel
+//     with A's in shared memory while both fit (to mp ~1790 at G = 132);
+//     past that they stay in the output, in global memory by label (16 MB
+//     at mp 2000, held by the 50 MB L2), and each block rotates its pairs'
+//     rows there, every element through L2 each round, at the end of the
+//     round, once A's rows and the angles are out (no angle depends on
+//     them): a flag per block, set after a fence, tells its neighbours, the
+//     rows' next owners, that it is done with them. Where a launch
+//     cannot hold every block at once the call fails (-1) and the wrapper
+//     raises: a block that never ran would leave the others waiting; a wait
+//     that lasts 20 s traps.
 //
 // Every regime applies the same per-element arithmetic (rotation, rot2x2,
 // rot_pair) and sums the Gershgorin rows in the same order (gersh_row), so
-// the three agree bit for bit. Each operation is a round-to-nearest
+// the four agree bit for bit. Each operation is a round-to-nearest
 // intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never
 // contracts to FMA, in the plain version's order of operations: on the card
 // B1's outputs equal the plain version's tensor ops bit for bit, and B2's
@@ -222,23 +252,30 @@ __device__ void rotate_rows(float* A, const int4* rr, int nrows, const int* pq,
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - w0, nw = NW - w0;
   const int nc = (half + 31) / 32;
   if (warp < 0) return;
-  const int chunk = warp % nc, g = warp / nc, ng = (nw - 1 - chunk) / nc + 1;
-  const int j = chunk * 32 + lane;
-  if (j >= half) return;
-  const int v = pq[j], r = pq_p(v), s = pq_q(v);
-  const float2 a = ang[j];
-  auto one = [&](int i) {
-    const int4 rec = rr[i];
-    float* rp = A + rec.x;
-    float* rq = A + rec.y;
-    rot2x2(rp[r], rp[s], rq[r], rq[s], __int_as_float(rec.z), __int_as_float(rec.w), a.x, a.y);
+  // chunk of columns j, row pairs g, g + ng, ...
+  auto walk = [&](int j, int g, int ng) {
+    if (j >= half) return;
+    const int v = pq[j], r = pq_p(v), s = pq_q(v);
+    const float2 a = ang[j];
+    auto one = [&](int i) {
+      const int4 rec = rr[i];
+      float* rp = A + rec.x;
+      float* rq = A + rec.y;
+      rot2x2(rp[r], rp[s], rq[r], rq[s], __int_as_float(rec.z), __int_as_float(rec.w), a.x, a.y);
+    };
+    int i = g;
+    for (; i + ng < nrows; i += 2 * ng) {  // two row pairs in flight
+      one(i);
+      one(i + ng);
+    }
+    if (i < nrows) one(i);
   };
-  int i = g;
-  for (; i + ng < nrows; i += 2 * ng) {  // two row pairs in flight
-    one(i);
-    one(i + ng);
+  if (nw >= nc) {  // every chunk has a warp, most several
+    const int chunk = warp % nc;
+    walk(chunk * 32 + lane, warp / nc, (nw - 1 - chunk) / nc + 1);
+  } else {  // more chunks than warps ("grid" past mp 1984): a warp walks several
+    for (int chunk = warp; chunk < nc; chunk += nw) walk(chunk * 32 + lane, 0, 1);
   }
-  if (i < nrows) one(i);
 }
 
 // Rotates the eigenvector rows (2 npairs columns at an even stride ld) by
@@ -333,16 +370,26 @@ __host__ __device__ constexpr int cluster_bytes(int mp, bool vec) {
                                                               : cluster_row_bytes(mp);
 }
 
-// First pair position of block b of a cluster.
-__host__ __device__ __forceinline__ int pair_lo(int b, int half) { return b * half / CL; }
+// First pair position of block b of nblk blocks (a cluster, or a matrix's
+// blocks in (d)).
+__host__ __device__ __forceinline__ int pair_lo(int b, int half, int nblk = CL) {
+  return b * half / nblk;
+}
 
-// B1's angle log: one 16-byte entry (c, flag, s, flag) per round and pair,
-// written with one vector store; the flag (round + 1) travels in the same
-// 8 bytes as each value, so a reader that sees the flag sees the value
-// (the LL protocol of NCCL). The wrapper zeroes the log.
-__device__ __forceinline__ void put_angle(int4* e, float c, float s, int flag) {
+// Flagged entries, (b)'s angle log and (d)'s exchange buffers: a 16-byte
+// entry (a, flag, b, flag) or an 8-byte one (a, flag), written with one
+// vector store; the flag travels in the same 8 bytes as each value, so a
+// reader that sees the flag sees the value (the LL protocol of NCCL). The
+// wrapper zeroes the buffers; flags start at 1.
+__device__ __forceinline__ void put_pair(int4* e, float a, float b, int flag) {
   asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(e),
-               "r"(__float_as_int(c)), "r"(flag), "r"(__float_as_int(s)), "r"(flag)
+               "r"(__float_as_int(a)), "r"(flag), "r"(__float_as_int(b)), "r"(flag)
+               : "memory");
+}
+
+__device__ __forceinline__ void put_one(int2* e, float a, int flag) {
+  asm volatile("st.volatile.global.v2.s32 [%0], {%1, %2};" ::"l"(e), "r"(__float_as_int(a)),
+               "r"(flag)
                : "memory");
 }
 
@@ -352,19 +399,41 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
-// Waits for the entry of round flag - 1; traps after WAIT_NS, so that a
-// producer that never comes ends the launch instead of hanging the card.
-__device__ __forceinline__ float2 get_angle(const int4* e, int flag) {
-  const unsigned long long t0 = now_ns();
-  for (unsigned n = 1;; ++n) {
-    int4 v;
+// Spins until `done`; traps after WAIT_NS, so that a writer that never
+// comes ends the launch instead of hanging the card.
+template <typename F>
+__device__ __forceinline__ void wait_until(F done) {
+  unsigned long long t0 = 0;
+  for (unsigned n = 1; !done(); ++n)
+    if ((n & 255) == 0) {
+      if (t0 == 0) t0 = now_ns();
+      else if (now_ns() - t0 > WAIT_NS) __trap();
+    }
+}
+
+// The entry written with `flag`.
+__device__ __forceinline__ float2 get_pair(const int4* e, int flag) {
+  int4 v;
+  wait_until([&] {
     asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
                  : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                  : "l"(e)
                  : "memory");
-    if (v.y == flag && v.w == flag) return make_float2(__int_as_float(v.x), __int_as_float(v.z));
-    if ((n & 255) == 0 && now_ns() - t0 > WAIT_NS) __trap();
-  }
+    return v.y == flag && v.w == flag;
+  });
+  return make_float2(__int_as_float(v.x), __int_as_float(v.z));
+}
+
+__device__ __forceinline__ float get_one(const int2* e, int flag) {
+  int2 v;
+  wait_until([&] {
+    asm volatile("ld.volatile.global.v2.s32 {%0, %1}, [%2];"
+                 : "=r"(v.x), "=r"(v.y)
+                 : "l"(e)
+                 : "memory");
+    return v.y == flag;
+  });
+  return __int_as_float(v.x);
 }
 
 // ---- (a) one block per matrix in shared memory -----------------------------
@@ -454,7 +523,7 @@ __device__ void vt_consumer(const int4* log, float* vt, int mp, int nrounds) {
   }
   init_pairs(pq, half);
   for (int r = 0; r < nrounds; ++r) {
-    for (int k = tid; k < half; k += NTR) ang[k] = get_angle(log + (size_t)r * half + k, r + 1);
+    for (int k = tid; k < half; k += NTR) ang[k] = get_pair(log + (size_t)r * half + k, r + 1);
     __syncthreads();
     const int* pqc = pq + (r & 1) * half;
     rotate_vt(V, ldv, (nc + 1) / 2, pqc, ang, half, 0);
@@ -467,16 +536,16 @@ __device__ void vt_consumer(const int4* log, float* vt, int mp, int nrounds) {
   }
 }
 
-// Slot of local position l after this round's move, in block b with K local
-// pairs and slot table sl (sl[2K], sl[2K+1]: the free slots, which receive
-// the rows from blocks b-1 and b+1).
-__device__ __forceinline__ int next_slot(const int* sl, int l, int b, int K) {
+// Slot of local position l after this round's move, in block b of nblk with
+// K local pairs and slot table sl (sl[2K], sl[2K+1]: the free slots, which
+// receive the rows from blocks b-1 and b+1).
+__device__ __forceinline__ int next_slot(const int* sl, int l, int b, int K, int nblk = CL) {
   const int f0 = sl[2 * K], f1 = sl[2 * K + 1];
   if (l < K)  // top positions
     return b == 0 ? (l == 0 ? sl[0] : l == 1 ? sl[K] : sl[l - 1]) : (l == 0 ? f0 : sl[l - 1]);
   if (l < 2 * K - 1) return sl[l + 1];  // bottom positions but the last
-  if (l == 2 * K - 1) return b == CL - 1 ? sl[K - 1] : f1;
-  if (l == 2 * K) return b == 0 ? f0 : b == CL - 1 ? f1 : sl[K - 1];  // the new free slots
+  if (l == 2 * K - 1) return b == nblk - 1 ? sl[K - 1] : f1;
+  if (l == 2 * K) return b == 0 ? f0 : b == nblk - 1 ? f1 : sl[K - 1];  // the new free slots
   return b == 0 ? sl[K - 1] : sl[K];
 }
 
@@ -546,7 +615,7 @@ cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int4* log, 
     if (k >= lo && k < hi) {
       const int l = k - lo;
       rr[l] = make_int4(l * ld, (K + l) * ld, __float_as_int(c), __float_as_int(s));
-      if (VEC) put_angle(log + logoff + k, c, s, 1);
+      if (VEC) put_pair(log + logoff + k, c, s, 1);
     }
   }
   if (tid < EDGE) {
@@ -617,7 +686,7 @@ cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int4* log, 
       ang[nx * half + k] = make_float2(c, s);  // the other blocks take it next round
       rr[nx * KM + l] = make_int4(next_slot(sl, l, b, K) * ld, next_slot(sl, K + l, b, K) * ld,
                                   __float_as_int(c), __float_as_int(s));
-      if (VEC) put_angle(log + logoff + (size_t)(r + 1) * half + k, c, s, r + 2);
+      if (VEC) put_pair(log + logoff + (size_t)(r + 1) * half + k, c, s, r + 2);
     }
     rotate_rows(rows, rr + cur * KM, K, pqc, angc, half, 1);
     __syncthreads();
@@ -789,6 +858,346 @@ cudaError_t run_rounds(float* a0, float* a1, float* vt, const int* pairs,
   return cudaGetLastError();
 }
 
+// ---- (d) one cooperative launch over the card ------------------------------
+
+// Eigenvector rows of B1 in (d): none (B2), in shared memory beside A's rows,
+// or in the output itself, by label.
+enum { V_NONE = 0, V_SMEM = 1, V_GLOBAL = 2 };
+
+__host__ __device__ constexpr int grid_pairs_max(int mp, int G) { return (mp / 2 + G - 1) / G; }
+__host__ __device__ constexpr int grid_slots(int mp, int G) {
+  return 2 * grid_pairs_max(mp, G) + 2;
+}
+// Shared memory of a block (ops/jacobi.py::smem_bytes mirrors it): row
+// records [2][KM] (16 B), A's rows [S][mp] (V_SMEM: and V's), the round's
+// angles [half] (8 B), labels [2][half], slot tables [2][S], edge values.
+__host__ __device__ constexpr int grid_bytes(int mp, int G, int vm) {
+  return 32 * grid_pairs_max(mp, G) + 4 * grid_slots(mp, G) * mp * (vm == V_SMEM ? 2 : 1) +
+         16 * (mp / 2) + 8 * grid_slots(mp, G) + 4 * EDGE;
+}
+// Exchange buffers of one matrix in global memory, in int32 words, of
+// flagged entries: angles [2][half] (c, s), leaving rows [G][2][2][mp/2] (two
+// values an entry; V_SMEM: and V's), edge values [G][2][8] (one an entry),
+// each indexed by the parity of the round that reads it; V_GLOBAL: a flag
+// per block, the last round whose eigenvector rows it has written (4 words
+// apart).
+__host__ __device__ constexpr long long grid_scratch(int mp, int G, int vm) {
+  return 4LL * mp + 8LL * G * mp * (vm == V_SMEM ? 2 : 1) + 32LL * G + 4LL * G;
+}
+
+// The SMs of the current device: "grid" plans one block on each.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+struct GridPlan {
+  int per;  // matrices a launch holds at once
+  int G;    // blocks per matrix
+  int vm;   // V_NONE, V_SMEM or V_GLOBAL
+  bool ok;  // the shape fits the regime
+};
+
+// The plan of nb matrices at padded size mp on a card of `sms` SMs, one
+// block each (mirrored by ops/jacobi.py::grid_plan): as many matrices at once
+// as leave each matrix enough of the blocks to hold its rows (A's; B1's
+// eigenvector rows go to global memory where they do not fit beside them),
+// the rest in further launches. A block needs two pairs (block 0 two top
+// positions, every block distinct edge pairs) and at most one warp of angle
+// threads.
+GridPlan grid_plan(int nb, int mp, bool vec, int sms) {
+  const int half = mp / 2;
+  auto fits = [&](int G) {
+    return G >= 1 && half / G >= 2 && grid_pairs_max(mp, G) <= 32 &&
+           grid_bytes(mp, G, vec ? V_GLOBAL : V_NONE) <= SMEM_MAX;
+  };
+  auto blocks_for = [&](int per) {
+    return sms / per < half / 2 ? sms / per : half / 2;
+  };
+  int per = nb < sms ? nb : sms;
+  while (per > 1 && !fits(blocks_for(per))) --per;
+  if (per < 1) per = 1;
+  const int G = blocks_for(per);
+  const int vm = !vec ? V_NONE : grid_bytes(mp, G, V_SMEM) <= SMEM_MAX ? V_SMEM : V_GLOBAL;
+  return {per, G, vm, fits(G)};
+}
+
+__device__ __forceinline__ void rot_pair4(float4& x, float4& y, float c, float s) {
+  rot_pair(x.x, y.x, c, s);
+  rot_pair(x.y, y.y, c, s);
+  rot_pair(x.z, y.z, c, s);
+  rot_pair(x.w, y.w, c, s);
+}
+
+// V_SMEM: rotates the eigenvector rows of the K local pairs, which sit in
+// the slots of A's (rr's records), 16 bytes a step, on threads t0..NTR-1.
+__device__ void rotate_slot_rows(float* V, const int4* rr, int K, int mp, int t0) {
+  const int m4 = mp / 4;
+  for (int e = (int)threadIdx.x - t0; e >= 0 && e < K * m4; e += NTR - t0) {
+    const int i = e / m4, c = 4 * (e - i * m4);
+    const int4 rec = rr[i];
+    float4* vp = reinterpret_cast<float4*>(V + rec.x + c);
+    float4* vq = reinterpret_cast<float4*>(V + rec.y + c);
+    float4 x = *vp, y = *vq;
+    rot_pair4(x, y, __int_as_float(rec.z), __int_as_float(rec.w));
+    *vp = x;
+    *vq = y;
+  }
+}
+
+// V_GLOBAL: the same on the rows of the output vt, by label (pq, ang: the K
+// local pairs' labels and angles). Another block rotated them the round
+// before: read and written through L2 (__ldcg, __stcg), never a stale L1,
+// after that block's flags (see grid_kernel).
+__device__ void rotate_label_rows(float* vt, const int* pq, const float2* ang, int K, int mp,
+                                  int t0) {
+  const int m4 = mp / 4;
+  for (int e = (int)threadIdx.x - t0; e >= 0 && e < K * m4; e += NTR - t0) {
+    const int i = e / m4, c = 4 * (e - i * m4);
+    const int v = pq[i];
+    float4* vp = reinterpret_cast<float4*>(vt + (size_t)pq_p(v) * mp + c);
+    float4* vq = reinterpret_cast<float4*>(vt + (size_t)pq_q(v) * mp + c);
+    float4 x = __ldcg(vp), y = __ldcg(vq);
+    rot_pair4(x, y, ang[i].x, ang[i].y);
+    __stcg(vp, x);
+    __stcg(vq, y);
+  }
+}
+
+// Grid (per * G) blocks of NTR threads, launched cooperatively (so that all
+// are resident: a block waits for others' entries): blocks [y G, (y + 1) G)
+// hold matrix y of the launch, block b its pair positions [lo, hi) =
+// pair_lo(b, half, G) as in (b). x0, x1 as in sm_kernel (under V_GLOBAL x0
+// holds the eigenvector rows from the start); scratch: grid_scratch words
+// per matrix, zeroed.
+//
+// A round r: each thread waits for its entries of round r (flag r) in the
+// exchange buffers, published the round before: every angle of the round,
+// the rows arriving from the neighbours, their edge values; __syncthreads();
+// lane l < K of warp 0 reads the three 2x2 blocks of the next-round angle
+// of pair lo + l (local rows, or edge values at the two edge pairs), while
+// the other warps advance the labels and the slot table; __syncthreads();
+// those lanes compute the next angles and publish them, while warps 1..31
+// rotate the local rows (and B1's eigenvector rows); __syncthreads(); the
+// two leaving rows and the edge values the neighbours need go out. No
+// barrier: a block waits only for the entries it reads. The buffers are
+// double buffered by round parity, and a block can be at most one round
+// ahead of another's reads: it needs every block's angles of its round,
+// which each block publishes after it has read the round before. Under
+// V_GLOBAL the eigenvector rows are rotated last in the round, after the
+// block has waited for the flags of the neighbours that rotated them the
+// round before (rows move only between neighbours); then it fences and
+// sets its own flag.
+template <int VM>
+__global__ void __launch_bounds__(NTR)
+grid_kernel(const float* __restrict__ a_in, float* x0, float* x1, int* scratch, int mp,
+            int nrounds, int G) {
+  extern __shared__ int4 smem4[];
+  const int mat = blockIdx.x / G, b = blockIdx.x - mat * G;
+  const int half = mp / 2, tid = threadIdx.x, KM = grid_pairs_max(mp, G), S = 2 * KM + 2;
+  const int lo = pair_lo(b, half, G), hi = pair_lo(b + 1, half, G), K = hi - lo, m2 = mp / 2;
+  const bool top_edge = b > 0, bottom_edge = b < G - 1;
+  int4* rr = smem4;                                     // [2][KM]: records of the local pairs
+  float* rows = reinterpret_cast<float*>(rr + 2 * KM);  // [S][mp], 16-byte aligned
+  float* V = rows + S * mp;                             // V_SMEM: [S][mp], A's slots
+  float2* ang = reinterpret_cast<float2*>(V + (VM == V_SMEM ? S * mp : 0));  // [half]
+  int* pq = reinterpret_cast<int*>(ang + half);         // [2][half]
+  int* slt = pq + 2 * half;                             // [2][S]
+  float* edge = reinterpret_cast<float*>(slt + 2 * S);  // [EDGE], as in (b)
+  int4* gang = reinterpret_cast<int4*>(scratch + (size_t)mat * grid_scratch(mp, G, VM));
+  int4* grow = gang + mp;
+  int4* gvrow = grow + (size_t)2 * G * mp;  // V_SMEM
+  int2* gedge = reinterpret_cast<int2*>(gvrow + (VM == V_SMEM ? (size_t)2 * G * mp : 0));
+  int* vdone = reinterpret_cast<int*>(gedge + (size_t)16 * G);  // V_GLOBAL: [G], 4 apart
+  float* vt = x0 + (size_t)mat * mp * mp;
+  // a block's two leaving rows for a round, mp/2 entries each: side 0 its
+  // last top row (to blk + 1), side 1 its first bottom row (to blk - 1)
+  auto out_row = [&](int4* base, int blk, int par, int side) {
+    return base + (((size_t)blk * 2 + par) * 2 + side) * (mp / 2);
+  };
+  auto edge_out = [&](int blk, int par) { return gedge + ((size_t)blk * 2 + par) * 8; };
+  // the leaving rows of a row array (the slots of local positions K-1 and
+  // K in table sl) into dst (side 0, then side 1), with their round's flag
+  auto publish_leaving = [&](const float* from, const int* sl, int4* dst, int flag) {
+    for (int e = tid; e < 2 * m2; e += NTR) {
+      const int side = e / m2, k = e - side * m2;
+      if (side == 0 ? bottom_edge : top_edge) {
+        const int slot = side == 0 ? sl[K - 1] : sl[K];
+        const float2 v = reinterpret_cast<const float2*>(from + slot * mp)[k];
+        put_pair(dst + (size_t)side * m2 + k, v.x, v.y, flag);
+      }
+    }
+  };
+  // round 0, as in (b): the local rows, every angle and the edge values
+  // straight from the input; position i holds label i
+  const float* a = a_in + (size_t)mat * mp * mp;
+  for (int e = tid; e < 2 * K * mp; e += NTR) {
+    const int l = e / mp, c = e - l * mp;
+    const int label = l < K ? lo + l : half + lo + l - K;
+    rows[l * mp + c] = a[(size_t)label * mp + c];
+    if (VM == V_SMEM) V[l * mp + c] = c == label ? 1.0f : 0.0f;
+    if (VM == V_GLOBAL) __stcg(vt + (size_t)label * mp + c, c == label ? 1.0f : 0.0f);
+  }
+  for (int l = tid; l < 2 * K + 2; l += NTR) slt[l] = l;
+  init_pairs(pq, half);
+  for (int k = tid; k < half; k += NTR) {
+    float c, s;
+    rotation(a[(size_t)k * mp + k], a[(size_t)k * mp + k + half],
+             a[(size_t)(k + half) * mp + k + half], c, s);
+    ang[k] = make_float2(c, s);
+    if (k >= lo && k < hi) {
+      const int l = k - lo;
+      rr[l] = make_int4(l * mp, (K + l) * mp, __float_as_int(c), __float_as_int(s));
+    }
+  }
+  if (tid < EDGE) {
+    const int tp[4] = {lo - 1, half + lo - 1, lo + 1, half + lo + 1};
+    const int bt[2] = {hi, half + hi};
+    if (tid < 8 && top_edge) edge[tid] = a[(size_t)tp[tid / 4] * mp + tp[tid % 4]];
+    if (tid >= 8 && bottom_edge) edge[tid] = a[(size_t)bt[(tid - 8) / 2] * mp + bt[tid % 2]];
+  }
+  __syncthreads();
+  for (int r = 0; r < nrounds; ++r) {
+    const int cur = r & 1, nx = cur ^ 1;
+    const int* pqc = pq + cur * half;
+    const int* sl = slt + cur * S;
+    const bool more = r + 1 < nrounds;
+    if (r > 0) {
+      for (int k = tid; k < half; k += NTR) ang[k] = get_pair(gang + cur * half + k, r);
+      // block b-1's last top row into local position 0, block b+1's first
+      // bottom row into local position 2K - 1 (this round's free slots)
+      for (int e = tid; e < 2 * m2; e += NTR) {
+        const int side = e / m2, c = e - side * m2;
+        if (side == 0 ? top_edge : bottom_edge) {
+          const int blk = side == 0 ? b - 1 : b + 1, slot = side == 0 ? sl[0] : sl[2 * K - 1];
+          reinterpret_cast<float2*>(rows + slot * mp)[c] =
+              get_pair(out_row(grow, blk, cur, side) + c, r);
+          if (VM == V_SMEM)
+            reinterpret_cast<float2*>(V + slot * mp)[c] =
+                get_pair(out_row(gvrow, blk, cur, side) + c, r);
+        }
+      }
+      if (tid < 4 && top_edge) edge[tid] = get_one(edge_out(b - 1, cur) + tid, r);
+      if (tid >= 4 && tid < 6 && bottom_edge)
+        edge[6 + tid] = get_one(edge_out(b + 1, cur) + tid, r);
+      __syncthreads();
+    }
+    const bool angle = more && tid < K;
+    const int l = tid;
+    NextPair n;
+    Quad bpp, bpq, bqq;
+    if (angle) {
+      n = next_pair_of(lo + l, half);
+      const int vp = pqc[n.ip], vq = pqc[n.iq];
+      auto local = [&](int i, int v) {
+        return load_quad(rows, sl[i - lo] * mp, sl[K + i - lo] * mp, pq_p(v), pq_q(v));
+      };
+      if (top_edge && l == 0) {  // pair ip = lo - 1 is block b-1's
+        bpp = {edge[0], edge[1], edge[4], edge[5]};
+        bpq = {edge[2], edge[3], edge[6], edge[7]};
+        bqq = local(n.iq, vq);
+      } else if (bottom_edge && l == K - 1) {  // pair iq = hi is block b+1's
+        bpp = local(n.ip, vp);
+        bpq = local(n.ip, vq);
+        bqq = {edge[8], edge[9], edge[10], edge[11]};
+      } else {
+        bpp = local(n.ip, vp);
+        bpq = local(n.ip, vq);
+        bqq = local(n.iq, vq);
+      }
+    }
+    if (more && tid >= 32 && tid < NTR - 32)
+      for (int k = tid - 32; k < half; k += NTR - 64) pq[nx * half + k] = next_pair(pqc, k, half);
+    if (more && tid >= NTR - 32)
+      for (int j = tid - (NTR - 32); j < 2 * K + 2; j += 32)
+        slt[nx * S + j] = next_slot(sl, j, b, K, G);
+    __syncthreads();
+    if (angle) {
+      float apq, aqq, c, s;
+      const float app = next_angle_inputs(bpp, bpq, bqq, n, ang, apq, aqq);
+      rotation(app, apq, aqq, c, s);
+      put_pair(gang + nx * half + lo + l, c, s, r + 1);  // every block reads it next round
+      rr[nx * KM + l] = make_int4(next_slot(sl, l, b, K, G) * mp,
+                                  next_slot(sl, K + l, b, K, G) * mp, __float_as_int(c),
+                                  __float_as_int(s));
+    }
+    rotate_rows(rows, rr + cur * KM, K, pqc, ang, half, 1);
+    if (VM == V_SMEM) rotate_slot_rows(V, rr + cur * KM, K, mp, 32);
+    __syncthreads();
+    if (more) {
+      // edge values of round r+1 (the last warp), as in (b): the
+      // neighbours' go to the exchange buffer, the block's own stay in
+      // shared memory
+      if (tid >= NTR - 32 && tid < NTR - 32 + EDGE) {
+        const int i = tid - (NTR - 32);
+        if (i < 4 && bottom_edge) {  // block b+1's row p: position hi-1 next round
+          const int tp[4] = {hi - 1, half + hi - 1, hi + 1, half + hi + 1};
+          put_one(edge_out(b, nx) + i,
+                  rows[next_slot(sl, K - 1, b, K, G) * mp + next_label(pqc, tp[i], half)],
+                  r + 1);
+        } else if (i >= 4 && i < 8 && top_edge) {  // own row p2: now the first bottom row
+          const int tp[4] = {lo - 1, half + lo - 1, lo + 1, half + lo + 1};
+          edge[i] = rows[sl[K] * mp + next_label(pqc, tp[i - 4], half)];
+        } else if (i >= 8 && i < 10 && bottom_edge) {  // own row y: now the last top row
+          const int bt[2] = {hi, half + hi};
+          edge[i] = rows[sl[K - 1] * mp + next_label(pqc, bt[i - 8], half)];
+        } else if (i >= 10 && top_edge) {  // block b-1's row q: position half+lo next round
+          const int bt[2] = {lo, half + lo};
+          put_one(edge_out(b, nx) + 4 + (i - 10),
+                  rows[next_slot(sl, K, b, K, G) * mp + next_label(pqc, bt[i - 10], half)],
+                  r + 1);
+        }
+      }
+      publish_leaving(rows, sl, out_row(grow, b, nx, 0), r + 1);
+      if (VM == V_SMEM) publish_leaving(V, sl, out_row(gvrow, b, nx, 0), r + 1);
+    }
+    // V_GLOBAL: round r's rotation of the eigenvector rows in the output,
+    // after A's rows and the angles are out (no angle depends on them),
+    // while the next round's entries are on their way
+    if (VM == V_GLOBAL) {
+      // the rows' last owners (this block and its neighbours) are done
+      // with them: their round r-1 tails set their flags to r
+      if (r > 0 && tid < 2 && (tid == 0 ? top_edge : bottom_edge)) {
+        const int* f = vdone + 4 * (tid == 0 ? b - 1 : b + 1);
+        wait_until([&] {
+          int v;
+          asm volatile("ld.volatile.global.s32 %0, [%1];" : "=r"(v) : "l"(f) : "memory");
+          return v >= r;
+        });
+        __threadfence();
+      }
+      __syncthreads();
+      rotate_label_rows(vt, pqc + lo, ang + lo, K, mp, 0);
+      __syncthreads();
+      if (more && tid == 0) {
+        __threadfence();
+        asm volatile("st.volatile.global.s32 [%0], %1;" ::"l"(vdone + 4 * b), "r"(r + 1)
+                     : "memory");
+      }
+    }
+    if (!more) break;  // the last round moves nothing
+  }
+  const int last = (nrounds - 1) & 1;
+  const int* pqf = pq + last * half;
+  const int* sl = slt + last * S;
+  auto label = [&](int l) { return label_at(pqf, l < K ? lo + l : half + lo + l - K, half); };
+  if (VM == V_NONE) {
+    for (int l = tid >> 5; l < 2 * K; l += NW)
+      gersh_row(rows + sl[l] * mp, label(l), mp, x0 + (size_t)mat * mp, x1 + (size_t)mat * mp);
+    return;
+  }
+  for (int l = tid; l < 2 * K; l += NTR)
+    x1[(size_t)mat * mp + label(l)] = rows[sl[l] * mp + label(l)];
+  if (VM == V_SMEM)
+    for (int e = tid; e < 2 * K * (mp / 4); e += NTR) {
+      const int l = e / (mp / 4), c = e - l * (mp / 4);
+      reinterpret_cast<float4*>(vt + (size_t)label(l) * mp)[c] =
+          reinterpret_cast<const float4*>(V + sl[l] * mp)[c];
+    }
+}
+
 // ---- launchers of the one-launch regimes -----------------------------------
 
 template <bool VEC>
@@ -848,27 +1257,73 @@ int launch_cluster(const float* a, float* x0, float* x1, int4* log, int nb, int 
   return cudaGetLastError();
 }
 
+template <int VM>
+int launch_grid_vm(const float* a, float* x0, float* x1, int* scratch, int nb, int mp,
+                   int nrounds, GridPlan pl, int sms, cudaStream_t st) {
+  auto kern = grid_kernel<VM>;
+  const int bytes = grid_bytes(mp, pl.G, VM);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NTR, bytes);
+  if (err != cudaSuccess) return err;
+  // a block waits for the others' entries: all must be resident at once
+  if ((long long)per_sm * sms < (long long)pl.per * pl.G) return ERR_NO_CLUSTER;
+  const long long len = grid_scratch(mp, pl.G, VM);
+  for (int m0 = 0; m0 < nb; m0 += pl.per) {
+    const int n = nb - m0 < pl.per ? nb - m0 : pl.per;
+    const float* a_m = a + (size_t)m0 * mp * mp;
+    float* x0_m = x0 + (size_t)m0 * (VM == V_NONE ? mp : (size_t)mp * mp);
+    float* x1_m = x1 + (size_t)m0 * mp;
+    int* sc_m = scratch + m0 * len;
+    int G = pl.G;
+    void* args[] = {(void*)&a_m, (void*)&x0_m, (void*)&x1_m, (void*)&sc_m,
+                    (void*)&mp,  (void*)&nrounds, (void*)&G};
+    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(n * pl.G), dim3(NTR), args,
+                                      bytes, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
+int launch_grid(const float* a, float* x0, float* x1, int* scratch, int nb, int mp,
+                int nrounds, bool vec, cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const GridPlan pl = grid_plan(nb, mp, vec, sms);
+  if (!pl.ok || scratch == nullptr || nrounds < 1) return ERR_SHAPE;
+  if (pl.vm == V_SMEM)
+    return launch_grid_vm<V_SMEM>(a, x0, x1, scratch, nb, mp, nrounds, pl, sms, st);
+  if (pl.vm == V_GLOBAL)
+    return launch_grid_vm<V_GLOBAL>(a, x0, x1, scratch, nb, mp, nrounds, pl, sms, st);
+  return launch_grid_vm<V_NONE>(a, x0, x1, scratch, nb, mp, nrounds, pl, sms, st);
+}
+
 }  // namespace
 
 // Regime codes: 0 = (c) one launch per round, 1 = (a) one block per matrix,
-// 2 = (b) one cluster per matrix. Returns a cudaError_t (0 = success) or
-// -1 (no cluster of this shape can be resident) / -2 (shape does not fit the
-// regime).
+// 2 = (b) one cluster per matrix, 3 = (d) one cooperative launch over the
+// card. Returns a cudaError_t (0 = success) or -1 (no cluster of this shape,
+// or not every block of the grid, can be resident) / -2 (shape does not fit
+// the regime).
 //
 // B1. a: [nb, mp, mp] input (overwritten in regime 0 only); a2: [nb, mp, mp]
 // scratch and pairs: [mp-1, 2, mp/2] labels (regime 0 only); vt: [nb, mp, mp]
 // output (eigenvectors as rows); lam: [nb, mp] output (unsorted, label
-// order); log: [nb, nrounds, mp/2] 16-byte entries, zeroed (regime 2
-// only).
+// order); scratch: regime 2, the angle log [nb, nrounds, mp/2] of 16-byte
+// entries, zeroed; regime 3, lt_jacobi_grid_scratch int32 words, zeroed.
 extern "C" int lt_jacobi_eigh_f32(float* a, float* a2, float* vt, float* lam,
-                                  const int* pairs, void* log,
-                                  int nb, int mp, int nrounds, int regime,
-                                  void* stream) {
+                                  const int* pairs, void* scratch,
+                                  int nb, int mp, int nrounds, int regime, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (regime == 1) return launch_sm<true>(a, vt, lam, nb, mp, nrounds, st);
   if (regime == 2)
-    return launch_cluster<true>(a, vt, lam, static_cast<int4*>(log), nb, mp,
+    return launch_cluster<true>(a, vt, lam, static_cast<int4*>(scratch), nb, mp,
                                 nrounds, st);
+  if (regime == 3)
+    return launch_grid(a, vt, lam, static_cast<int*>(scratch), nb, mp, nrounds, true, st);
   const int total = nb * mp * mp;
   identity_kernel<<<(total + 255) / 256, 256, 0, st>>>(vt, mp, total);
   cudaError_t err = cudaGetLastError();
@@ -880,19 +1335,31 @@ extern "C" int lt_jacobi_eigh_f32(float* a, float* a2, float* vt, float* lam,
   return cudaGetLastError();
 }
 
-// B2. a, a2, pairs as for B1; g, h: [nb, mp] output per-row lower/upper
-// Gershgorin bounds of the rotated matrix.
+// B2. a, a2, pairs as for B1; scratch: regime 3 only; g, h: [nb, mp] output
+// per-row lower/upper Gershgorin bounds of the rotated matrix.
 extern "C" int lt_jacobi_bounds_f32(float* a, float* a2, float* g, float* h,
-                                    const int* pairs, int nb, int mp,
+                                    const int* pairs, void* scratch, int nb, int mp,
                                     int nrounds, int regime, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (regime == 1) return launch_sm<false>(a, g, h, nb, mp, nrounds, st);
   if (regime == 2)
     return launch_cluster<false>(a, g, h, nullptr, nb, mp, nrounds, st);
+  if (regime == 3)
+    return launch_grid(a, g, h, static_cast<int*>(scratch), nb, mp, nrounds, false, st);
   float* fin = nullptr;
   cudaError_t err =
       run_rounds(a, a2, nullptr, pairs, nb, mp, nrounds, st, &fin);
   if (err != cudaSuccess) return err;
   gersh_kernel<<<dim3((mp + 3) / 4, nb), 128, 0, st>>>(fin, g, h, mp);
   return cudaGetLastError();
+}
+
+// int32 words of regime 3's exchange buffers for nb matrices on the current
+// device (the wrapper allocates and zeroes them), or -2 where the shape does
+// not fit the regime there.
+extern "C" long long lt_jacobi_grid_scratch(int nb, int mp, int vec) {
+  int sms = 0;
+  if (sm_count(&sms) != cudaSuccess) return ERR_SHAPE;
+  const GridPlan pl = grid_plan(nb, mp, vec != 0, sms);
+  return pl.ok ? nb * grid_scratch(mp, pl.G, pl.vm) : ERR_SHAPE;
 }

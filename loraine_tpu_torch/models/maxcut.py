@@ -17,7 +17,23 @@ import torch
 
 from ..problem import SDPProblem, problem_from_dense
 
-__all__ = ["maxcut_problem", "solve_maxcut"]
+__all__ = ["maxcut_problem", "solve_maxcut", "torus_graph"]
+
+
+def torus_graph(rows: int, cols: int, seed: int) -> np.ndarray:
+    """Weights of a rows x cols toroidal grid, G-set's toroidal family (as
+    maxG11's graph): node (i, j) joined to (i, j+1) and (i+1, j), wrapping
+    around, each edge weighted -1 or +1 by numpy.random.default_rng(seed).
+    rows, cols >= 3 (no edge twice)."""
+    n = rows * cols
+    idx = np.arange(n).reshape(rows, cols)
+    i = np.concatenate([idx.ravel(), idx.ravel()])
+    j = np.concatenate([np.roll(idx, -1, axis=1).ravel(), np.roll(idx, -1, axis=0).ravel()])
+    w = np.random.default_rng(seed).choice([-1.0, 1.0], size=i.size)
+    W = np.zeros((n, n))
+    W[i, j] = w
+    W[j, i] = w
+    return W
 
 
 def maxcut_problem(weights: np.ndarray, datarank: int = 0, pad_multiple: int = 8,

@@ -13,14 +13,17 @@ dispatchers `jacobi_eigh_padded` / `jacobi_bounds_padded` take the plain
 version only for a tensor on the CPU; for a CUDA tensor they launch the
 kernel or raise, with no fallback.
 
-The kernel has three regimes, chosen by the shape alone (`regime_for`):
-"sm" (one block per matrix in shared memory), "cluster" (one 16-block
-thread block cluster per matrix; B1 adds a cluster for the eigenvector
-rows) and, past a cluster's capacity, "rounds" (one launch per round). In
-"sm" and "cluster" a call is one launch of the Jacobi kernel. Each regime
-rounds every operation once in the plain version's order, so on the card
-B1 equals the plain version bit for bit and B2 differs only by the order
-of the Gershgorin row sums.
+The kernel has four regimes, chosen by the shape and the card's SM count
+(`regime_for`): "sm" (one block per matrix in shared memory), "cluster"
+(one 16-block thread block cluster per matrix; B1 adds a cluster for the
+eigenvector rows), "grid" (one cooperative launch over the card, past a
+cluster's capacity, where the card's SMs hold the rows) and, past that,
+"rounds" (one launch per round). In "sm", "cluster" and "grid" a call is
+one launch of the Jacobi kernel (a "grid" call with more matrices than one
+launch holds runs them in turns).
+Each regime rounds every operation once in the plain version's order, so
+on the card B1 equals the plain version bit for bit and B2 differs only by
+the order of the Gershgorin row sums.
 
 Algorithm (the Pallas kernel's, in index form): round-robin ("tournament")
 parallel ordering. The Pallas kernel keeps rows in tournament-position order,
@@ -61,6 +64,9 @@ __all__ = [
     "regime_for",
     "smem_bytes",
     "cluster_pairs",
+    "grid_plan",
+    "grid_pairs",
+    "sm_count",
 ]
 
 _SENTINEL = 2.0  # pad-diagonal value; real spectrum is normalized into [-1, 1]
@@ -203,14 +209,19 @@ def jacobi_bounds_plain(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, to
 # --------------------------------------------------------------------------
 
 
-# The kernel's regimes, chosen by the shape alone (csrc/jacobi.cu's note):
+# The kernel's regimes, chosen by the shape (csrc/jacobi.cu's note):
 # "sm", one block per matrix in shared memory; "cluster", one cluster of
 # CLUSTER blocks per matrix (B1 adds a second cluster for the eigenvector
-# rows); "rounds", one launch per round, beyond a cluster's capacity. The
-# index in REGIMES is the C side's regime code.
-REGIMES = ("rounds", "sm", "cluster")
+# rows); "grid", one cooperative launch of a block on each SM, beyond a
+# cluster's capacity; "rounds", one launch per round, beyond the grid's.
+# "grid"'s capacity depends on the card's SMs; without a card the shape rule
+# assumes H100_SMS.
+# The index in REGIMES is the C side's regime code.
+REGIMES = ("rounds", "sm", "cluster", "grid")
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 CLUSTER = 16  # blocks per cluster
+H100_SMS = 132  # SMs of an H100 SXM
+EDGE = 12  # edge values a "cluster" or "grid" block keeps
 
 
 def _ceil_div(x: int, k: int) -> int:
@@ -225,15 +236,59 @@ def cluster_pairs(mp: int) -> list:
     return [(b * half // CLUSTER, (b + 1) * half // CLUSTER) for b in range(CLUSTER)]
 
 
-def smem_bytes(regime: str, mp: int, eigvecs: bool) -> int:
+def grid_pairs(mp: int, blocks: int) -> list:
+    """[lo_b, hi_b) of the pair positions block b of a "grid" matrix owns
+    (csrc/jacobi.cu::pair_lo with ``blocks`` blocks)."""
+    half = mp // 2
+    return [(b * half // blocks, (b + 1) * half // blocks) for b in range(blocks)]
+
+
+def _grid_bytes(mp: int, blocks: int, vsmem: bool) -> int:
+    """csrc/jacobi.cu::grid_bytes: row records [2][KM] (16 B), A's rows
+    [2 KM + 2][mp] (and the eigenvector rows' beside them where ``vsmem``),
+    the round's angles (8 B a pair), labels [2][mp/2], two slot tables and
+    the edge values."""
+    pairs = _ceil_div(mp // 2, blocks)
+    slots = 2 * pairs + 2
+    return 32 * pairs + 4 * slots * mp * (2 if vsmem else 1) + 8 * mp + 8 * slots + 4 * EDGE
+
+
+def grid_plan(nb: int, mp: int, eigvecs: bool, sms: int = H100_SMS) -> dict:
+    """csrc/jacobi.cu::grid_plan, the "grid" regime's layout of nb matrices
+    at padded size mp on a card of ``sms`` SMs, one block each: ``per``
+    matrices a launch holds at once (the rest in further launches),
+    ``blocks`` per matrix, ``vsmem`` (B1's eigenvector rows in shared memory
+    beside A's, else in global memory) and ``fits``. As many matrices at
+    once as leave each enough of the blocks for its rows; a block needs two
+    pairs and at most 32 (one warp of angle threads)."""
+    half = mp // 2
+
+    def fits(g):
+        return (g >= 1 and half // g >= 2 and _ceil_div(half, g) <= 32
+                and _grid_bytes(mp, g, False) <= SMEM_LIMIT)
+
+    def blocks_for(per):
+        return min(sms // per, half // 2)
+
+    per = min(nb, sms)
+    while per > 1 and not fits(blocks_for(per)):
+        per -= 1
+    per = max(per, 1)
+    blocks = blocks_for(per)
+    vsmem = eigvecs and _grid_bytes(mp, blocks, True) <= SMEM_LIMIT
+    return {"per": per, "blocks": blocks, "vsmem": vsmem, "fits": fits(blocks)}
+
+
+def smem_bytes(regime: str, mp: int, eigvecs: bool, nb: int = 1, sms: int = H100_SMS) -> int:
     """Dynamic shared memory a block of ``regime`` needs (csrc/jacobi.cu's
-    sm_bytes and cluster_bytes): A's rows at stride mp + 1 ("sm") or mp + 4
-    ("cluster"), the eigenvector rows at stride mp; per pair a row record
-    (16 B) and an angle (8 B), both double buffered, and two label words; in
-    a cluster, two slot tables, two sets of 12 edge values and the
-    neighbours' slot numbers (16 B). B1's consumer blocks hold mp x
+    sm_bytes, cluster_bytes and grid_bytes): A's rows at stride mp + 1
+    ("sm"), mp + 4 ("cluster") or mp ("grid"), the eigenvector rows at
+    stride mp; per pair a row record (16 B) and an angle (8 B), both double
+    buffered ("grid": the angles once), and two label words; in a cluster
+    or a grid block, two slot tables and 12 edge values (a cluster adds the
+    neighbours' slot numbers, 16 B). B1's consumer blocks hold mp x
     (ceil(mp/16) rounded up to even) eigenvector entries, the angles and the
-    labels."""
+    labels. "grid" depends on nb and the card's SMs through `grid_plan`."""
     if regime == "sm":
         return 4 * mp * (mp + 1) + 4 * mp * mp * eigvecs + 28 * mp
     if regime == "cluster":
@@ -242,6 +297,9 @@ def smem_bytes(regime: str, mp: int, eigvecs: bool) -> int:
         rows = 32 * pairs + 12 * mp + 8 * slots + 112 + 4 * slots * (mp + 4)
         cols = 4 * mp * 2 * _ceil_div(_ceil_div(mp, CLUSTER), 2) + 8 * mp
         return max(rows, cols) if eigvecs else rows
+    if regime == "grid":
+        plan = grid_plan(nb, mp, eigvecs, sms)
+        return _grid_bytes(mp, plan["blocks"], plan["vsmem"])
     if regime == "rounds":
         return 0
     raise ValueError(f"unknown regime {regime!r}")
@@ -257,16 +315,19 @@ CLUSTER_FROM = {True: 144, False: 192}
 CLUSTER_WAVE = 6
 
 
-def regime_for(nb: int, mp: int, eigvecs: bool) -> str:
-    """The regime of nb matrices at padded size mp: "sm" below CLUSTER_FROM
-    or past one wave of clusters, where its block fits SMEM_LIMIT (B1 to
-    mp 160, B2 to 224); else "cluster" where its blocks fit (to mp 912);
-    else "rounds"."""
+def regime_for(nb: int, mp: int, eigvecs: bool, sms: int = H100_SMS) -> str:
+    """The regime of nb matrices at padded size mp on a card of ``sms``
+    SMs: "sm" below CLUSTER_FROM or past one wave of clusters, where its
+    block fits SMEM_LIMIT (B1 to mp 160, B2 to 224); else "cluster" where
+    its blocks fit (to mp 912); else "grid" where the card holds its plan
+    (to mp 2400 on 132 SMs); else "rounds"."""
     if smem_bytes("sm", mp, eigvecs) <= SMEM_LIMIT and (
             mp < CLUSTER_FROM[eigvecs] or nb * (1 + eigvecs) > CLUSTER_WAVE):
         return "sm"
     if smem_bytes("cluster", mp, eigvecs) <= SMEM_LIMIT:
         return "cluster"
+    if grid_plan(nb, mp, eigvecs, sms)["fits"]:
+        return "grid"
     return "rounds"
 
 
@@ -275,11 +336,11 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("jacobi")
     if not getattr(lib, "_lt_bound", False):
-        ints = [ctypes.c_int] * 4
-        lib.lt_jacobi_eigh_f32.argtypes = [ctypes.c_void_p] * 6 + ints + [ctypes.c_void_p]
-        lib.lt_jacobi_bounds_f32.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
         for fn in (lib.lt_jacobi_eigh_f32, lib.lt_jacobi_bounds_f32):
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.lt_jacobi_grid_scratch.argtypes = [ctypes.c_int] * 3
+        lib.lt_jacobi_grid_scratch.restype = ctypes.c_longlong
         lib._lt_bound = True
     return lib
 
@@ -291,36 +352,51 @@ def _check_padded(Mp: torch.Tensor) -> None:
         raise ValueError(f"mp must be a multiple of 16, got {Mp.shape[1]}")
 
 
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device ("grid" plans one block on each)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _run(eigvecs: bool, Mp: torch.Tensor, outs, sweeps: int, regime: str) -> None:
     """Launch B1 (eigvecs) or B2 on Mp in ``regime``, writing ``outs``
-    (B1: VT, lam; B2: g, h). Scratch comes from torch.empty; the kernel
-    allocates nothing. Raises on any launch error."""
+    (B1: VT, lam; B2: g, h). Scratch comes from torch (zeroed where it
+    holds flagged entries); the kernel allocates nothing. Raises on any
+    launch error."""
     nb, mp, _ = Mp.shape
     nrounds = sweeps * (mp - 1)
     A = Mp.contiguous()
-    a2 = table = log = None
+    a2 = table = scratch = None
+    lib = _lib()
     if regime == "rounds":  # the round kernel works on two A buffers in turn
         A = A.clone()
         a2 = torch.empty_like(A)
         table = _table_on(mp, Mp.device, torch.int32)
     elif regime == "cluster" and eigvecs:  # the angle log: (c, flag, s, flag) entries
-        log = torch.zeros((nb, nrounds, mp // 2, 4), dtype=torch.int32, device=Mp.device)
+        scratch = torch.zeros((nb, nrounds, mp // 2, 4), dtype=torch.int32, device=Mp.device)
+    elif regime == "grid":  # the exchange buffers between rounds: flagged entries
+        with torch.cuda.device(Mp.device):
+            n = lib.lt_jacobi_grid_scratch(nb, mp, int(eigvecs))
+        if n < 0:
+            raise RuntimeError(f"mp={mp} (nb={nb}) does not fit regime 'grid' on this card")
+        scratch = torch.zeros(n, dtype=torch.int32, device=Mp.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _lib()
     with torch.cuda.device(Mp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if eigvecs:
-            fn = lib.lt_jacobi_eigh_f32
-            rc = fn(A.data_ptr(), ptr(a2), *(o.data_ptr() for o in outs), ptr(table), ptr(log),
-                    nb, mp, nrounds, REGIMES.index(regime), stream)
-        else:
-            fn = lib.lt_jacobi_bounds_f32
-            rc = fn(A.data_ptr(), ptr(a2), *(o.data_ptr() for o in outs), ptr(table),
-                    nb, mp, nrounds, REGIMES.index(regime), stream)
+        args = (A.data_ptr(), ptr(a2), *(o.data_ptr() for o in outs), ptr(table), ptr(scratch),
+                nb, mp, nrounds, REGIMES.index(regime), stream)
+        fn = lib.lt_jacobi_eigh_f32 if eigvecs else lib.lt_jacobi_bounds_f32
+        rc = fn(*args)
     if rc == -1:
+        if regime == "grid":
+            plan = grid_plan(nb, mp, eigvecs, sm_count(Mp.device))
+            raise RuntimeError(
+                f"{fn.__name__}: a grid of {plan['per'] * plan['blocks']} blocks with "
+                f"{_grid_bytes(mp, plan['blocks'], plan['vsmem'])} bytes of "
+                f"shared memory each cannot be resident on this card at once "
+                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
         raise RuntimeError(
             f"{fn.__name__}: no cluster of {CLUSTER} blocks with "
             f"{smem_bytes(regime, mp, eigvecs)} bytes of shared memory each can be resident "
@@ -335,7 +411,7 @@ def jacobi_eigh_cuda(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch
     """B1 on the card: same contract as `jacobi_eigh_plain`."""
     _check_padded(Mp)
     nb, mp, _ = Mp.shape
-    regime = regime_for(nb, mp, True)
+    regime = regime_for(nb, mp, True, sm_count(Mp.device))
     VT = torch.empty_like(Mp)
     lam = torch.empty((nb, mp), dtype=torch.float32, device=Mp.device)
     _run(True, Mp, (VT, lam), sweeps, regime)
@@ -348,7 +424,7 @@ def jacobi_bounds_cuda(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, tor
     """B2 on the card: same contract as `jacobi_bounds_plain`."""
     _check_padded(Mp)
     nb, mp, _ = Mp.shape
-    regime = regime_for(nb, mp, False)
+    regime = regime_for(nb, mp, False, sm_count(Mp.device))
     g = torch.empty((nb, mp), dtype=torch.float32, device=Mp.device)
     h = torch.empty_like(g)
     _run(False, Mp, (g, h), sweeps, regime)

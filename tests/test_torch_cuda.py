@@ -15,36 +15,50 @@ from torch_cases import spectrum_matrix
 
 
 # one shape per regime of each kernel (B1, B2): (sm, sm), (sm, sm),
-# (cluster, cluster), (cluster, sm), (cluster, cluster), (rounds, rounds),
-# (sm, sm) past one wave of B1's clusters
+# (cluster, cluster), (cluster, sm), (cluster, cluster), (grid, grid),
+# (sm, sm) past one wave of B1's clusters; then (grid, grid) at the
+# 2000-node torus's size (B1's eigenvector rows in global memory) and with
+# two matrices sharing the card, and (rounds, rounds) past the grid's
+# capacity on an H100 SXM, one sweep each (None: the sweep schedule)
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,m", [(1, 56), (2, 56), (1, 800), (1, 176), (1, 240), (1, 1000),
-                                  (4, 144)])
-def test_kernels_match_plain_on_card(nb, m):
+@pytest.mark.parametrize("nb,m,sweeps", [(1, 56, None), (2, 56, None), (1, 800, None),
+                                         (1, 176, None), (1, 240, None), (1, 1000, None),
+                                         (4, 144, None), (1, 2000, 1), (2, 1000, 1),
+                                         (1, 2416, 1)])
+def test_kernels_match_plain_on_card(nb, m, sweeps):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     A = torch.from_numpy(spectrum_matrix("clustered", m, nb, seed=m)).cuda()
     Mn, scale = tj._normalize_pad(A)
     mp = Mn.shape[-1]
-    s1, s2 = tj.jacobi_sweeps_for(m), tj.bound_sweeps_for(m)
+    s1, s2 = sweeps or tj.jacobi_sweeps_for(m), sweeps or tj.bound_sweeps_for(m)
     kernels = ((tj.jacobi_eigh_cuda, True), (tj.jacobi_bounds_cuda, False))
     before = [fn.launches_by_regime.copy() for fn, _ in kernels]
     out_k = tj.jacobi_eigh_cuda(Mn, s1)
     g_h = tj.jacobi_bounds_cuda(Mn, s2)
+    sms = tj.sm_count(Mn.device)
     for (fn, eigvecs), old in zip(kernels, before):  # one launch, in the shape's regime
-        assert fn.launches_by_regime - old == {tj.regime_for(nb, mp, eigvecs): 1}
+        assert fn.launches_by_regime - old == {tj.regime_for(nb, mp, eigvecs, sms): 1}
     out_p = tj.jacobi_eigh_plain(Mn, s1)
     torch.cuda.synchronize()
     # every regime rounds each operation once, in the plain version's order
     # (csrc/jacobi.cu): B1 equals the plain version's tensor ops bit for bit
     assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    if tj.regime_for(nb, mp, False, sms) == "grid":  # B2: bit for bit the regime it replaced
+        g_r, h_r = torch.empty_like(g_h[0]), torch.empty_like(g_h[1])
+        tj._run(False, Mn, (g_r, h_r), s2, "rounds")
+        assert torch.equal(g_h[0], g_r) and torch.equal(g_h[1], h_r)
     # the contracts of tests/test_jacobi_pallas.py on the sorted seed and the
     # certified bounds (B2's row sums add in another order than torch's)
-    lam_k, V = tj._sorted_eigh(*out_k, m, scale)
-    lam_p, _ = tj._sorted_eigh(*out_p, m, scale)
     lo_k, hi_k = tj._widened_bounds(*g_h, m, scale, A.dtype)
     lo_p, hi_p = tj._widened_bounds(*tj.jacobi_bounds_plain(Mn, s2), m, scale, A.dtype)
     ev = torch.linalg.eigvalsh(A)
+    for lo, hi in ((lo_k, hi_k), (lo_p, hi_p)):  # Gershgorin: valid after any sweeps
+        assert (lo <= ev[:, 0]).all() and (hi >= ev[:, -1]).all()
+    if sweeps is not None:  # one sweep: bit equality and valid bounds, not a converged seed
+        return
+    lam_k, V = tj._sorted_eigh(*out_k, m, scale)
+    lam_p, _ = tj._sorted_eigh(*out_p, m, scale)
     sc = scale[:, None]
     assert ((lam_k.double() - lam_p.double()).abs() / sc).max() < 5e-5
     assert ((lam_k.double() - ev).abs() / sc).max() < 5e-5
@@ -55,8 +69,6 @@ def test_kernels_match_plain_on_card(nb, m):
     # then ~2.5e-4 for the plain version too (chip_smoke.py compares them)
     assert (Vd.mT @ Vd - torch.eye(m, dtype=Vd.dtype, device=Vd.device)).abs().max() < (
         1e-4 if m < 256 else 1e-3)
-    for lo, hi in ((lo_k, hi_k), (lo_p, hi_p)):
-        assert (lo <= ev[:, 0]).all() and (hi >= ev[:, -1]).all()
     # the net of chip_smoke.py: per instance the slack is rounding luck on
     # clustered spectra (60 seeds at m=56: medians 1.50e-4 kernel, 1.43e-4
     # plain); fail only a kernel looser than twice the plain bound and 1e-3

@@ -121,16 +121,21 @@ def test_cpu_tensors_take_the_plain_version():
     (7, 224, "cluster", "sm"), (1, 240, "cluster", "cluster"),
     (1, 800, "cluster", "cluster"), (2, 800, "cluster", "cluster"),  # maxG11
     (1, 816, "cluster", "cluster"),                                  # thetaG11
-    (1, 912, "cluster", "cluster"), (1, 928, "rounds", "rounds"), (1, 1008, "rounds", "rounds"),
+    (1, 912, "cluster", "cluster"), (1, 928, "grid", "grid"), (1, 1008, "grid", "grid"),
+    (2, 1008, "grid", "grid"), (1, 2000, "grid", "grid"),            # the tori
+    (1, 2400, "grid", "grid"), (1, 2416, "rounds", "rounds"),        # GRID_MAX and past it
 ])
 def test_regime_by_shape(nb, mp, b1, b2):
     for eigvecs, want in ((True, b1), (False, b2)):
         got = tj.regime_for(nb, mp, eigvecs)
         assert got == want
-        assert tj.smem_bytes(got, mp, eigvecs) <= tj.SMEM_LIMIT
+        assert tj.smem_bytes(got, mp, eigvecs, nb) <= tj.SMEM_LIMIT
         fits = {r: tj.smem_bytes(r, mp, eigvecs) <= tj.SMEM_LIMIT for r in ("sm", "cluster")}
-        if got == "rounds":  # only past both one-launch regimes
+        fits["grid"] = tj.grid_plan(nb, mp, eigvecs)["fits"]
+        if got == "rounds":  # only past every one-launch regime
             assert not any(fits.values())
+        if got == "grid":  # only past a cluster's capacity
+            assert not fits["sm"] and not fits["cluster"]
         if got == "cluster" and fits["sm"]:  # the faster, and all in one wave
             assert mp >= tj.CLUSTER_FROM[eigvecs]
             assert nb * (2 if eigvecs else 1) <= tj.CLUSTER_WAVE
@@ -166,11 +171,11 @@ def test_label_recurrence_is_pair_table(mp):
     np.testing.assert_array_equal(lab, np.arange(mp))
 
 
-def _next_slots(sl, b, K):
-    """csrc/jacobi.cu::cluster_kernel's slot table after the row move of
-    block b (K local pairs): local positions 0..2K-1, then the two free."""
+def _next_slots(sl, b, K, nblk=tj.CLUSTER):
+    """csrc/jacobi.cu::next_slot: the slot table of block b of nblk (K local
+    pairs) after the row move: local positions 0..2K-1, then the two free."""
     f0, f1 = sl[2 * K], sl[2 * K + 1]
-    last = tj.CLUSTER - 1
+    last = nblk - 1
     new = []
     for l in range(2 * K + 2):
         if l < K:
@@ -256,3 +261,107 @@ def test_cluster_ownership_follows_pair_table(mp):
             np.testing.assert_array_equal(model.rows[b][top, 0], table[r % (mp - 1), 0, lo:hi])
             np.testing.assert_array_equal(model.rows[b][bot, 0], table[r % (mp - 1), 1, lo:hi])
         model.move()
+
+
+class _GridModel:
+    """The rows of one matrix in the "grid" regime: block b holds the rows
+    of its pair positions (`grid_pairs`) in row slots through a slot table;
+    after each round it publishes its last top row (to b+1) and its first
+    bottom row (to b-1) to an exchange buffer of the round's parity, and at
+    the start of the next round copies its neighbours' into the slots of
+    local positions 0 and 2K-1 (csrc/jacobi.cu::grid_kernel). A row is its
+    label."""
+
+    def __init__(self, mp, blocks):
+        self.half = half = mp // 2
+        self.G = blocks
+        self.split = tj.grid_pairs(mp, blocks)
+        self.K = [hi - lo for lo, hi in self.split]
+        nslots = 2 * max(self.K) + 2
+        self.rows = [np.full(nslots, -1) for _ in self.split]
+        self.sl = [list(range(2 * k + 2)) for k in self.K]
+        for b, (lo, _) in enumerate(self.split):
+            K = self.K[b]
+            for l in range(2 * K):
+                self.rows[b][l] = lo + l if l < K else half + lo + l - K
+        self.buf = {}
+
+    def local(self, b):
+        K = self.K[b]
+        return self.sl[b][:K], self.sl[b][K:2 * K]
+
+    def publish(self, par):
+        for b, K in enumerate(self.K):
+            if b < self.G - 1:
+                self.buf[b, par, 0] = self.rows[b][self.sl[b][K - 1]]
+            if b > 0:
+                self.buf[b, par, 1] = self.rows[b][self.sl[b][K]]
+        self.sl = [_next_slots(sl, b, K, self.G) for b, (sl, K) in enumerate(zip(self.sl, self.K))]
+        for sl in self.sl:
+            assert sorted(sl) == list(range(len(sl)))  # a permutation of the slots
+
+    def arrive(self, par):
+        for b, K in enumerate(self.K):
+            sl, rows = self.sl[b], self.rows[b]
+            if b > 0:
+                rows[sl[0]] = self.buf.pop((b - 1, par, 0))
+            if b < self.G - 1:
+                rows[sl[2 * K - 1]] = self.buf.pop((b + 1, par, 1))
+        assert not self.buf  # every published row arrived
+
+
+@pytest.mark.parametrize("mp", [928, 1008, 2000])
+def test_grid_rows_follow_pair_table(mp):
+    """The grid regime's row partition at the padded sizes of maxG51 and the
+    tori: each position owned once, both rows of every pair in one block's
+    shared memory in every round of a sweep, each block within SMEM_LIMIT."""
+    half = mp // 2
+    for eigvecs in (True, False):
+        plan = tj.grid_plan(1, mp, eigvecs)
+        assert plan["fits"] and plan["per"] == 1 and plan["blocks"] == tj.H100_SMS
+        assert tj.smem_bytes("grid", mp, eigvecs) <= tj.SMEM_LIMIT
+        assert plan["vsmem"] == (eigvecs and mp < 2000)  # mp 2000: V in global memory
+    split = tj.grid_pairs(mp, tj.H100_SMS)
+    owned = np.concatenate([np.r_[lo:hi, half + lo:half + hi] for lo, hi in split])
+    np.testing.assert_array_equal(np.sort(owned), np.arange(mp))  # each position once
+    assert min(hi - lo for lo, hi in split) >= 2 and max(hi - lo for lo, hi in split) <= 32
+    model = _GridModel(mp, tj.H100_SMS)
+    table = tj.pair_table(mp)
+    for r in range(mp):  # a sweep and the first round of the next
+        if r > 0:
+            model.arrive(r & 1)
+        held = [[model.rows[b][s] for s in model.local(b)] for b in range(len(split))]
+        np.testing.assert_array_equal(np.concatenate([t for t, _ in held]), table[r % (mp - 1), 0])
+        np.testing.assert_array_equal(np.concatenate([u for _, u in held]), table[r % (mp - 1), 1])
+        model.publish((r + 1) & 1)
+
+
+@pytest.mark.parametrize("sms,last", [(132, 2400), (114, 2272), (78, 1920), (16, 928)])
+def test_grid_capacity_follows_the_sm_count(sms, last):
+    """On a card with fewer SMs (an H100 PCIe has 114, a MIG slice fewer)
+    "grid" plans fewer blocks and ends sooner; past its last size the
+    shape takes "rounds", and every plan it takes the card can hold."""
+    for eigvecs in (True, False):
+        fit = [mp for mp in range(928, 2432, 16) if tj.grid_plan(1, mp, eigvecs, sms)["fits"]]
+        assert fit == list(range(928, last + 16, 16))
+        assert tj.regime_for(1, last, eigvecs, sms) == "grid"
+        assert tj.regime_for(1, last + 16, eigvecs, sms) == "rounds"
+        for nb, mp in ((1, last), (3, 1008), (2, 928)):
+            plan = tj.grid_plan(nb, mp, eigvecs, sms)
+            if plan["fits"]:
+                assert plan["per"] * plan["blocks"] <= sms
+                assert tj.smem_bytes("grid", mp, eigvecs, nb, sms) <= tj.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nb,mp", [(2, 1008), (3, 1008), (6, 1008), (2, 2000), (20, 928)])
+def test_grid_plan_shares_the_card(nb, mp):
+    """Several matrices share one launch while each keeps enough blocks for
+    its rows (csrc/jacobi.cu::grid_plan); the rest run in further launches."""
+    for eigvecs in (True, False):
+        plan = tj.grid_plan(nb, mp, eigvecs)
+        assert plan["fits"] and 1 <= plan["per"] <= nb
+        assert plan["per"] * plan["blocks"] <= tj.H100_SMS
+        assert tj.smem_bytes("grid", mp, eigvecs, nb) <= tj.SMEM_LIMIT
+        if plan["per"] < nb:  # one more matrix at once would not fit
+            more = tj.grid_plan(plan["per"] + 1, mp, eigvecs)
+            assert more["per"] == plan["per"]
