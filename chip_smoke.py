@@ -6,8 +6,8 @@ CUDA card and no network, and exits non-zero on the first failed check.
 
 Phases:
   1. setup: card name and power limit, build of the CUDA kernels
-     (csrc/jacobi.cu, csrc/pcg.cu and csrc/int8gemm.cu, one nvcc each for
-     sm_90a, started together) from the checkout.
+     (csrc/jacobi.cu, csrc/pcg.cu, csrc/int8gemm.cu and csrc/dd_linalg.cu,
+     one nvcc each for sm_90a, started together) from the checkout.
   2. each Jacobi kernel against its plain PyTorch version on the card, at
      the solver's shapes (nb, m) in {(1, 16), (2, 16), (1, 56), (2, 56),
      (1, 144), (1, 152), (1, 800), (2, 800), (1, 808), (1, 1000), (1, 2000)}
@@ -87,9 +87,13 @@ Phases:
      (iterations within one).
  19. dd2: theta1 (dense storage) with err1 < 1e-18 and err3 < 1e-15; tru3
      forced sparse with err1, err3 < 1e-18; the LP synthetic of
-     tests/test_precision.py:76-96 below DIMACS 1e-13.
+     tests/test_precision.py:76-96 below DIMACS 1e-13. On the card
+     nt_precision 'auto' is the dd NT scaling under 'dd2' at kit=0 (D1-D3
+     must run in every such solve of this process: phases 19, 38, 42).
  20. theta1 on the CG path (kit=1) at 'dd' (DIMACS < 1e-9) and 'dd2'
-     (< 1e-10): no CG kernel runs under the precision tiers.
+     (< 1e-10) with the default options: no CG kernel runs under the
+     precision tiers, and under 'dd2' 'auto' is the f64 NT scaling on the
+     CG path (no D1-D3 launch; ROADMAP Queue C 8).
  21. maxG11 at full size at precision='dd', eDIMACS 1e-8: OPTIMAL, objective
      within 1e-6 relative of 629.16479325; wall time, median time per
      iteration and peak memory beside phase 4's f64 run.
@@ -195,7 +199,8 @@ Phases:
      n = 10, seed 5) solved whole at 'dd2': OPTIMAL, DIMACS < 1e-12,
      err1 < 1e-18; (b) one `nt_scale_dd` at theta1's width (m = 50, padded
      to 56) on phase 19's last dd2 iterate: ms (CUDA events), device
-     launches (torch.profiler, traces of 0 and 1 Jacobi sweeps), dd_ok, W S W = X to 1e-29 of the terms it
+     launches (torch.profiler, one whole call; fails at 1,000 or more, and
+     unless D1, D2 and D3 ran 1, 1 and 8 times), dd_ok, W S W = X to 1e-29 of the terms it
      cancels (||W||^2 ||S||; the f64 scaling's error beside it), D within
      1e-14 relative of the port's CPU run on the same iterate;
      (c) a theta1 'dd2' step under nt_precision='dd' from phase 19's
@@ -248,15 +253,32 @@ Phases:
      kernel) and (d) 'mixed' with step_eig='pallas' (B2 "grid", 2 an
      iteration): both OPTIMAL, objectives within 1e-5 relative; (e)
      `profile_phases` of one step at the first iterate.
-
+ 42. the dd NT scaling's kernels (csrc/dd_linalg.cu): (a) D1 (the dd
+     Jacobi sweeps), D2 (the dd Cholesky) and D3 (the dd GEMM) against
+     their plain versions on the card, bit for bit (D2's is the eager
+     `dd_chol`), at (nb, m) in DD_SHAPES, in "smem" and "global" (the
+     regimes the library picks for m), and on phase 19's last theta1
+     iterate (X, S Lx, Lx^T S Lx at m = 56): each kernel's ms (CUDA events
+     after a warm-up),
+     the plain version's, the bound and the launches a call; (b) theta1 at
+     'dd2' with the default options (nt_precision 'auto' = dd on the card)
+     and with nt_precision='f64': both OPTIMAL with phase 19's floors
+     (err1 < 1e-18, err3 < 1e-15), D1-D3 launched in the first only,
+     objectives within 1e-10 relative, iterations and ms an iteration;
+     the JSON line's D1-D3 launches are those of (b)'s default run.
 The reference values of phases 4, 11, 12 and 15 are the JAX package's CPU
 runs (`benchmarks/results_cpu_r2.jsonl`). Every solve (phases 3, 4, 7-13,
-15, 18-26, 28-33, 38, 40, 41) runs with the launch counts set to 0 just before it and read
-just after (phases 34-37: in each rank's own process, around its sharded run), and fails if a kernel of its path was not launched (B1 and B2
-in every precision-tier solve, O1 and O2 under 'int8') or, in phases 22-24, if a Jacobi kernel ran
-where its mode does not resolve to it. The line before
+15, 18-26, 28-33, 38, 40-42) runs with the launch counts set to 0 just
+before it and read just after (phases 34-37: in each rank's own process,
+around its sharded run), and fails if a kernel of its path was not
+launched (B1 and B2 in every precision-tier solve, D1-D3 in every kit=0
+'dd2' one of this process under the default NT scaling, O1 and O2 under
+'int8') or,
+in phases 22-24, if a Jacobi kernel ran where its mode does not resolve to
+it. The line before
 the last two is a JSON object with one entry per kernel (B1 and B2 twice:
-at maxG11's shapes, and in "grid" at mp 1008 with phase 41's launches); then the card's
+at maxG11's shapes, and in "grid" at mp 1008 with phase 41's launches;
+D1-D3 at theta1's (1, 56)); then the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -323,6 +345,15 @@ MAXG11_DD = dict(MAXG11_OPTS, eDIMACS=1e-8, precision="dd")
 KERNELS = ("B1", "B2", "B3", "B4", "polish")
 # the integer Ozaki GEMM's kernels (gemm_backend='int8'; phase 40 only)
 OZAKI = ("O1", "O2")
+# the dd NT scaling's kernels (csrc/dd_linalg.cu: D1 the Jacobi sweeps, D2
+# the Cholesky, D3 the GEMM), launched by every dd2 solve on the card
+DD_KERNELS = ("D1", "D2", "D3")
+DD2_NEEDS = ("B1", "B2") + DD_KERNELS
+# phase 42(a): (nb, m) of the dd kernels against their plain versions:
+# theta1's m = 56 (the main path's), a batch of two, m = 8, and m = 96,
+# past the "smem" regime (m <= 84 on an H100), in "global"; D1 runs 6
+# sweeps (the warm default), 2 at m = 96
+DD_SHAPES = ((1, 8), (2, 8), (1, 56), (2, 56), (2, 96))
 # the int8 tensor cores' dense peak (NVIDIA data sheet, H100 SXM)
 PEAK_INT8 = 1979e12
 # phase 40(a): (batch, n, k, c) of the int8 GEMM: maxG11's B G and
@@ -792,11 +823,12 @@ class Launches:
     size mp, every kernel per regime): reset before each solve, read after,
     summed over the solves."""
 
-    def __init__(self, tj, tp, ti):
+    def __init__(self, tj, tp, ti, dl):
         self.jacobi = {"B1": tj.jacobi_eigh_cuda, "B2": tj.jacobi_bounds_cuda}
         self.cg = {"B3": tp.cg_minres_f64_cuda, "B4": tp.cg_f32_cuda, "polish": tp.cg_f64_cuda}
         self.ozaki = {"O1": ti.ozaki_slice_s8_cuda, "O2": ti.ozaki_gemm_s8_cuda}
-        self.total = dict.fromkeys(KERNELS + OZAKI, 0)
+        self.dd = {"D1": dl.dd_jacobi_cuda, "D2": dl.dd_chol_cuda, "D3": dl.dd_matmul_cuda}
+        self.total = dict.fromkeys(KERNELS + OZAKI + DD_KERNELS, 0)
 
     def run(self, label: str, needs, solve):
         for fn in self.jacobi.values():
@@ -805,7 +837,7 @@ class Launches:
         for fn in self.cg.values():
             fn.launches = 0
             fn.launches_by_regime.clear()
-        for fn in self.ozaki.values():
+        for fn in (*self.ozaki.values(), *self.dd.values()):
             fn.launches = 0
         r = solve()
         # the Jacobi kernels' launches per padded size mp, and every
@@ -814,8 +846,8 @@ class Launches:
         self.by_regime = {k: dict(sorted(fn.launches_by_regime.items()))
                           for k, fn in {**self.jacobi, **self.cg}.items()}
         got = {k: sum(v.values()) for k, v in self.by_mp.items()}
-        got.update({k: fn.launches for k, fn in {**self.cg, **self.ozaki}.items()})
-        for k in KERNELS + OZAKI:
+        got.update({k: fn.launches for k, fn in {**self.cg, **self.ozaki, **self.dd}.items()})
+        for k in KERNELS + OZAKI + DD_KERNELS:
             self.total[k] += got[k]
         # the IPM iterations of the result (a model's ModelResult carries the
         # solver's Result as .raw; a model function's plain values have none)
@@ -993,36 +1025,39 @@ def precision_tiers(launches, ltt, maxg11_f64) -> dict:
     check(abs(r.iterations - ref.iterations) <= 1, "theta1 dd iterations vs CPU")
 
     # ---- phase 19: dd2 floors (theta1 dense, tru3 forced sparse, LP)
-    r = launches.run("phase 19 (theta1 dd2)", ("B1", "B2"),
+    r = launches.run("phase 19 (theta1 dd2)", DD2_NEEDS,
                      lambda: ltt.solve_sdpa(THETA1, DD2, device="cuda"))
     phase19 = {"theta1": r}
-    print(tier_line("19 theta1 dd2 cuda", r), flush=True)
+    print(tier_line("19 theta1 dd2 (NT auto = dd) cuda", r), flush=True)
     check(r.status == 1 and abs(r.objective - THETA1_OPT) < 1e-9, "theta1 dd2")
     check(r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-15, "theta1 dd2 residual floors")
     check(r.final_state.X_lo is not None, "theta1 dd2 without tails")
     p = tru3_sparse("cuda")
     check(all(g.is_sparse for g in p.groups), "tru3 not sparse")
-    r = launches.run("phase 19 (tru3 sparse dd2)", ("B1", "B2"),
+    r = launches.run("phase 19 (tru3 sparse dd2)", DD2_NEEDS,
                      lambda: ltt.solve(p, tru3_dd2, device="cuda"))
     phase19["tru3"] = r
-    print(tier_line("19 tru3 sparse dd2 cuda", r), flush=True)
+    print(tier_line("19 tru3 sparse dd2 (NT auto = dd) cuda", r), flush=True)
     check(r.status == 1 and abs(r.objective - 0.0625018) < 1e-5, "tru3 sparse dd2")
     check(r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-18, "tru3 sparse dd2 residual floors")
     p = lp_synthetic("cuda")
-    r = launches.run("phase 19 (LP synthetic dd2)", ("B1", "B2"),
+    r = launches.run("phase 19 (LP synthetic dd2)", DD2_NEEDS,
                      lambda: ltt.solve(p, lp_dd2, device="cuda"))
-    print(tier_line("19 LP synthetic dd2 cuda", r), flush=True)
+    print(tier_line("19 LP synthetic dd2 (NT auto = dd) cuda", r), flush=True)
     check(r.status == 1 and r.dimacs < lp_dd2["eDIMACS"], "LP synthetic dd2 DIMACS")
 
-    # ---- phase 20: theta1 on the CG path under dd and dd2: no CG kernel
+    # ---- phase 20: theta1 on the CG path under dd and dd2: no CG kernel,
+    # and under 'dd2' the f64 NT scaling ('auto' at kit=1; ROADMAP Queue C 8)
     for prec, o in (("dd", CG_DD), ("dd2", CG_DD2)):
         r = launches.run(f"phase 20 (theta1 kit=1 {prec})", ("B1", "B2"),
                          lambda: ltt.solve_sdpa(THETA1, o, device="cuda"))
-        print(tier_line(f"20 theta1-cg {prec} cuda", r), flush=True)
+        print(tier_line(f"20 theta1-cg {prec} (NT auto = f64) cuda", r), flush=True)
         check(r.status == 1 and r.dimacs < o["eDIMACS"], f"theta1 kit=1 {prec}")
         check(abs(r.objective - THETA1_OPT) <= 1e-8 * THETA1_OPT, f"theta1 kit=1 {prec} objective")
         ran = {k: sum(v.values()) for k, v in launches.by_regime.items() if k in CG_KERNELS}
         check(not any(ran.values()), f"theta1 kit=1 {prec}: a CG kernel ran {ran}")
+        dd_ran = {k: launches.dd[k].launches for k in DD_KERNELS}
+        check(not any(dd_ran.values()), f"theta1 kit=1 {prec}: the dd NT kernels ran {dd_ran}")
 
     # ---- phase 21: maxG11 at full size in dd, beside phase 4's f64 run
     r, wall, peak = large_case(launches, "21", MAXG11, MAXG11_DD, (MAXG11_REF[0], None), ltt)
@@ -1618,7 +1653,7 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     # ---- (a) tests/test_precision.py::test_dd_nt_e2e_cpu's solve, whole
     p = dd_nt_case("cuda")
     t0 = time.perf_counter()
-    r = launches.run("phase 38a", ("B1", "B2"), lambda: ltt.solve(p, DD2_NT, device="cuda"))
+    r = launches.run("phase 38a", DD2_NEEDS, lambda: ltt.solve(p, DD2_NT, device="cuda"))
     print(tier_line("38a m=8 dd2 nt_precision=dd cuda", r)
           + f" wall={time.perf_counter() - t0:.3f} s median_iter_ms="
           f"{1e3 * float(np.median(r.iteration_times)):.2f} on '{card}'", flush=True)
@@ -1628,11 +1663,10 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     # ---- (b) one nt_scale_dd at theta1's width on phase 19's last iterate
     fs = phase19["theta1"].final_state
     X, Sd = DD(fs.X[0], fs.X_lo[0]), DD(fs.S[0], fs.S_lo[0])
-    # launches from traces of 0 and 1 Jacobi sweeps (fixed + 6 x per sweep,
-    # the warm default; a whole call is ~2M launches); also the warm-up
-    fixed = device_launches(lambda: nt_scale_dd(X, Sd, sweeps=0))
-    per_sweep = device_launches(lambda: nt_scale_dd(X, Sd, sweeps=1)) - fixed
-    n_launch = fixed + 6 * per_sweep
+    # the device launches of one whole call (also the warm-up), then its time
+    dd_before = {k: fn.launches for k, fn in launches.dd.items()}
+    n_launch = device_launches(lambda: nt_scale_dd(X, Sd))
+    per_call = {k: fn.launches - dd_before[k] for k, fn in launches.dd.items()}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     nts, tails = nt_scale_dd(X, Sd)
@@ -1658,13 +1692,15 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     d_rel = float(((D - D_cpu) / D_cpu).abs().max())
     m = X.hi.shape[-1]
     print(f"phase 38b nt_scale_dd theta1 (nb, m)=(1, {m}) at phase 19's last iterate (mu "
-          f"{phase19['theta1'].history[-1]['mu']:.3e}): ms={ms:.1f} device launches={n_launch} "
-          f"({fixed} + 6 x {per_sweep}; {1e3 * ms / n_launch:.2f} us a launch) "
+          f"{phase19['theta1'].history[-1]['mu']:.3e}): ms={ms:.3f} device launches={n_launch} "
+          f"(D1-D3 {per_call}) "
           f"dd_ok={bool(tails.dd_ok)} "
           f"|WSW-X| {wsw:.2e} = {wsw / terms:.2e} of ||W||^2 ||S|| (f64 nt_scale: {wsw64:.2e}) "
           f"D min {float(D.min()):.3e} max {float(D.max()):.3e} vs CPU port max rel "
           f"{d_rel:.2e} (CPU {cpu_s:.1f} s) on '{card}'", flush=True)
     check(bool(tails.dd_ok) and bool(cpu_tails.dd_ok), "phase 38b: dd_ok")
+    check(n_launch < 1000, f"phase 38b: {n_launch} device launches in one call")
+    check(per_call == {"D1": 1, "D2": 1, "D3": 8}, f"phase 38b: dd kernel launches {per_call}")
     check(wsw < 1e-29 * terms, f"phase 38b: W S W - X at {wsw / terms:.2e} of the terms")
     check(d_rel < 1e-14, f"phase 38b: D {d_rel:.2e} from the CPU port's")
 
@@ -1682,7 +1718,7 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     st, stats = S.step(pt, st, o)
     h = stats.to_host()
     print(f"phase 38c theta1 dd2 nt_precision=dd step from iteration {LATE}: "
-          f"dimacs {h['dimacs']:.3e} (phase 19, f64 NT: {ref[LATE]['dimacs']:.3e}) "
+          f"dimacs {h['dimacs']:.3e} (phase 19, NT auto = dd: {ref[LATE]['dimacs']:.3e}) "
           f"err1 {h['err1']:.2e} err5 {h['err5']:.2e} mu {h['mu']:.3e} "
           f"{time.perf_counter() - t0:.2f} s on '{card}'", flush=True)
     check(h["nt_ok"] and h["h_ok"] and h["err1"] < 1e-18 and math.isfinite(h["dimacs"]),
@@ -1693,6 +1729,124 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     err1 = float(torch.linalg.norm(Rp.hi + Rp.lo) / (1.0 + torch.linalg.norm(pt.b)))
     print(f"phase 38c after the step: err1 {err1:.2e}", flush=True)
     check(err1 < 1e-18, f"phase 38c: err1 {err1:.2e} after the step")
+
+
+# f64 operations of the dd primitives as csrc/dd_linalg.cu writes them
+# (each + - * / sqrt one): dd_add 28, dd_mul 26, dd_div 121, dd_sqrt 58,
+# one Jacobi rotation 854; a rotated entry is 2 dd_mul + dd_add
+DD_ADD, DD_MUL, DD_DIV, DD_SQRT, DD_ROT = 28, 26, 121, 58, 854
+
+
+def dd_kernel_bound(kernel: str, nb: int, m: int, sweeps: int = 0):
+    """(bound ms, bound_by) of D1 ("jacobi", ``sweeps`` sweeps), D2
+    ("chol") or D3 ("gemm", m x m @ m x m): the f64 operations above over
+    the f64 peak, or each input read and each output written once over the
+    memory rate."""
+    if kernel == "jacobi":  # A and V in and out
+        rnd = (m // 2) * DD_ROT + 3 * m * m * (2 * DD_MUL + DD_ADD)
+        flops = nb * sweeps * ((m - 1) * rnd + m * m * (DD_ADD + 2))
+        nbytes = 8 * nb * 8 * m * m
+    elif kernel == "chol":  # every column: products, the tree, c, the divisions
+        flops = nb * sum((m - j) * (m * DD_MUL + m * DD_ADD + DD_DIV) + DD_SQRT for j in range(m))
+        nbytes = 8 * nb * 4 * m * m + nb
+    else:
+        flops = nb * m * m * m * (DD_MUL + DD_ADD)
+        nbytes = 8 * nb * 6 * m * m
+    return bound_ms(flops, nbytes, PEAK_F64)
+
+
+def dd_kernels_phase(launches, ltt, phase19: dict, card: str) -> dict:
+    """Phase 42. (a) D1, D2 and D3 against their plain versions on the card,
+    bit for bit, at DD_SHAPES and on phase 19's last theta1 iterate (X, S
+    and M = Lx^T S Lx at m = 56), each kernel's time (CUDA events after a
+    warm-up), the plain version's, the bound and the launches a call; (b)
+    theta1 at dd2 with the default options (NT 'auto' = dd on the card)
+    beside nt_precision='f64'. Returns the JSON rows' numbers of D1-D3 at
+    the main path's (1, 56), with their launches in (b)'s default run."""
+    from loraine_tpu_torch.ops import dd_linalg as dl
+    from loraine_tpu_torch.ops.dd import DD
+    from loraine_tpu_torch.utils.profiling import DD2
+
+    rng = np.random.default_rng(42)
+
+    def dd_in(x):
+        x = torch.from_numpy(x)
+        return DD(x.cuda(), (x * 1e-17 * torch.from_numpy(rng.standard_normal(x.shape))).cuda())
+
+    def held(name, kernel, plain, shape, kind, sweeps=0):
+        before = {k: fn.launches for k, fn in launches.dd.items()}
+        out = kernel()
+        per_call = {k: fn.launches - before[k] for k, fn in launches.dd.items()
+                    if fn.launches > before[k]}
+        ref, plain_ms = timed_call(plain)
+        torch.cuda.synchronize()
+        flat = lambda t: [x for y in t for x in (y if isinstance(y, tuple) else (y,))]  # noqa: E731
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(flat(out), flat(ref)))
+        check(all(torch.equal(a, b) for a, b in zip(flat(out), flat(ref))),
+              f"phase 42a: {name} at {shape} differs from its plain version (max {err:.3e})")
+        ms = cuda_ms(kernel, 20)
+        bnd, by = dd_kernel_bound(kind, shape[0], shape[1], sweeps)
+        print(f"phase 42a {name} {shape}: bitwise equal to the plain version; ms={ms:.4f} "
+              f"plain_ms={plain_ms:.2f} bound_ms={bnd:.5f} ({by}) launches a call {per_call}",
+              flush=True)
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                "max_abs_err": err, "shape": list(shape)}
+
+    regimes = set()
+    for nb, m in DD_SHAPES:
+        A = dd_in(spectrum_matrix("clustered", m, nb, seed=m))
+        B = dd_in(rng.standard_normal((nb, m, m)))
+        eye = torch.eye(m, dtype=torch.float64, device="cuda").expand(nb, m, m).contiguous()
+        V0 = DD(eye, torch.zeros_like(eye))
+        sweeps = 6 if m <= 84 else 2
+        regime = dl.regime_for("jacobi", m)
+        held("D3 dd_gemm", lambda: dl.dd_matmul_cuda(A, B), lambda: dl.dd_matmul_plain(A, B),
+             (nb, m), "gemm")
+        held(f"D2 dd_chol ({dl.regime_for('chol', m)})", lambda: dl.dd_chol_cuda(A),
+             lambda: dl.dd_chol_plain(A), (nb, m), "chol")
+        held(f"D1 dd_jacobi ({regime}, {sweeps} sweeps)", lambda: dl.dd_jacobi_cuda(A, V0, sweeps),
+             lambda: dl.dd_jacobi_plain(A, V0, sweeps), (nb, m), "jacobi", sweeps)
+        regimes.add(regime)
+    check(regimes == {"smem", "global"}, f"phase 42a: D1/D2 ran in the regimes {regimes}")
+    # the main path's data: phase 19's last theta1 iterate (the JSON rows)
+    fs = phase19["theta1"].final_state
+    X, S = DD(fs.X[0], fs.X_lo[0]), DD(fs.S[0], fs.S_lo[0])
+    m = X.hi.shape[-1]
+    rows = {"D2": held("D2 dd_chol on theta1's X", lambda: dl.dd_chol_cuda(X),
+                       lambda: dl.dd_chol_plain(X), (1, m), "chol")}
+    L = dl.dd_chol_plain(X)[0]
+    rows["D3"] = held("D3 dd_gemm on theta1's S Lx", lambda: dl.dd_matmul_cuda(S, L),
+                      lambda: dl.dd_matmul_plain(S, L), (1, m), "gemm")
+    M = dl.dd_sym(dl.dd_matmul_plain(dl.dd_transpose(L), dl.dd_matmul_plain(S, L)))
+    eye = torch.eye(m, dtype=torch.float64, device="cuda")[None].contiguous()
+    V0 = DD(eye, torch.zeros_like(eye))
+    rows["D1"] = held("D1 dd_jacobi on theta1's Lx^T S Lx", lambda: dl.dd_jacobi_cuda(M, V0, 6),
+                      lambda: dl.dd_jacobi_plain(M, V0, 6), (1, m), "jacobi", 6)
+
+    # ---- (b) theta1 at dd2: the default NT ('auto' = dd here) and 'f64'
+    res = {}
+    for nt in ("auto", "f64"):
+        o = DD2 if nt == "auto" else dict(DD2, nt_precision="f64")
+        res[nt] = r = launches.run(f"phase 42b (theta1 dd2, nt_precision={nt})",
+                                   DD2_NEEDS if nt == "auto" else ("B1", "B2"),
+                                   lambda: ltt.solve_sdpa(THETA1, o, device="cuda"))
+        ran = {k: launches.dd[k].launches for k in DD_KERNELS}
+        print(tier_line(f"42b theta1 dd2 nt_precision={nt} cuda", r)
+              + f" ms an iteration {1e3 * r.solve_time / r.iterations:.2f} (median "
+              f"{1e3 * float(np.median(r.iteration_times)):.2f}) D1-D3 {ran} on '{card}'",
+              flush=True)
+        check(r.status == 1 and r.errs["err1"] < 1e-18 and r.errs["err3"] < 1e-15,
+              f"phase 42b nt_precision={nt}: {r.status_name} {r.errs}")
+        check(any(ran.values()) == (nt == "auto"), f"phase 42b nt_precision={nt}: D1-D3 {ran}")
+        if nt == "auto":  # the main path's run: the JSON rows' launches
+            for k_ in DD_KERNELS:
+                rows[k_]["launches"] = ran[k_]
+    rel = abs(res["auto"].objective - res["f64"].objective) / abs(res["f64"].objective)
+    print(f"phase 42b objectives dd NT {res['auto'].objective!r} f64 NT "
+          f"{res['f64'].objective!r} rel {rel:.2e}; iterations {res['auto'].iterations} vs "
+          f"{res['f64'].iterations}", flush=True)
+    check(rel <= 1e-10, f"phase 42b: objectives {rel:.2e} apart")
+    return rows
 
 
 def dd_steps_mesh(card: str) -> None:
@@ -2103,7 +2257,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     import loraine_tpu_torch as ltt
     import loraine_tpu_torch.ipm.step as S
-    from loraine_tpu_torch.ops import int8gemm as ti, jacobi as tj, pcg as tp
+    from loraine_tpu_torch.ops import dd_linalg as dl, int8gemm as ti, jacobi as tj, pcg as tp
     from loraine_tpu_torch.utils.cuda_build import BUILD_DIR, build_libraries
     from loraine_tpu_torch.utils.profiling import CONTROL1_CG, THETA1_CG, theta_g100
 
@@ -2111,16 +2265,16 @@ def main() -> int:
     print(f"phase 1 python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card '{card}' count {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    build_libraries("jacobi", "pcg", "int8gemm")
-    tj._lib()
-    tp._lib()
-    ti._lib()
-    print(f"phase 1 built+loaded csrc/jacobi.cu, csrc/pcg.cu and csrc/int8gemm.cu in "
+    build_libraries("jacobi", "pcg", "int8gemm", "dd_linalg")
+    for mod in (tj, tp, ti, dl):
+        mod._lib()
+    print(f"phase 1 built+loaded csrc/jacobi.cu, csrc/pcg.cu, csrc/int8gemm.cu and "
+          f"csrc/dd_linalg.cu in "
           f"{time.perf_counter() - t0:.2f} s into {BUILD_DIR}", flush=True)
 
     # ---- phase 2: Jacobi kernels vs plain versions on the card
     k = kernels_vs_plain(tj)
-    launches = Launches(tj, tp, ti)
+    launches = Launches(tj, tp, ti, dl)
 
     # ---- phase 3: theta1, card against the port's CPU run
     opts = THETA1_K0
@@ -2301,6 +2455,11 @@ def main() -> int:
     grid = tori_phase(launches, ltt, tj)
     print(f"phase 41 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 42: the dd NT scaling's kernels D1-D3, theta1 dd2 by default
+    t0 = time.perf_counter()
+    kd = dd_kernels_phase(launches, ltt, phase19, card)
+    print(f"phase 42 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     rows = []
     for key, kname, name, line in (
             ("eigh", "B1", "jacobi_eigh_f32", "jacobi_pallas.py:109"),
@@ -2337,6 +2496,17 @@ def main() -> int:
             "replaces": f"loraine_tpu/ops/{line}", "launches": launches.total[kname],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"],
+        })
+    for kname, name, line in (("D1", "dd_jacobi", "dd_linalg.py:281"),
+                              ("D2", "dd_chol", "dd_linalg.py:162"),
+                              ("D3", "dd_gemm", "dd_linalg.py:145")):
+        t = kd[kname]  # theta1's (1, 56): phase 19's last iterate, phase 42(b)'s launches
+        rows.append({
+            "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/dd_linalg.cu",
+            "replaces": f"loraine_tpu/ops/{line}", "launches": t["launches"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "shape": t["shape"],
         })
     print(json.dumps({"kernels": rows}))

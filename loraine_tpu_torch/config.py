@@ -63,14 +63,20 @@ the TPU's place); 'f64' never.
 
 ``nt_precision``: 'dd' (with precision 'dd2' only) is the native dd NT
 scaling (`ops/nt_scaling.py:nt_scale_dd`: dd Cholesky, dd congruence, dd
-Jacobi eigendecomposition from B1's warm start under 'pallas'/'auto').
-'auto' resolves to the f64 NT scaling on every device. The JAX package's
-'auto' picks dd on the TPU (`loraine_tpu/ipm/step.py:364-370`), where XLA
-compiles the dd Jacobi sweep into one program; here it runs as eager
-torch ops, ~2.5M a call at theta1's m = 50 padded to 56 (~390k a sweep,
-6 sweeps; counted on the CPU), most of them a launch on the card, so 'dd'
-stays an explicit choice (ROADMAP's fused dd Jacobi would lift that;
-PERF.md has its launches and time on the H100). Under 'dd'/'dd2' the kit=1 path runs f64 `pcg` inside dd
+Jacobi eigendecomposition from B1's warm start under 'pallas'/'auto'),
+whose dd Cholesky, GEMM and Jacobi sweeps are the hand-written kernels
+D2, D3 and D1 of `csrc/dd_linalg.cu` on the card (their plain PyTorch
+versions on the CPU). 'auto' (`nt_dd_for`) resolves as the JAX package's
+(`loraine_tpu/ipm/step.py:364-370`) with the card in the TPU's place: the
+dd NT scaling under 'dd2' when the problem lives on a CUDA device, the
+f64 one on the CPU (so every CPU run keeps its trajectory); 'dd' and 'f64'
+stand. One departure: on the CG path (kit=1) 'auto' is the f64 NT
+scaling on the card too. There theta1 at 'dd2' under the dd scaling
+breaks down at iteration 20 on the card, while the same solve ends
+OPTIMAL with the CPU's dd scaling of the card's own iterates, and D1-D3
+equal their plain versions bit for bit throughout: rounding-level
+differences decide the kit=1 end game (ROADMAP Queue C 8;
+`utils/cg_dd2_probe.py`). Under 'dd'/'dd2' the kit=1 path runs f64 `pcg` inside dd
 refinement and takes no CG kernel, whatever ``cg_kernel`` says.
 
 ``gemm_backend``: 'f64' (the default) leaves every product to the library
@@ -215,6 +221,20 @@ def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:
     if cg_kernel != "auto":
         return cg_kernel
     return "ff" if device.type == "cuda" and n <= 1024 else "xla"
+
+
+def nt_dd_for(opts: Options, device) -> bool:
+    """Whether the step takes the native dd NT scaling (`nt_scale_dd`):
+    only under precision 'dd2'; nt_precision 'dd' yes, 'f64' no, 'auto' on
+    a CUDA device on the direct path (kit=0): the JAX package's rule
+    (`loraine_tpu/ipm/step.py:367-370`) with the card in the TPU's place,
+    but for the CG path (kit=1), which keeps the f64 NT scaling (ROADMAP
+    Queue C 8)."""
+    if opts.precision != "dd2":
+        return False
+    if opts.nt_precision == "auto":
+        return device.type == "cuda" and opts.kit == 0
+    return opts.nt_precision == "dd"
 
 
 def _one_of(name: str, value, allowed) -> None:

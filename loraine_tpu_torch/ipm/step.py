@@ -75,10 +75,11 @@ dd from the dd iterates, whose tails (D_lo, G_lo, W_lo) enter every W and
 G sandwich that feeds the Schur assembly, the right-hand sides and the
 directions, and the corrector's target sig_mu / D in dd
 (`loraine_tpu/ipm/step.py:128-168, 597-609, 645-649, 865-873,
-1019-1044`). 'auto' is the f64 NT scaling on every device (the JAX
-package picks dd on the TPU only, where XLA compiles the dd Jacobi sweep
-into one program; here it is ~2.5M eager ops a call at theta1's m = 50,
-see `config.py`).
+1019-1044`). 'auto' takes it under 'dd2' on a CUDA device on the direct
+path (kit=0), where its dd Cholesky, GEMM and Jacobi sweeps are the
+kernels D2, D3 and D1, and the f64 NT scaling on the CPU and on the CG
+path (`config.py:nt_dd_for`; the JAX package's rule with the card in the
+TPU's place, but for kit=1).
 """
 from __future__ import annotations
 
@@ -87,7 +88,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..config import Options, resolve_cg_kernel
+from ..config import Options, nt_dd_for, resolve_cg_kernel
 from ..ops.cg import cg_plain, pcg
 from ..ops.dd import DD, dd_add, dd_mul_f64, dd_neg, dd_sum, dd_to_f64, two_prod, two_sum
 from ..ops.dd_linalg import dd_const, dd_div, dd_mul
@@ -591,8 +592,8 @@ def step(
     zero = torch.zeros((), dtype=dtype, device=device)
     dd_mode = opts.precision in ("dd", "dd2")
     dd2 = opts.precision == "dd2"
-    # the native dd NT scaling: explicit only ('auto' is f64, see above)
-    nt_dd = dd2 and opts.nt_precision == "dd"
+    # the native dd NT scaling ('auto': on a CUDA device at kit=0 only)
+    nt_dd = nt_dd_for(opts, device)
     mesh = problem.mesh
     C_lin = problem.C_lin
     eigmin_fn, eigrange_fn, cert_mode = _bound_fns(opts)

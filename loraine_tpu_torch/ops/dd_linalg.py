@@ -4,15 +4,35 @@ Jacobi eigensolver. Port of `loraine_tpu/ops/dd_linalg.py` (`dd_mul`,
 `dd_sym`, `dd_matmul`, `dd_chol`, `dd_eigh_jacobi`).
 
 dd scalars are (hi, lo) f64 pairs (`ops/dd.py`); everything is branch-free
-and batched. `dd_matmul` keeps the heavy work GEMM-shaped: hi x hi by the
-Ozaki slicing (`ops/ozaki.py`), the cross terms as plain f64 GEMMs (their
-own rounding is ~u64^2 of the total). `dd_chol` is the left-looking column
-recurrence (m rounds of O(nb m^2) elementwise dd work); `dd_eigh_jacobi` is
-the round-robin parallel cyclic Jacobi in dd, in the JAX package's
-GEMM-anchored form: every round applies the full rotation matrix J as
-``A <- J^T A J``, ``V <- V J`` through `dd_matmul`, so on the card its cost
-is f64 GEMMs. The native dd NT scaling (ROADMAP item 12e) is their user;
-the IPM step of this package uses the scalar ops only.
+and batched. The native dd NT scaling (`ops/nt_scaling.py:nt_scale_dd`) is
+the user of the matrix functions; the IPM step uses the scalar ops only.
+
+On the TPU each matrix function is one XLA program. Here each has a
+hand-written CUDA kernel (`csrc/dd_linalg.cu`, built with nvcc for sm_90a
+at first use) and, beside it, its plain PyTorch version in the kernel's
+order of operations, so that the two agree bit for bit on the card:
+
+  D1 `dd_jacobi_cuda` / `dd_jacobi_plain`: the sweeps of `dd_eigh_jacobi`
+  D2 `dd_chol_cuda` / `dd_chol_plain`: `dd_chol`
+  D3 `dd_matmul_cuda` / `dd_matmul_plain`: `dd_matmul`
+
+`dd_chol`, `dd_matmul` and `dd_eigh_jacobi` take the plain version for a
+tensor on the CPU and launch the kernel for a CUDA tensor, with no
+fallback; any other device raises. Each kernel wrapper counts its launches
+(``.launches``; D1 and D2 also ``.launches_by_regime``: "smem", the
+matrices in one block's shared memory, m <= 84 on an H100, or "global",
+as the kernel library picks them from m and the card).
+
+`dd_matmul` computes every term in dd (dd_mul, summed by dd_add in
+ascending k); the JAX package's is the Ozaki-sliced GEMM stack, whose
+products are exact and whose sum is truncated at 2^-106 of the |A||B|
+scale, so the two agree to that scale. The Jacobi rotations are applied
+elementwise, (A J)[i,j] = c_j A[i,j] + s_j A[i,perm j], then J^T (A J),
+and V <- V J; the JAX package applies them as GEMMs with the full rotation
+matrix J, a form it takes because XLA:CPU's fusion broke the error-free
+transforms of the elementwise form (`loraine_tpu/ops/dd_linalg.py:283-300`).
+Eager torch and the kernel round every operation once, so the elementwise
+form keeps them exact. `dd_chol` is the JAX package's bit for bit.
 
 The fold-blockers (``0.0 * x`` in `_dealias`, `dd_const`, `dd_sqrt`) work
 around the XLA:CPU simplifier in the JAX package; eager torch has none, so
@@ -20,6 +40,9 @@ they are harmless here and keep the results bitwise the JAX package's.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,7 +50,6 @@ import torch
 
 from .dd import DD, dd_add, dd_mul_f64, dd_neg, dd_sum, two_prod, two_sum
 from .eigh import _default_sweeps, round_robin_pairs
-from .ozaki import acc_matmul
 
 __all__ = [
     "dd_mul",
@@ -39,8 +61,15 @@ __all__ = [
     "dd_transpose",
     "dd_sym",
     "dd_matmul",
+    "dd_matmul_plain",
+    "dd_matmul_cuda",
     "dd_chol",
+    "dd_chol_plain",
+    "dd_chol_cuda",
     "dd_eigh_jacobi",
+    "dd_jacobi_plain",
+    "dd_jacobi_cuda",
+    "regime_for",
 ]
 
 
@@ -122,50 +151,9 @@ def dd_sym(x: DD) -> DD:
     return DD(0.5 * s.hi, 0.5 * s.lo)  # exact halving
 
 
-def dd_matmul(A: DD, B: DD, bits: int = 106) -> DD:
-    """(A.hi + A.lo) @ (B.hi + B.lo) in dd: the Ozaki-sliced exact GEMM
-    stack on hi x hi, plain f64 GEMMs on the cross terms."""
-    r = acc_matmul(A.hi, B.hi, bits=bits)
-    cross = A.hi @ B.lo + A.lo @ B.hi
-    s = two_sum(r.hi, cross)
-    return _renorm(s.hi, s.lo + r.lo)
-
 
 # ---------------------------------------------------------------------------
-# Cholesky
-# ---------------------------------------------------------------------------
-
-
-def dd_chol(A: DD) -> Tuple[DD, torch.Tensor]:
-    """Batched dd Cholesky of SPD [nb, m, m] dd matrices: (L, ok) with
-    A = L L^T to ~2^-104 relative, ``ok`` [nb] False where a pivot was
-    nonpositive at dd resolution (L is garbage there).
-
-    Left-looking: at step j, t[i] = sum_k L[i,k] L[j,k] is a dd dot over the
-    computed columns (the others are exactly zero)."""
-    nb, m, _ = A.hi.shape
-    Lh = torch.zeros_like(A.hi)
-    Ll = torch.zeros_like(A.hi)
-    ok = torch.ones((nb,), dtype=torch.bool, device=A.hi.device)
-    rows = torch.arange(m, device=A.hi.device)
-    for j in range(m):
-        rj = DD(Lh[:, j : j + 1, :], Ll[:, j : j + 1, :])  # [nb, 1, m]
-        t = dd_sum(dd_mul(DD(Lh, Ll), rj), axis=-1)  # [nb, m]
-        c = dd_add(DD(A.hi[..., j], A.lo[..., j]), dd_neg(t))
-        dh, dl = c.hi[:, j : j + 1], c.lo[:, j : j + 1]  # pivot [nb, 1]
-        pos = dh > 0.0
-        ok = ok & pos[:, 0]
-        piv = dd_sqrt(DD(_where(pos, dh, 1.0), _where(pos, dl, 0.0)))
-        col = dd_div(c, DD(piv.hi.expand_as(c.hi), piv.lo.expand_as(c.lo)))
-        below = (rows > j)[None, :]
-        at_j = (rows == j)[None, :]
-        Lh[..., j] = _where(below, col.hi, 0.0) + _where(at_j, piv.hi.expand_as(c.hi), 0.0)
-        Ll[..., j] = _where(below, col.lo, 0.0) + _where(at_j, piv.lo.expand_as(c.lo), 0.0)
-    return DD(Lh, Ll), ok
-
-
-# ---------------------------------------------------------------------------
-# Jacobi eigensolver
+# Jacobi rotation
 # ---------------------------------------------------------------------------
 
 
@@ -199,70 +187,258 @@ def _rotation(app: DD, aqq: DD, apq: DD) -> Tuple[DD, DD]:
     return c, s
 
 
-def _perm_table(pairs: np.ndarray, m: int):
-    """perm [nrounds, m] partner index per round, and the 0/1 masks eye_tab
-    (= I) and hot_tab (hot_tab[r][perm[j], j] = 1) [nrounds, m, m] that
-    scaffold the rotation matrices (`dd_linalg.py:_perm_table`)."""
-    nrounds = pairs.shape[0]
-    perm = np.empty((nrounds, m), dtype=np.int64)
-    for r in range(nrounds):
-        p, q = pairs[r, 0], pairs[r, 1]
-        perm[r, p] = q
-        perm[r, q] = p
-    eye = np.broadcast_to(np.eye(m), (nrounds, m, m)).copy()
-    hot = np.zeros((nrounds, m, m))
-    for r in range(nrounds):
-        hot[r, perm[r], np.arange(m)] = 1.0
-    return perm, eye, hot
+# ---------------------------------------------------------------------------
+# the kernels (csrc/dd_linalg.cu) and their routes
+# ---------------------------------------------------------------------------
+
+REGIMES = ("global", "smem")  # the codes 0 and 1 of lt_dd_regime
+_KERNEL_CODES = {"jacobi": 0, "chol": 1}
 
 
-def _dd_take(x: DD, idx: torch.Tensor, axis: int) -> DD:
-    return DD(torch.index_select(x.hi, axis, idx), torch.index_select(x.lo, axis, idx))
+@functools.lru_cache(maxsize=None)
+def regime_for(kernel: str, m: int, device_index: int = 0) -> str:
+    """The regime that D1 ("jacobi") or D2 ("chol") takes at m on the card:
+    "smem" where the block's matrices fit the card's opt-in shared memory
+    (m <= 84 on an H100), else "global". The kernel library decides
+    (`lt_dd_regime`); this asks it, for the launch counts and D2's scratch."""
+    with torch.cuda.device(device_index):
+        code = _lib().lt_dd_regime(_KERNEL_CODES[kernel], m)
+    if code < 0:
+        raise ValueError(f"dd_{kernel}: m = {m} does not fit the kernel")
+    return REGIMES[code]
+
+
+def _lib() -> ctypes.CDLL:
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("dd_linalg")
+    if not getattr(lib, "_lt_bound", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.lt_dd_regime.argtypes = [I, I]
+        lib.lt_dd_jacobi.argtypes = [P] * 5 + [I] * 3 + [P]
+        lib.lt_dd_chol.argtypes = [P] * 7 + [I] * 2 + [P]
+        lib.lt_dd_gemm.argtypes = [P] * 6 + [I] * 4 + [P]
+        for fn in (lib.lt_dd_regime, lib.lt_dd_jacobi, lib.lt_dd_chol, lib.lt_dd_gemm):
+            fn.restype = I
+        lib._lt_bound = True
+    return lib
+
+
+def _check(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda" or t.dtype != torch.float64 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float64 CUDA tensors, got "
+                             f"{t.dtype} on {t.device} (contiguous {t.is_contiguous()})")
+
+
+def _launch(fn, device: torch.device, *args) -> None:
+    """Call a C entry on ``device``'s current stream; raises on its code."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc == -2:
+        raise ValueError(f"{fn.__name__}: the shape does not fit the kernel")
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
+
+
+def _route(x: torch.Tensor, plain, cuda, *args):
+    if x.device.type == "cpu":
+        return plain(*args)
+    if x.device.type == "cuda":
+        return cuda(*args)
+    raise ValueError(f"no dd linear-algebra route for device {x.device}")
+
+
+# ---- D3: the dd GEMM -------------------------------------------------------
+
+
+def dd_matmul_plain(A: DD, B: DD) -> DD:
+    """D3's plain version: C[..., i, j] = sum over k of dd_mul(A[i,k],
+    B[k,j]), the first term, then dd_add of each next one in ascending k;
+    batch dims broadcast as `torch.matmul`."""
+    k = A.hi.shape[-1]
+    if B.hi.shape[-2] != k or k < 1:
+        raise ValueError(f"contraction mismatch {tuple(A.hi.shape)} @ {tuple(B.hi.shape)}")
+
+    def term(kk):
+        return dd_mul(DD(A.hi[..., :, kk : kk + 1], A.lo[..., :, kk : kk + 1]),
+                      DD(B.hi[..., kk : kk + 1, :], B.lo[..., kk : kk + 1, :]))
+
+    acc = term(0)
+    for kk in range(1, k):
+        acc = dd_add(acc, term(kk))
+    return acc
+
+
+def dd_matmul_cuda(A: DD, B: DD) -> DD:
+    """D3 on the card: same contract as `dd_matmul_plain` (one launch)."""
+    (m, k), (k2, n) = A.hi.shape[-2:], B.hi.shape[-2:]
+    if k2 != k or k < 1:
+        raise ValueError(f"contraction mismatch {tuple(A.hi.shape)} @ {tuple(B.hi.shape)}")
+    batch = torch.broadcast_shapes(A.hi.shape[:-2], B.hi.shape[:-2])
+
+    def flat(x, r, c):
+        return x.expand(*batch, r, c).reshape(-1, r, c).contiguous()
+
+    a = [flat(x, m, k) for x in A]
+    b = [flat(x, k, n) for x in B]
+    nb = a[0].shape[0]
+    ch = torch.empty((nb, m, n), dtype=torch.float64, device=a[0].device)
+    cl = torch.empty_like(ch)
+    _check("dd_matmul_cuda", *a, *b)
+    if nb:
+        _launch(_lib().lt_dd_gemm, ch.device, *(t.data_ptr() for t in (*a, *b, ch, cl)),
+                nb, m, k, n)
+        dd_matmul_cuda.launches += 1
+    return DD(ch.reshape(*batch, m, n), cl.reshape(*batch, m, n))
+
+
+def dd_matmul(A: DD, B: DD) -> DD:
+    """(A.hi + A.lo) @ (B.hi + B.lo) in dd: D3 on a CUDA tensor, its plain
+    version on a CPU one."""
+    return _route(A.hi, dd_matmul_plain, dd_matmul_cuda, A, B)
+
+
+# ---- D2: the dd Cholesky ---------------------------------------------------
+
+
+def dd_chol_plain(A: DD) -> Tuple[DD, torch.Tensor]:
+    """D2's plain version: the batched dd Cholesky of SPD [nb, m, m] dd
+    matrices, (L, ok) with A = L L^T to ~2^-104 relative, ``ok`` [nb] False
+    where a pivot was nonpositive at dd resolution (L is garbage there).
+
+    Left-looking: at step j, t[i] = sum_k L[i,k] L[j,k] is a dd dot over all
+    m columns (the uncomputed ones are exactly zero), in `dd_sum`'s tree."""
+    nb, m, _ = A.hi.shape
+    Lh = torch.zeros_like(A.hi)
+    Ll = torch.zeros_like(A.hi)
+    ok = torch.ones((nb,), dtype=torch.bool, device=A.hi.device)
+    rows = torch.arange(m, device=A.hi.device)
+    for j in range(m):
+        rj = DD(Lh[:, j : j + 1, :], Ll[:, j : j + 1, :])  # [nb, 1, m]
+        t = dd_sum(dd_mul(DD(Lh, Ll), rj), axis=-1)  # [nb, m]
+        c = dd_add(DD(A.hi[..., j], A.lo[..., j]), dd_neg(t))
+        dh, dl = c.hi[:, j : j + 1], c.lo[:, j : j + 1]  # pivot [nb, 1]
+        pos = dh > 0.0
+        ok = ok & pos[:, 0]
+        piv = dd_sqrt(DD(_where(pos, dh, 1.0), _where(pos, dl, 0.0)))
+        col = dd_div(c, DD(piv.hi.expand_as(c.hi), piv.lo.expand_as(c.lo)))
+        below = (rows > j)[None, :]
+        at_j = (rows == j)[None, :]
+        Lh[..., j] = _where(below, col.hi, 0.0) + _where(at_j, piv.hi.expand_as(c.hi), 0.0)
+        Ll[..., j] = _where(below, col.lo, 0.0) + _where(at_j, piv.lo.expand_as(c.lo), 0.0)
+    return DD(Lh, Ll), ok
+
+
+def dd_chol_cuda(A: DD) -> Tuple[DD, torch.Tensor]:
+    """D2 on the card: same contract as `dd_chol_plain` (one launch)."""
+    nb, m, _ = A.hi.shape
+    ah, al = A.hi.contiguous(), A.lo.contiguous()
+    _check("dd_chol_cuda", ah, al)
+    regime = regime_for("chol", m, ah.device.index)
+    lh, ll = torch.empty_like(ah), torch.empty_like(ah)
+    ok = torch.empty((nb,), dtype=torch.bool, device=ah.device)
+    # the products of one column: in shared memory, or here
+    P = torch.empty((2, nb, m, m), dtype=ah.dtype, device=ah.device) if regime == "global" else None
+    if nb:
+        ph, pl = (None, None) if P is None else (P[0].data_ptr(), P[1].data_ptr())
+        _launch(_lib().lt_dd_chol, ah.device, ah.data_ptr(), al.data_ptr(), lh.data_ptr(),
+                ll.data_ptr(), ph, pl, ok.data_ptr(), nb, m)
+        dd_chol_cuda.launches += 1
+        dd_chol_cuda.launches_by_regime[regime] += 1
+    return DD(lh, ll), ok
+
+
+def dd_chol(A: DD) -> Tuple[DD, torch.Tensor]:
+    """Batched dd Cholesky of SPD [nb, m, m] dd matrices (`dd_chol_plain`'s
+    contract): D2 on a CUDA tensor, its plain version on a CPU one."""
+    return _route(A.hi, dd_chol_plain, dd_chol_cuda, A)
+
+
+# ---- D1: the dd Jacobi sweeps ----------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_rounds(m: int):
+    """Per round of `round_robin_pairs(m)`: p = min and q = max of each pair
+    [R, m/2], every index's partner [R, m] and its position in cat(p, q)
+    [R, m] (int64 numpy, read-only)."""
+    pairs = round_robin_pairs(m).astype(np.int64)
+    p, q = pairs.min(axis=1), pairs.max(axis=1)
+    nrounds, h = p.shape
+    partner = np.empty((nrounds, m), dtype=np.int64)
+    pos = np.empty((nrounds, m), dtype=np.int64)
+    for r in range(nrounds):
+        partner[r, p[r]], partner[r, q[r]] = q[r], p[r]
+        pos[r, p[r]], pos[r, q[r]] = np.arange(h), np.arange(h, 2 * h)
+    for a in (p, q, partner, pos):
+        a.flags.writeable = False
+    return p, q, partner, pos
+
+
+def dd_jacobi_plain(B: DD, V: DD, sweeps: int) -> Tuple[DD, DD]:
+    """D1's plain version: ``sweeps`` sweeps of the round-robin parallel
+    cyclic Jacobi on symmetric dd [nb, m, m] (m even) from the basis V.
+    Each round: (c, s) per pair from p = min, q = max (`_rotation`), c on
+    both indices, s_p = -s, s_q = +s; (A J)[i,j] = c_j A[i,j] +
+    s_j A[i,perm j] and V J; then (J^T B)[i,j] = c_i B[i,j] + s_i
+    B[perm i,j]; each entry dd_add(dd_mul(c, .), dd_mul(s, .)). `dd_sym`
+    after each sweep. Returns (A, V), unsorted."""
+    nb, m, _ = B.hi.shape
+    dev = B.hi.device
+    p_t, q_t, part_t, pos_t = (torch.tensor(t, device=dev) for t in _jacobi_rounds(m))
+    A, V = B, V
+    for _ in range(sweeps):
+        for r in range(m - 1):
+            p, q, part, pos = p_t[r], q_t[r], part_t[r], pos_t[r]
+            c, s = _rotation(DD(A.hi[:, p, p], A.lo[:, p, p]), DD(A.hi[:, q, q], A.lo[:, q, q]),
+                             DD(A.hi[:, p, q], A.lo[:, p, q]))  # [nb, m/2]
+            cj = DD(torch.cat([c.hi, c.hi], 1)[:, pos], torch.cat([c.lo, c.lo], 1)[:, pos])
+            sj = DD(torch.cat([-s.hi, s.hi], 1)[:, pos], torch.cat([-s.lo, s.lo], 1)[:, pos])
+            ccol = DD(cj.hi[:, None, :], cj.lo[:, None, :])
+            scol = DD(sj.hi[:, None, :], sj.lo[:, None, :])
+            A = dd_add(dd_mul(ccol, A), dd_mul(scol, DD(A.hi[:, :, part], A.lo[:, :, part])))
+            V = dd_add(dd_mul(ccol, V), dd_mul(scol, DD(V.hi[:, :, part], V.lo[:, :, part])))
+            crow = DD(cj.hi[:, :, None], cj.lo[:, :, None])
+            srow = DD(sj.hi[:, :, None], sj.lo[:, :, None])
+            A = dd_add(dd_mul(crow, A), dd_mul(srow, DD(A.hi[:, part, :], A.lo[:, part, :])))
+        A = dd_sym(A)
+    return A, V
+
+
+@functools.lru_cache(maxsize=None)
+def _pairs_on(m: int, device: torch.device) -> torch.Tensor:
+    """`round_robin_pairs(m)` as an int32 tensor on ``device`` (D1's table)."""
+    return torch.tensor(round_robin_pairs(m), dtype=torch.int32, device=device)
+
+
+def dd_jacobi_cuda(B: DD, V: DD, sweeps: int) -> Tuple[DD, DD]:
+    """D1 on the card: same contract as `dd_jacobi_plain` (one launch)."""
+    nb, m, _ = B.hi.shape
+    if m % 2 or m < 2 or V.hi.shape != B.hi.shape or sweeps < 0:
+        raise ValueError(f"dd_jacobi_cuda: B {tuple(B.hi.shape)}, V {tuple(V.hi.shape)}, "
+                         f"sweeps {sweeps}: needs even m >= 2 and V shaped as B")
+    # the kernel rotates these copies in place
+    out = [x.clone(memory_format=torch.contiguous_format) for x in (*B, *V)]
+    _check("dd_jacobi_cuda", *out)
+    regime = regime_for("jacobi", m, out[0].device.index)
+    if nb:
+        pairs = _pairs_on(m, out[0].device)
+        _launch(_lib().lt_dd_jacobi, out[0].device, *(t.data_ptr() for t in out),
+                pairs.data_ptr(), nb, m, sweeps)
+        dd_jacobi_cuda.launches += 1
+        dd_jacobi_cuda.launches_by_regime[regime] += 1
+    return DD(out[0], out[1]), DD(out[2], out[3])
+
+
+for _fn in (dd_matmul_cuda, dd_chol_cuda, dd_jacobi_cuda):
+    _fn.launches = 0
+for _fn in (dd_chol_cuda, dd_jacobi_cuda):
+    _fn.launches_by_regime = collections.Counter()
 
 
 def _diag(x: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(x, dim1=-2, dim2=-1)
-
-
-def _dd_jacobi_impl(M: DD, V0: DD, perm_tab: torch.Tensor, eye_tab: torch.Tensor,
-                    hot_tab: torch.Tensor, sweeps: int):
-    """The GEMM-anchored sweeps (`dd_linalg.py:_dd_jacobi_impl`): per round
-    the rotation matrix J[k, j] = c_j E[k, j] + s_j P[k, j] (exact: the
-    masks are 0/1), then A <- J^T A J and V <- V J by `dd_matmul`."""
-    nb, m, _ = M.hi.shape
-    idx = torch.arange(m, device=M.hi.device)
-    Ah, Al, Vh, Vl = M.hi, M.lo, V0.hi, V0.lo
-    for _ in range(sweeps):
-        for r in range(perm_tab.shape[0]):
-            perm = perm_tab[r]
-            is_p = idx < perm
-            diag = DD(_diag(Ah), _diag(Al))  # [nb, m]
-            ajj = _dd_take(diag, perm, 1)
-            # the off-diagonal entry A[i, perm[i]] per index i
-            gi = perm[None, :, None].expand(nb, m, 1)
-            off = DD(torch.gather(Ah, 2, gi)[..., 0], torch.gather(Al, 2, gi)[..., 0])
-            c_all, s_all = _rotation(diag, ajj, off)
-            # the partner's values, so both indices of a pair use the same c
-            # and exactly negated s (the two-sided update stays symmetric)
-            c_part = _dd_take(c_all, perm, 1)
-            s_part = _dd_take(s_all, perm, 1)
-            c = DD(torch.where(is_p, c_all.hi, c_part.hi), torch.where(is_p, c_all.lo, c_part.lo))
-            s = DD(torch.where(is_p, -s_all.hi, s_part.hi), torch.where(is_p, -s_all.lo, s_part.lo))
-            E, P = eye_tab[r], hot_tab[r]
-            J = DD(c.hi[:, None, :] * E + s.hi[:, None, :] * P,
-                   c.lo[:, None, :] * E + s.lo[:, None, :] * P)
-            A = dd_matmul(dd_transpose(J), dd_matmul(DD(Ah, Al), J))
-            V = dd_matmul(DD(Vh, Vl), J)
-            Ah, Al, Vh, Vl = A.hi, A.lo, V.hi, V.lo
-        # exact resymmetrization once per sweep
-        A = dd_sym(DD(Ah, Al))
-        Ah, Al = A.hi, A.lo
-
-    lam = DD(_diag(Ah), _diag(Al))
-    order = torch.argsort(lam.hi, dim=-1, stable=True)
-    lam = DD(torch.gather(lam.hi, -1, order), torch.gather(lam.lo, -1, order))
-    vo = order[:, None, :].expand(nb, m, m)
-    return lam, DD(torch.gather(Vh, -1, vo), torch.gather(Vl, -1, vo))
 
 
 def dd_eigh_jacobi(
@@ -276,7 +452,8 @@ def dd_eigh_jacobi(
     ``V0``: optional f64 eigenbasis warm start. It is first made orthogonal
     to ~u64^2 by one dd Newton-Schulz step, then B = V0^T M V0 in dd and the
     sweeps clean up the remaining off-diagonal mass. Defaults: 6 sweeps
-    warm, the f64 solver's count + 2 cold."""
+    warm, the f64 solver's count + 2 cold. The sweeps are D1 on a CUDA
+    tensor, `dd_jacobi_plain` on a CPU one."""
     nb, m, _ = M.hi.shape
     dt, dev = M.hi.dtype, M.hi.device
     if sweeps is None:
@@ -312,11 +489,13 @@ def dd_eigh_jacobi(
         Vh[:, m, m] = 1.0
         Vl[:, :m, :m] = Vstart.lo
         B, Vstart = DD(Bh, Bl), DD(Vh, Vl)
-    perm, eye_t, hot_t = _perm_table(round_robin_pairs(mm), mm)
-    lam, V = _dd_jacobi_impl(
-        B, Vstart, torch.as_tensor(perm, device=dev), torch.as_tensor(eye_t, dtype=dt, device=dev),
-        torch.as_tensor(hot_t, dtype=dt, device=dev), sweeps,
-    )
+    A, V = _route(B.hi, dd_jacobi_plain, dd_jacobi_cuda, B, Vstart, sweeps)
+
+    lam = DD(_diag(A.hi), _diag(A.lo))
+    order = torch.argsort(lam.hi, dim=-1, stable=True)
+    lam = DD(torch.gather(lam.hi, -1, order), torch.gather(lam.lo, -1, order))
+    vo = order[:, None, :].expand(nb, mm, mm)
+    V = DD(torch.gather(V.hi, -1, vo), torch.gather(V.lo, -1, vo))
     if mm != m:
         return DD(lam.hi[:, :m], lam.lo[:, :m]), DD(V.hi[:, :m, :m], V.lo[:, :m, :m])
     return lam, V

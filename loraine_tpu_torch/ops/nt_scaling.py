@@ -18,10 +18,11 @@ reference's maximum total S shift) marks the scaling not ok. Method 'svd'
 is the reference's formulation, kept as the parity path: chol of X and S
 together, the library SVD, S^{-1} by two triangular solves.
 
-`nt_scale_dd` (nt_precision='dd', the dd2 tier) runs chol(X), the
-congruence L_x^T S L_x and its Jacobi eigendecomposition on dd pairs
-(`ops/dd_linalg.py`), so the congruent spectrum (~mu) survives below the
-f64 formation noise u64 ||M||; its dd low words come back as `NTTails`.
+`nt_scale_dd` (nt_precision='dd', and 'auto' on the card at kit=0, under 'dd2')
+runs chol(X), the congruence L_x^T S L_x and its Jacobi eigendecomposition
+on dd pairs (`ops/dd_linalg.py`: the kernels D2, D3 and D1 on a CUDA
+tensor), so the congruent spectrum (~mu) survives below the f64 formation
+noise u64 ||M||; its dd low words come back as `NTTails`.
 """
 from __future__ import annotations
 

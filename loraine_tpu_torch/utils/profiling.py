@@ -11,7 +11,9 @@ theta_G100, theta1-cg (kit=1, the materialized CG route), tru9-cg, vib9-cg (kit=
 control1-cg's options, the matrix-free route at n = 3240), and the precision
 tiers theta1-dd, theta1-dd2, tru3-sparse, tru3-sparse-dd2, lp, lp-dd2,
 theta1-cg-dd, theta1-cg-dd2, maxG11-dd (`chip_smoke.py` phases 18-21's
-options); default: tru9, vib9, thetaG11.
+options; on the card kit=0 'dd2' takes the dd NT scaling by default) and
+theta1-dd2-f64nt (theta1-dd2 under nt_precision='f64'); default: tru9,
+vib9, thetaG11.
 For each case, on the card: the problem load; one warm solve (kernel build,
 cuBLAS handles) and two timed solves; one solve with the step's phase
 functions wrapped in `torch.cuda.synchronize()` (ms per iteration of each;
@@ -20,10 +22,10 @@ the syncs inflate the total, and `_schur` contains `schur_group` and
 wrapper (`pcg_kernel_ff`) and in the f64 polish; and a `torch.profiler`
 trace of two warm steps from the iterate halfway through the solve: the
 device kernels' time over the traced wall (busy share), the top kernels,
-the device time and launches of the kernels of csrc/jacobi.cu and of
+the device time and launches of the kernels of csrc/jacobi.cu, of
 csrc/pcg.cu (their shares of device time, and those of B3, B4 and the
-polish apart), the wrappers' calls per padded size mp and per regime, and
-the device kernels launched per step. Prints the card's name and power
+polish apart) and of csrc/dd_linalg.cu (D1-D3), the wrappers' calls per
+padded size mp and per regime, and the device kernels launched per step. Prints the card's name and power
 limit, then one JSON line per case; ``--out`` also writes all of them to
 FILE. ``--quick`` times one solve after the warm one and leaves out the
 synced run (for the slow precision-tier cases).
@@ -136,6 +138,7 @@ CASES = {
     "vib9-cg": ("tests/data/vib9.dat-s", dict(CONTROL1_CG, verb=1)),
     "theta1-dd": (THETA1, DD),
     "theta1-dd2": (THETA1, DD2),
+    "theta1-dd2-f64nt": (THETA1, dict(DD2, nt_precision="f64")),
     "tru3-sparse": (tru3_sparse, dict(KIT0, eDIMACS=1e-7)),
     "tru3-sparse-dd2": (tru3_sparse, {"kit": 0, "eDIMACS": 1e-9, "initpoint": 1, "verb": 0,
                                        "precision": "dd2"}),
@@ -158,6 +161,8 @@ CG_COUNTED = {"pcg_kernel_ff": "b3", "_polish": "polish", "cg_plain": "polish"}
 JACOBI_KERNELS = ("sm_kernel<", "cluster_kernel<", "round_kernel", "gersh_kernel",
                   "identity_kernel", "diag_kernel")
 PCG_KERNELS = ("cg_kernel<", "cg_block_kernel<", "cg_cluster_kernel<")
+# the device kernels of csrc/dd_linalg.cu (D1, D2, D3)
+DD_KERNELS = ("dd_jacobi_kernel<", "dd_chol_kernel<", "dd_gemm_kernel")
 # B3, B4 and the polish are instantiations of one template (type, MINRES):
 # the trace tells them apart by its arguments
 PCG_ARGS = {"B3": "<double, true>", "B4": "<float, false>", "polish": "<double, false>"}
@@ -261,6 +266,7 @@ def traced(problem, opts, state, done: int, steps: int = 2):
     jac_ms, jac_share, jac_n = _share(rows, JACOBI_KERNELS, busy)
     cg_ms, cg_share, cg_n = _share(rows, PCG_KERNELS, busy)
     cg_rows = [r for r in rows if any(k in r[0] for k in PCG_KERNELS)]
+    dd_ms, dd_share, dd_n = _share(rows, DD_KERNELS, busy)
     return {"steps": steps, "wall_ms": 1e3 * wall, "device_ms": busy,
             "busy_share": busy / (1e3 * wall), "device_launches_per_step": launched / steps,
             "top": rows[:14],
@@ -276,7 +282,8 @@ def traced(problem, opts, state, done: int, steps: int = 2):
             "pcg_share_by_kernel": {k: _share(cg_rows, (a,), busy)[1] for k, a in PCG_ARGS.items()},
             "pcg_launches": {k: fn.launches for k, fn in cg.items()},
             "pcg_launches_by_regime": {k: dict(getattr(fn, "launches_by_regime", {}))
-                                       for k, fn in cg.items()}}
+                                       for k, fn in cg.items()},
+            "dd_device_ms": dd_ms, "dd_share": dd_share, "dd_kernel_launches": dd_n}
 
 
 def card() -> str:

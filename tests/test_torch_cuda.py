@@ -1,5 +1,5 @@
 """The CUDA kernels of loraine_tpu_torch (ops/jacobi.py, ops/pcg.py,
-ops/int8gemm.py) on a card.
+ops/int8gemm.py, ops/dd_linalg.py) on a card.
 
 Needs an NVIDIA GPU (marker `cuda`; skips without one). This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -307,3 +307,83 @@ def _check_ozaki_on_card(A, B):
     assert (ti.ozaki_slice_s8_cuda.launches, ti.ozaki_gemm_s8_cuda.launches) == (
         before[0] + 2, before[1] + 1)
     assert torch.equal(whole, ti.matmul_f64_int8_plain(A, B))
+
+
+def _dd_on_card(x, rng):
+    """A dd matrix on the card: hi = x, lo ~ 1e-17 of it."""
+    from loraine_tpu_torch.ops.dd import DD
+
+    x = torch.from_numpy(x)
+    return DD(x.cuda(), (x * 1e-17 * torch.from_numpy(rng.standard_normal(x.shape))).cuda())
+
+
+# D1-D3 (csrc/dd_linalg.cu) at nt_scale_dd's shapes (theta1's m = 56, a
+# batch of two), at m = 8, and at m = 96, past the "smem" regime (m <= 84
+# on an H100), in "global"
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,m", [(1, 8), (2, 8), (1, 56), (2, 56), (2, 96)])
+def test_dd_kernels_match_plain_on_card(nb, m):
+    """D1, D2 and D3 against their plain versions on the same inputs on the
+    card, bit for bit (every operation rounds once, in the plain version's
+    order), with one launch a call, D1 and D2 in the regime the library
+    picks for m. D3 also on a transposed view (the wrapper's copy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from loraine_tpu_torch.ops import dd_linalg as dl
+    from loraine_tpu_torch.ops.dd import DD
+
+    def same(x, y):
+        return all(torch.equal(u, v) for u, v in zip(x, y))
+
+    rng = np.random.default_rng(nb * 1000 + m)
+    A = _dd_on_card(spectrum_matrix("clustered", m, nb, seed=m), rng)
+    B = _dd_on_card(rng.standard_normal((nb, m, m)), rng)
+    eye = torch.eye(m, dtype=torch.float64, device="cuda").expand(nb, m, m).contiguous()
+    V0 = DD(eye, torch.zeros_like(eye))
+    sweeps = 6 if m <= 84 else 2
+    kernels = (dl.dd_jacobi_cuda, dl.dd_chol_cuda, dl.dd_matmul_cuda)
+    regime = "smem" if m <= 84 else "global"
+    before = [f.launches for f in kernels]
+    by_regime = [dl.dd_jacobi_cuda.launches_by_regime[regime],
+                 dl.dd_chol_cuda.launches_by_regime[regime]]
+    C, L, J = dl.dd_matmul_cuda(A, B), dl.dd_chol_cuda(A), dl.dd_jacobi_cuda(A, V0, sweeps)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1]
+    assert dl.regime_for("jacobi", m) == dl.regime_for("chol", m) == regime
+    assert [dl.dd_jacobi_cuda.launches_by_regime[regime] - by_regime[0],
+            dl.dd_chol_cuda.launches_by_regime[regime] - by_regime[1]] == [1, 1]
+    assert same(C, dl.dd_matmul_plain(A, B))
+    assert same(dl.dd_matmul_cuda(dl.dd_transpose(A), B),
+                dl.dd_matmul_plain(dl.dd_transpose(A), B))
+    Lp = dl.dd_chol_plain(A)
+    assert same(L[0], Lp[0]) and torch.equal(L[1], Lp[1]) and bool(L[1].all())
+    Jp = dl.dd_jacobi_plain(A, V0, sweeps)
+    assert same(J[0], Jp[0]) and same(J[1], Jp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_dd_eigh_card_matches_cpu(warm):
+    """`dd_eigh_jacobi` (D3 in the warm start, D1 for the sweeps) on the card
+    against the plain versions' run on the CPU, nb = 2 at the odd m = 7 (the
+    padding), cold and warm-started: the eigenvalues within 2e-29 (the CPU
+    tests' mpmath tolerance) and the card's V^T V - I within 1e-28. Not bit
+    for bit: torch's vectorized CPU sqrt is not correctly rounded (one ulp
+    off on ~0.6% of uniform inputs against numpy's on an AVX512 build),
+    the card's is, as D1's `__dsqrt_rn`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from loraine_tpu_torch.ops import dd_linalg as dl
+    from loraine_tpu_torch.ops.dd import DD, dd_to_f64
+
+    rng = np.random.default_rng(7)
+    M = dl.dd_sym(_dd_on_card(spectrum_matrix("clustered", 7, 2, seed=7), rng))
+    V0 = torch.linalg.eigh(M.hi)[1] if warm else None
+    before = dl.dd_jacobi_cuda.launches
+    lam, V = dl.dd_eigh_jacobi(M, V0=V0)
+    ref, _ = dl.dd_eigh_jacobi(DD(M.hi.cpu(), M.lo.cpu()), V0=None if V0 is None else V0.cpu())
+    assert dl.dd_jacobi_cuda.launches == before + 1
+    diff = (lam.hi.cpu() - ref.hi) + (lam.lo.cpu() - ref.lo)
+    assert float(diff.abs().max()) < 2e-29
+    VtV = dd_to_f64(dl.dd_matmul(dl.dd_transpose(V), V)).cpu()
+    assert float((VtV - torch.eye(7, dtype=torch.float64)).abs().max()) < 1e-28

@@ -5,10 +5,18 @@ Every case of tests/test_dd_linalg.py runs here with the same tolerances,
 the native dd NT scaling (`ops/nt_scaling.py:nt_scale_dd`) included. The
 JAX test's alias check guards against XLA:CPU's simplifier; the port runs
 eagerly, so the same computation is held to the same oracle without jit.
-On the same inputs `dd_chol` and `dd_eigh_jacobi` agree with the JAX
-package's within the JAX test's own tolerances, and `nt_scale_dd` with the
-JAX package's in every field, tail and flag (its tolerances below).
+On the CPU the matrix functions run the plain versions of the kernels
+D1-D3 (`csrc/dd_linalg.cu`). On the same inputs `dd_chol`, `dd_matmul` and
+`dd_eigh_jacobi` agree with the JAX package's within the JAX test's own
+tolerances, and `nt_scale_dd` with the JAX package's in every field, tail
+and flag (its tolerances below). The kernels themselves run only on a card
+(tests/test_torch_cuda.py); here a model of D2's in-place reduction is
+held to `dd_sum`, and the 'auto' rule of the dd NT scaling to the JAX
+package's.
 """
+import json
+import sys
+
 import mpmath as mp
 import numpy as np
 import pytest
@@ -19,7 +27,9 @@ import jax.numpy as jnp
 from loraine_tpu.ops import dd_linalg as jdl
 from loraine_tpu.ops import nt_scaling as jnts
 from loraine_tpu.ops.dd import DD as JDD
-from loraine_tpu_torch.ops.dd import DD, dd_add, dd_to_f64
+from loraine_tpu_torch.config import Options, nt_dd_for
+from loraine_tpu_torch.ops import dd_linalg as tdl
+from loraine_tpu_torch.ops.dd import DD, dd_add, dd_sum, dd_to_f64
 from loraine_tpu_torch.ops.dd_linalg import (dd_abs, dd_chol, dd_const, dd_div, dd_eigh_jacobi,
                                              dd_matmul, dd_mul, dd_sqr, dd_sqrt, dd_sym)
 from loraine_tpu_torch.ops.eigh import round_robin_pairs
@@ -312,3 +322,168 @@ def test_nt_scale_dd_matches_jax(case):
     for f in ("Gi", "Si", "DDsi"):
         a, b = getattr(nts, f).numpy(), np.asarray(getattr(jn, f))
         assert np.abs(a - b).max() <= 1e-13 * np.abs(b).max(), f
+
+
+def _dd_batch(x, rng):
+    """A dd batch from numpy: hi = x, lo ~ 1e-17 of it."""
+    return DD(T(x), T(x * 1e-17 * rng.standard_normal(x.shape)))
+
+
+def test_dd_matmul_plain_matches_jax():
+    """D3's plain version (every term in dd, ascending k) against the JAX
+    package's `dd_matmul` (Ozaki slices, truncated at 2^-106 of the |A||B|
+    scale) within 1e-28 of |A||B|, a batch of two with a broadcast operand
+    and a transposed view; `dd_matmul` on a CPU tensor is the plain
+    version."""
+    rng = np.random.default_rng(21)
+    A = _dd_batch(rng.standard_normal((2, 7, 9)) * np.logspace(-3, 3, 9), rng)
+    B = _dd_batch(rng.standard_normal((1, 9, 5)), rng)
+    C = tdl.dd_matmul_plain(A, B)
+    assert C.hi.shape == (2, 7, 5)
+    Cj = jdl.dd_matmul(JDD(jnp.asarray(A.hi.numpy()), jnp.asarray(A.lo.numpy())),
+                       JDD(jnp.asarray(B.hi.numpy()), jnp.asarray(B.lo.numpy())))
+    scale = np.abs(A.hi.numpy()) @ np.abs(B.hi.numpy())
+    diff = (C.hi.numpy() - np.asarray(Cj.hi)) + (C.lo.numpy() - np.asarray(Cj.lo))
+    assert np.abs(diff / scale).max() < 1e-28
+    R = dd_matmul(A, B)
+    assert torch.equal(R.hi, C.hi) and torch.equal(R.lo, C.lo)
+    At = tdl.dd_transpose(_dd_batch(rng.standard_normal((2, 9, 7)), rng))
+    Ct = tdl.dd_matmul_plain(At, B)
+    Ctj = jdl.dd_matmul(JDD(jnp.asarray(At.hi.numpy()), jnp.asarray(At.lo.numpy())),
+                        JDD(jnp.asarray(B.hi.numpy()), jnp.asarray(B.lo.numpy())))
+    scale = np.abs(At.hi.numpy()) @ np.abs(B.hi.numpy())
+    diff = (Ct.hi.numpy() - np.asarray(Ctj.hi)) + (Ct.lo.numpy() - np.asarray(Ctj.lo))
+    assert np.abs(diff / scale).max() < 1e-28
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_dd_eigh_matches_jax(warm):
+    """`dd_eigh_jacobi` (D1's plain version for the sweeps, D3's in the warm
+    start) against the JAX package's on the same input, nb = 2 at the odd
+    m = 7 (the padding), cold and warm-started from the same f64 basis: the
+    eigenvalues within 2e-29 absolute, and the port's V^T V - I within
+    1e-28."""
+    m = 7
+    parts = [_graded_spd(m, 12, seed=s)[1] for s in (31, 32)]
+    M = _stack_dd(parts)
+    V0 = torch.linalg.eigh(M.hi)[1] if warm else None
+    lam, V = dd_eigh_jacobi(M, V0=V0)
+    lj, _ = jdl.dd_eigh_jacobi(JDD(jnp.asarray(M.hi.numpy()), jnp.asarray(M.lo.numpy())),
+                               V0=None if V0 is None else jnp.asarray(V0.numpy()))
+    got = lam.hi.numpy() + lam.lo.numpy()
+    ref = np.asarray(lj.hi) + np.asarray(lj.lo)
+    diff = (lam.hi.numpy() - np.asarray(lj.hi)) + (lam.lo.numpy() - np.asarray(lj.lo))
+    assert got.shape == ref.shape == (2, m)
+    assert np.abs(diff).max() < 2e-29
+    VtV = dd_to_f64(dd_matmul(tdl.dd_transpose(V), V)).numpy()
+    assert np.abs(VtV - np.eye(m)).max() < 1e-28
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 56])
+def test_chol_kernel_tree_equals_dd_sum(m):
+    """D2 sums each row's products in place, one level of `dd_sum`'s tree a
+    barrier: slot k takes dd_add(P[k], P[k + half]) and, at an odd length n,
+    slot 0 then adds P[n - 1]. A model of that loop equals `dd_sum` bit for
+    bit on cancelling, widely spread data (so the kernel's reduction is
+    the plain version's)."""
+    rng = np.random.default_rng(m)
+    hi = rng.standard_normal((3, m)) * 2.0 ** rng.integers(-60, 60, (3, m))
+    hi[:, 1::2] = -hi[:, ::2][:, : m // 2]
+    x = DD(T(hi), T(hi * 2.0**-55 * rng.standard_normal((3, m))))
+    P = [DD(x.hi[:, k], x.lo[:, k]) for k in range(m)]
+    n = m
+    while n > 1:
+        half = n // 2
+        for k in range(half):
+            acc = dd_add(P[k], P[k + half])
+            if n % 2 and k == 0:
+                acc = dd_add(acc, P[n - 1])
+            P[k] = acc
+        n = half
+    ref = dd_sum(x, axis=-1)
+    assert torch.equal(P[0].hi, ref.hi) and torch.equal(P[0].lo, ref.lo)
+
+
+@pytest.mark.parametrize("m", [2, 8, 56])
+def test_dd_jacobi_rounds(m):
+    """D1's rounds put p = min and q = max of every pair of
+    `round_robin_pairs` and cover each unordered pair once a sweep; every
+    index's partner and its slot in cat(p, q) are inverse tables."""
+    p, q, partner, pos = tdl._jacobi_rounds(m)
+    assert (p < q).all() and p.shape == (m - 1, m // 2)
+    seen = {(int(a), int(b)) for r in range(m - 1) for a, b in zip(p[r], q[r])}
+    assert len(seen) == m * (m - 1) // 2
+    for r in range(m - 1):
+        assert (partner[r, partner[r]] == np.arange(m)).all()
+        assert (np.concatenate([p[r], q[r]])[pos[r]] == np.arange(m)).all()
+
+
+def test_dd_routes_refuse_other_devices():
+    """The routes take the plain version on the CPU and the kernel on CUDA;
+    any other device raises."""
+    x = torch.zeros((1, 4, 4), dtype=torch.float64, device="meta")
+    for call in (lambda: dd_matmul(DD(x, x), DD(x, x)), lambda: dd_chol(DD(x, x)),
+                 lambda: dd_eigh_jacobi(DD(x, x), sweeps=1)):
+        with pytest.raises(ValueError, match="no dd linear-algebra route"):
+            call()
+
+
+@pytest.mark.parametrize("precision", ["f64", "dd", "dd2"])
+def test_nt_precision_auto_rule(precision):
+    """nt_precision 'auto' resolves as the JAX package's
+    (`loraine_tpu/ipm/step.py:367-370`) with the card in the TPU's place:
+    the dd NT scaling only under 'dd2' on a CUDA device, the f64 one on the
+    CPU in every tier, and on the CG path (kit=1) on the card too (ROADMAP
+    Queue C 8); 'dd' and 'f64' stand on both paths (a pure function: no
+    card needed)."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for kit in (0, 1):
+        o = Options(precision=precision, kit=kit)
+        assert nt_dd_for(o, cpu) is False
+        assert nt_dd_for(o, cuda) is (precision == "dd2" and kit == 0)
+        for dev in (cpu, cuda):
+            assert nt_dd_for(Options(precision=precision, kit=kit, nt_precision="f64"),
+                             dev) is False
+            assert nt_dd_for(Options(precision=precision, kit=kit, nt_precision="dd"),
+                             dev) is (precision == "dd2")
+
+
+def test_probe_iterates_scale_alike(tmp_path, capsys):
+    """`utils/cg_dd2_probe.py`'s file of scaled iterates, written from the
+    port's `nt_scale_dd` on the CPU, and the script below on it: the JAX
+    package's scaling of the same iterates agrees with the saved D and W
+    within `test_nt_scale_dd_matches_jax`'s tolerances."""
+    from loraine_tpu_torch.utils import cg_dd2_probe
+
+    X, S = _nt_case("m8")
+    calls = [(X, S, *nt_scale_dd(X, S, eigh_backend="jacobi"))]
+    out = tmp_path / "iterates.npz"
+    cg_dd2_probe.save(str(out), calls)
+    jax_scale_saved(str(out))
+    (rec,) = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert rec["dd_ok"] == rec["jax_dd_ok"] is True
+    assert rec["D_rel"] <= 1e-14 and rec["W_rel"] <= 1e-17
+
+
+def jax_scale_saved(path: str) -> None:
+    """The script: the JAX package's `nt_scale_dd` (warm start 'jacobi') on
+    each iterate of a `cg_dd2_probe` file, one JSON line each: dd_ok in both
+    packages, the largest relative difference of D + D_lo from the saved
+    one, and that of W + W_lo over max |W|."""
+    data = np.load(path)
+    for k in range(len(data["dd_ok"])):
+        jX = JDD(jnp.asarray(data["X_hi"][k]), jnp.asarray(data["X_lo"][k]))
+        jS = JDD(jnp.asarray(data["S_hi"][k]), jnp.asarray(data["S_lo"][k]))
+        jn, jt = jnts.nt_scale_dd(jX, jS, eigh_backend="jacobi")
+        D = data["D_hi"][k] + data["D_lo"][k]
+        Dj = np.asarray(jn.D) + np.asarray(jt.D_lo)
+        W = data["W_hi"][k]
+        dW = (W - np.asarray(jn.W)) + (data["W_lo"][k] - np.asarray(jt.W_lo))
+        print(json.dumps({"k": k, "dd_ok": bool(data["dd_ok"][k]), "jax_dd_ok": bool(jt.dd_ok),
+                          "D_rel": float(np.abs((D - Dj) / Dj).max()),
+                          "W_rel": float(np.abs(dW).max() / np.abs(W).max()),
+                          "D_min": float(D.min())}), flush=True)
+
+
+if __name__ == "__main__":
+    jax_scale_saved(sys.argv[1])
