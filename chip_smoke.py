@@ -256,11 +256,14 @@ Phases:
  42. the dd NT scaling's kernels (csrc/dd_linalg.cu): (a) D1 (the dd
      Jacobi sweeps), D2 (the dd Cholesky) and D3 (the dd GEMM) against
      their plain versions on the card, bit for bit (D2's is the eager
-     `dd_chol`), at (nb, m) in DD_SHAPES, in "smem" and "global" (the
-     regimes the library picks for m), and on phase 19's last theta1
-     iterate (X, S Lx, Lx^T S Lx at m = 56): each kernel's ms (CUDA events
-     after a warm-up),
-     the plain version's, the bound and the launches a call; (b) theta1 at
+     `dd_chol`), at (nb, m) in DD_SHAPES, on each side of every regime
+     boundary (D1 "block", "cluster" of 8 and of 16, "global"; D2 "warp",
+     "global": the regimes the library picks for m; fails unless each
+     ran), and on phase 19's last theta1 iterate (X, S Lx, Lx^T S Lx at
+     m = 56): each call's ms (CUDA events around 20 wrapper calls after a
+     warm-up), the kernel's alone (CUDA events around each of 20 launches
+     of its C entry, `utils/dd_bench.py`), the plain version's, the bound
+     and the launches a call; (b) theta1 at
      'dd2' with the default options (nt_precision 'auto' = dd on the card)
      and with nt_precision='f64': both OPTIMAL with phase 19's floors
      (err1 < 1e-18, err3 < 1e-15), D1-D3 launched in the first only,
@@ -327,6 +330,11 @@ GRID_VS_CLUSTER = ((1, 800), (2, 800), (1, 816))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the
 # tensor cores, f64 on the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
+# unfused f64 adds and multiplies (DADD, DMUL: dd arithmetic, which the
+# tensor cores do not do) a second on the FP64 lanes of an H100 SXM: 132 SMs
+# x 64 lanes x 1.98 GHz boost (the data sheet's 34 TFLOP/s FP64 counts an FMA
+# as two)
+PEAK_F64_LANES = 132 * 64 * 1.98e9
 PCG_SIZES = (21, 36, 104, 464, 1000)
 # the sizes phase 6 times the CG bodies at
 PCG_TIMED = (21, 36, 104, 128, 160, 256, 464, 512, 1000)
@@ -350,10 +358,15 @@ OZAKI = ("O1", "O2")
 DD_KERNELS = ("D1", "D2", "D3")
 DD2_NEEDS = ("B1", "B2") + DD_KERNELS
 # phase 42(a): (nb, m) of the dd kernels against their plain versions:
-# theta1's m = 56 (the main path's), a batch of two, m = 8, and m = 96,
-# past the "smem" regime (m <= 84 on an H100), in "global"; D1 runs 6
-# sweeps (the warm default), 2 at m = 96
-DD_SHAPES = ((1, 8), (2, 8), (1, 56), (2, 56), (2, 96))
+# theta1's m = 56 (the main path's), a batch of two, m = 8, and each side of
+# every regime boundary on an H100: D1 "block" to m 20, "cluster" to 264
+# (of 8 to 192, of 16 past it: tests/test_torch_cuda.py holds that edge),
+# "global" past it; D2 "warp" to m 105, "global" past it. D1 runs 6 sweeps
+# (the warm default), 2 past m 84 and 1 past 128 (the plain version takes
+# ~5 s a sweep at m 264)
+DD_SHAPES = ((1, 8), (2, 8), (1, 20), (1, 22), (1, 56), (2, 56), (2, 96), (1, 104), (1, 106),
+             (1, 264), (1, 266))
+DD_REGIMES = {"jacobi": {"block", "cluster", "global"}, "chol": {"warp", "global"}}
 # the int8 tensor cores' dense peak (NVIDIA data sheet, H100 SXM)
 PEAK_INT8 = 1979e12
 # phase 40(a): (batch, n, k, c) of the int8 GEMM: maxG11's B G and
@@ -1733,38 +1746,59 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
 
 # f64 operations of the dd primitives as csrc/dd_linalg.cu writes them
 # (each + - * / sqrt one): dd_add 28, dd_mul 26, dd_div 121, dd_sqrt 58,
-# one Jacobi rotation 854; a rotated entry is 2 dd_mul + dd_add
-DD_ADD, DD_MUL, DD_DIV, DD_SQRT, DD_ROT = 28, 26, 121, 58, 854
+# one Jacobi rotation 709 (the branch of t it takes); a rotated entry is
+# 2 dd_mul + dd_add
+DD_ADD, DD_MUL, DD_DIV, DD_SQRT, DD_ROT = 28, 26, 121, 58, 709
+
+
+def chol_tree_ops(m: int, j: int) -> int:
+    """f64 operations of one row's t_i at column j as D2 forms it: the
+    products of the computed columns k < j (the others are exact zeros),
+    and the tree's adds but those of two zeros."""
+    if m == 1 or j == 0:
+        return 0
+    half = m // 2
+    ops = sum(DD_MUL * (1 + (s + half < j)) + DD_ADD for s in range(min(half, j)))
+    ops += DD_ADD if m % 2 else 0
+    n = half
+    while n > 1:
+        half = n // 2
+        ops += DD_ADD * (min(half, j) + (n % 2))
+        n = half
+    return ops
 
 
 def dd_kernel_bound(kernel: str, nb: int, m: int, sweeps: int = 0):
     """(bound ms, bound_by) of D1 ("jacobi", ``sweeps`` sweeps), D2
     ("chol") or D3 ("gemm", m x m @ m x m): the f64 operations above over
-    the f64 peak, or each input read and each output written once over the
-    memory rate."""
+    the FP64 lanes' rate of unfused adds and multiplies, or each input read
+    and each output written once over the memory rate."""
     if kernel == "jacobi":  # A and V in and out
         rnd = (m // 2) * DD_ROT + 3 * m * m * (2 * DD_MUL + DD_ADD)
         flops = nb * sweeps * ((m - 1) * rnd + m * m * (DD_ADD + 2))
         nbytes = 8 * nb * 8 * m * m
-    elif kernel == "chol":  # every column: products, the tree, c, the divisions
-        flops = nb * sum((m - j) * (m * DD_MUL + m * DD_ADD + DD_DIV) + DD_SQRT for j in range(m))
+    elif kernel == "chol":  # every column: the trees, c, the pivot, the divisions
+        flops = nb * sum((m - j) * (chol_tree_ops(m, j) + DD_ADD + DD_DIV) + DD_SQRT
+                         for j in range(m))
         nbytes = 8 * nb * 4 * m * m + nb
     else:
         flops = nb * m * m * m * (DD_MUL + DD_ADD)
         nbytes = 8 * nb * 6 * m * m
-    return bound_ms(flops, nbytes, PEAK_F64)
+    return bound_ms(flops, nbytes, PEAK_F64_LANES)
 
 
 def dd_kernels_phase(launches, ltt, phase19: dict, card: str) -> dict:
     """Phase 42. (a) D1, D2 and D3 against their plain versions on the card,
     bit for bit, at DD_SHAPES and on phase 19's last theta1 iterate (X, S
-    and M = Lx^T S Lx at m = 56), each kernel's time (CUDA events after a
-    warm-up), the plain version's, the bound and the launches a call; (b)
-    theta1 at dd2 with the default options (NT 'auto' = dd on the card)
-    beside nt_precision='f64'. Returns the JSON rows' numbers of D1-D3 at
-    the main path's (1, 56), with their launches in (b)'s default run."""
+    and M = Lx^T S Lx at m = 56), each call's time (CUDA events after a
+    warm-up), the kernel's alone, the plain version's, the bound and the
+    launches a call; (b) theta1 at dd2 with the default options (NT 'auto'
+    = dd on the card) beside nt_precision='f64'. Returns the JSON rows'
+    numbers of D1-D3 at the main path's (1, 56), with their launches in
+    (b)'s default run."""
     from loraine_tpu_torch.ops import dd_linalg as dl
     from loraine_tpu_torch.ops.dd import DD
+    from loraine_tpu_torch.utils.dd_bench import alone_ms, launcher
     from loraine_tpu_torch.utils.profiling import DD2
 
     rng = np.random.default_rng(42)
@@ -1773,7 +1807,7 @@ def dd_kernels_phase(launches, ltt, phase19: dict, card: str) -> dict:
         x = torch.from_numpy(x)
         return DD(x.cuda(), (x * 1e-17 * torch.from_numpy(rng.standard_normal(x.shape))).cuda())
 
-    def held(name, kernel, plain, shape, kind, sweeps=0):
+    def held(name, kernel, plain, shape, kind, args, sweeps=0):
         before = {k: fn.launches for k, fn in launches.dd.items()}
         out = kernel()
         per_call = {k: fn.launches - before[k] for k, fn in launches.dd.items()
@@ -1785,43 +1819,46 @@ def dd_kernels_phase(launches, ltt, phase19: dict, card: str) -> dict:
         check(all(torch.equal(a, b) for a, b in zip(flat(out), flat(ref))),
               f"phase 42a: {name} at {shape} differs from its plain version (max {err:.3e})")
         ms = cuda_ms(kernel, 20)
+        alone = alone_ms(*launcher(dl, kind, *args, sweeps=sweeps))
         bnd, by = dd_kernel_bound(kind, shape[0], shape[1], sweeps)
         print(f"phase 42a {name} {shape}: bitwise equal to the plain version; ms={ms:.4f} "
-              f"plain_ms={plain_ms:.2f} bound_ms={bnd:.5f} ({by}) launches a call {per_call}",
-              flush=True)
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                "max_abs_err": err, "shape": list(shape)}
+              f"kernel_ms={alone:.4f} plain_ms={plain_ms:.2f} bound_ms={bnd:.5f} ({by}) "
+              f"launches a call {per_call}", flush=True)
+        return {"ms": ms, "kernel_ms": alone, "plain_ms": plain_ms, "bound_ms": bnd,
+                "bound_by": by, "max_abs_err": err, "shape": list(shape)}
 
-    regimes = set()
+    regimes = {"jacobi": set(), "chol": set()}
     for nb, m in DD_SHAPES:
         A = dd_in(spectrum_matrix("clustered", m, nb, seed=m))
         B = dd_in(rng.standard_normal((nb, m, m)))
         eye = torch.eye(m, dtype=torch.float64, device="cuda").expand(nb, m, m).contiguous()
         V0 = DD(eye, torch.zeros_like(eye))
-        sweeps = 6 if m <= 84 else 2
-        regime = dl.regime_for("jacobi", m)
+        sweeps = 6 if m <= 84 else 2 if m <= 128 else 1
+        plan = {k: dl.plan_for(k, m)[:2] for k in regimes}
         held("D3 dd_gemm", lambda: dl.dd_matmul_cuda(A, B), lambda: dl.dd_matmul_plain(A, B),
-             (nb, m), "gemm")
-        held(f"D2 dd_chol ({dl.regime_for('chol', m)})", lambda: dl.dd_chol_cuda(A),
-             lambda: dl.dd_chol_plain(A), (nb, m), "chol")
-        held(f"D1 dd_jacobi ({regime}, {sweeps} sweeps)", lambda: dl.dd_jacobi_cuda(A, V0, sweeps),
-             lambda: dl.dd_jacobi_plain(A, V0, sweeps), (nb, m), "jacobi", sweeps)
-        regimes.add(regime)
-    check(regimes == {"smem", "global"}, f"phase 42a: D1/D2 ran in the regimes {regimes}")
+             (nb, m), "gemm", (A, B))
+        held(f"D2 dd_chol ({plan['chol'][0]})", lambda: dl.dd_chol_cuda(A),
+             lambda: dl.dd_chol_plain(A), (nb, m), "chol", (A,))
+        held(f"D1 dd_jacobi ({plan['jacobi'][0]} of {plan['jacobi'][1]}, {sweeps} sweeps)",
+             lambda: dl.dd_jacobi_cuda(A, V0, sweeps), lambda: dl.dd_jacobi_plain(A, V0, sweeps),
+             (nb, m), "jacobi", (A, V0), sweeps)
+        for k in regimes:
+            regimes[k].add(plan[k][0])
+    check(regimes == DD_REGIMES, f"phase 42a: D1/D2 ran in the regimes {regimes}")
     # the main path's data: phase 19's last theta1 iterate (the JSON rows)
     fs = phase19["theta1"].final_state
     X, S = DD(fs.X[0], fs.X_lo[0]), DD(fs.S[0], fs.S_lo[0])
     m = X.hi.shape[-1]
     rows = {"D2": held("D2 dd_chol on theta1's X", lambda: dl.dd_chol_cuda(X),
-                       lambda: dl.dd_chol_plain(X), (1, m), "chol")}
+                       lambda: dl.dd_chol_plain(X), (1, m), "chol", (X,))}
     L = dl.dd_chol_plain(X)[0]
     rows["D3"] = held("D3 dd_gemm on theta1's S Lx", lambda: dl.dd_matmul_cuda(S, L),
-                      lambda: dl.dd_matmul_plain(S, L), (1, m), "gemm")
+                      lambda: dl.dd_matmul_plain(S, L), (1, m), "gemm", (S, L))
     M = dl.dd_sym(dl.dd_matmul_plain(dl.dd_transpose(L), dl.dd_matmul_plain(S, L)))
     eye = torch.eye(m, dtype=torch.float64, device="cuda")[None].contiguous()
     V0 = DD(eye, torch.zeros_like(eye))
     rows["D1"] = held("D1 dd_jacobi on theta1's Lx^T S Lx", lambda: dl.dd_jacobi_cuda(M, V0, 6),
-                      lambda: dl.dd_jacobi_plain(M, V0, 6), (1, m), "jacobi", 6)
+                      lambda: dl.dd_jacobi_plain(M, V0, 6), (1, m), "jacobi", (M, V0), 6)
 
     # ---- (b) theta1 at dd2: the default NT ('auto' = dd here) and 'f64'
     res = {}
@@ -2505,9 +2542,9 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": "loraine_tpu_torch/csrc/dd_linalg.cu",
             "replaces": f"loraine_tpu/ops/{line}", "launches": t["launches"],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-            "shape": t["shape"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": t["shape"],
         })
     print(json.dumps({"kernels": rows}))
     print(card)

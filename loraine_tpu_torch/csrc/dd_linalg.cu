@@ -22,27 +22,75 @@
 // (IEEE, correctly rounded, as torch's are). The operations follow the
 // order of the plain versions in ops/dd.py and ops/dd_linalg.py one for
 // one, the 0.0 * x terms included (they decide the sign of a zero), so
-// each kernel equals its plain version bit for bit on the card.
+// each kernel equals its plain version bit for bit on the card. What the
+// designs below change is which thread computes an entry, and when.
 //
 // What bounds them on this card. Tensor cores have no dd, so the work is
-// f64 arithmetic on the SM's FP64 units. D1 and D2 are sequences of
-// dependent rounds (D1: sweeps * (m - 1) rounds; D2: m columns, each a
-// product pass and a log2(m)-level tree): the time is the latency of the
-// rounds and their block-wide barriers, far above the flop and byte
-// bounds. One block per matrix keeps A and V (D1) or L and the products
-// (D2) in shared memory for the whole call where 32 m^2 + 20 m bytes fit
-// the opt-in maximum (m <= 84 on an H100; every dd2 block of the repo's
-// cases is <= 56), else in global memory (regime "global", the same code).
+// unfused f64 adds and multiplies on the SMs' FP64 lanes (64 an SM). D1 and
+// D2 are chains of dependent steps: D1 sweeps * (m - 1) rounds, each
+// waiting for the angles of the last, whose rotation (below) is a chain
+// of 11 IEEE divisions and 3 square roots; D2 m columns, each a product
+// pass, a log2(m)-level tree, a square root and a division. Their time
+// is that latency and the barriers between the steps, far above the
+// card-wide flop and byte bounds; the designs cut both.
+//
+// D1 (lt_dd_jacobi). Entry (i, j) of a round's column step J and the row
+// step after it read only the 2x2 block of i's pair of rows and j's pair of
+// columns, so one thread takes a whole block through both steps in
+// registers (the plain version's order: column step, then row step) and a
+// round needs one barrier. The rows of A are owned by tournament position:
+// position k (0 <= k < m) of round r holds label 0 (k = 0) or
+// 1 + (k - 1 + r) mod (m - 1) (round_robin_pairs), pair k is the positions
+// (k, m - 1 - k), and a block ("CTA") owns the pairs [k0, k1) of a balanced
+// split, both rows of each, so its blocks read local rows only. Each round
+// every row moves one position (k -> k - 1, 1 -> m - 1, 0 stays): the
+// rotating thread writes each rotated block straight into the row's slot of
+// the next round, in the other of two buffers, remote (distributed shared
+// memory) for the two rows that leave a CTA. Meanwhile one lane per pair of
+// the next round recomputes, from the current buffer, the three 2x2 blocks
+// its angle needs (A[p,p], A[q,q], A[p,q] after the round; the same
+// arithmetic as their owners, so the same bits) and runs the rotation, and
+// stores the angle into every CTA of the cluster. One cluster barrier ends
+// the round; a round costs the angle chain plus that barrier, with the
+// rotation of the matrix beside it. V is only column-rotated, so its rows
+// stay put, a share in each CTA. After each sweep (the tournament is back
+// at position = label) dd_sym runs as one more step with the next sweep's
+// first angles beside it. Regimes (lt_dd_plan, by m and the card):
+//   "block"   one CTA a matrix (a cluster of 1) for m <= BLOCK_MAX_M (20),
+//             where a cluster's barrier costs more than its spread of the work;
+//   "cluster" C CTAs a matrix (C from CLUSTER_SIZES, the first whose
+//             share, 48 m^2 / C bytes and the angles, fits the opt-in
+//             shared memory: to m ~ 264 at C = 16 on an H100);
+//   "global"  past that: the same code with each CTA's buffers in a global
+//             scratch (loads past L1), C = 16.
+// A batch of nb matrices is nb clusters; they never wait for each other.
+//
+// D2 (lt_dd_chol). Left-looking: column j's t_i = sum_k L[i,k] L[j,k] in
+// dd_sum's halving tree over all m columns (the uncomputed ones are exact
+// zeros; the odd element folds into slot 0). Eight lanes take a row, its
+// tree in a slot array of their own, a __syncwarp a level, so the tree needs
+// no block barrier; slots that are exact zeros (every slot k >= j) are
+// skipped, which removes about half the FP64 instructions (the FP64 issue
+// rate, not latency, bounded a warp a row). A column is one barrier before
+// the divisions and one after L's column is written. L and the trees stay
+// in shared memory ("warp", to m = 105 on an H100); past that "global" is
+// the product-array form with L in the output.
+//
 // D3 is a plain tiled GEMM, 16 x 16 outputs a block, one thread an output,
 // each term dd_mul, summed by dd_add in ascending k: latency of the
 // dependent dd_add chain per output.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int ERR_SHAPE = -2;
-constexpr int NT = 512;           // threads of a D1 / D2 block
+constexpr int NTJ = 512;          // threads of a D1 block (and of D2 in "global")
+constexpr int NTC = 512;          // threads of a D2 block in "warp"
+constexpr int ROWS = NTC / 8;     // D2 "warp": rows at once, 8 lanes a row
 constexpr int TILE = 16;          // D3: TILE x TILE outputs a block
 
 struct dd {
@@ -142,7 +190,9 @@ __device__ __forceinline__ dd dd_abs(dd x) {
 
 // dd_linalg.py::_rotation: the dd Givens rotation (c, s) of the pair (p, q)
 // from A[p,p], A[q,q], A[p,q], with the Demmel-Veselic 2^-100 activity test
-// and the asymptotic t = 1/(2 tau) past |tau| > 1e150.
+// and the asymptotic t = 1/(2 tau) past |tau| > 1e150. The plain version
+// computes both branches of t and selects one; only the selected one is
+// computed here (the same bits), and none for an inactive pair (t = 0).
 __device__ void rotation(dd app, dd aqq, dd apq, dd& c, dd& s) {
   const double scale = add(__dsqrt_rn(fabs(mul(app.hi, aqq.hi))), 1e-300);
   const bool active = fabs(apq.hi) > mul(0x1p-100, scale);
@@ -150,164 +200,362 @@ __device__ void rotation(dd app, dd aqq, dd apq, dd& c, dd& s) {
   const dd num = dd_add(aqq, dd_neg(app));
   const dd den = dd_mul_f64(apq_s, 2.0);
   const dd tau = dd_div(num, den);
-  const bool big = fabs(tau.hi) > 1e150;
-  const dd tau_c = {big ? 1.0 : tau.hi, big ? 0.0 : tau.lo};
-  const double sgn = tau.hi >= 0.0 ? 1.0 : -1.0;
-  const dd tau2 = dd_sqr(tau_c);
   const dd one = dd_const(1.0, tau.hi);
-  const dd root = dd_sqrt(dd_add(one, tau2));
-  const dd den_t = dd_add(dd_abs(tau_c), root);
-  dd t_small = dd_div(one, den_t);
-  t_small = {mul(sgn, t_small.hi), mul(sgn, t_small.lo)};
-  const dd t_big = dd_div(one, dd_mul_f64(tau, 2.0));
-  dd t = big ? t_big : t_small;
-  if (!active) t = {0.0, 0.0};
+  dd t = {0.0, 0.0};
+  if (active) {
+    if (fabs(tau.hi) > 1e150) {
+      t = dd_div(one, dd_mul_f64(tau, 2.0));
+    } else {
+      const double sgn = tau.hi >= 0.0 ? 1.0 : -1.0;
+      const dd root = dd_sqrt(dd_add(one, dd_sqr(tau)));
+      const dd t_small = dd_div(one, dd_add(dd_abs(tau), root));
+      t = {mul(sgn, t_small.hi), mul(sgn, t_small.lo)};
+    }
+  }
   c = dd_div(one, dd_sqrt(dd_add(one, dd_sqr(t))));
   s = dd_mul(t, c);
 }
 
-__device__ __forceinline__ dd ld(const double* h, const double* l, int i) { return {h[i], l[i]}; }
-__device__ __forceinline__ void st(double* h, double* l, int i, dd v) {
+__device__ __forceinline__ dd ld(const double* h, const double* l, size_t i) { return {h[i], l[i]}; }
+__device__ __forceinline__ void st(double* h, double* l, size_t i, dd v) {
   h[i] = v.hi;
   l[i] = v.lo;
 }
+// a dd entry of D1's buffers or D2's L (one 16-byte word); in D1's "global"
+// regime other CTAs write the buffers, so loads go past the (incoherent) L1
+template <bool G>
+__device__ __forceinline__ dd ld2(const double2* p) {
+  const double2 v = G ? __ldcg(p) : *p;
+  return {v.x, v.y};
+}
+__device__ __forceinline__ void st2(double2* p, dd v) { *p = make_double2(v.hi, v.lo); }
+__device__ __forceinline__ dd half_of(dd u) { return {mul(0.5, u.hi), mul(0.5, u.lo)}; }
 
 // ---- D1: the round-robin parallel cyclic Jacobi ---------------------------------
 //
-// One block per matrix. a (hi, lo): [nb, m, m] the matrix, rotated in place;
-// v (hi, lo): [nb, m, m] the start basis, updated in place; pairs:
-// round_robin_pairs(m) as int32 [m-1, 2, m/2]. A round: one thread per pair
-// computes (c, s) from p = min, q = max of the pair (p's view: the partner q
-// takes the same c and -s -> s_p = -s, s_q = +s); barrier; the columns
-// (A J)[i,j] = c_j A[i,j] + s_j A[i,perm j] and V J, each thread the two
-// columns of one pair in one row; barrier; the rows (J^T B)[i,j] = c_i B[i,j]
-// + s_i B[perm i,j]; barrier. dd_sym (A <- (A + A^T) / 2) after each sweep.
-template <bool SMEM>
-__global__ void __launch_bounds__(NT)
+// The tournament (ops/eigh.py::round_robin_pairs): the label at position k of
+// round r, the position of label x in round r, a row's position in the next
+// round, and the pair (k or m - 1 - k) of a position.
+__device__ __forceinline__ int label_at(int k, int r, int m) {
+  if (k == 0) return 0;
+  const int u = k - 1 + r;
+  return 1 + (u >= m - 1 ? u - (m - 1) : u);
+}
+__device__ __forceinline__ int pos_of(int x, int r, int m) {
+  if (x == 0) return 0;
+  const int u = x - 1 - r;
+  return 1 + (u < 0 ? u + (m - 1) : u);
+}
+__device__ __forceinline__ int next_pos(int k, int m) { return k == 0 ? 0 : (k == 1 ? m - 1 : k - 1); }
+__device__ __forceinline__ int pair_of(int k, int m) { return k < m / 2 ? k : m - 1 - k; }
+
+// Where the row at position k lives: its CTA (the owner of its pair in the
+// split lo_b = b h / C) and its slot there (2 (pair - lo_b), + 1 for the
+// bottom position m - 1 - pair).
+__device__ __forceinline__ int slot_of(int k, int m, int C, int& owner) {
+  const int h = m / 2, pi = pair_of(k, m);
+  owner = ((pi + 1) * C - 1) / h;
+  return 2 * (pi - owner * h / C) + (k >= h);
+}
+
+// dd entries of one CTA's region: two buffers of A's rows (2 ceil(h/C)
+// rows each), its V rows (ceil(m/C)), the angles [2][h] x (c, s)
+__host__ __device__ __forceinline__ int jacobi_rows(int m, int C) {
+  return 2 * ((m / 2 + C - 1) / C);
+}
+__host__ __device__ __forceinline__ int jacobi_region(int m, int C) {
+  return (2 * jacobi_rows(m, C) + (m + C - 1) / C) * m + 4 * (m / 2);
+}
+
+// A''[x, y] after a round, from the entries of its 2x2 block before it:
+// rows x and its partner xx (the row angle cx, sx signed for x), columns
+// y and yy (cy, sy signed for y): the column step, then the row step
+__device__ __forceinline__ dd rotated(dd axy, dd axyy, dd axxy, dd axxyy, dd cx, dd sx, dd cy,
+                                      dd sy) {
+  const dd bx = dd_add(dd_mul(cy, axy), dd_mul(sy, axyy));
+  const dd bxx = dd_add(dd_mul(cy, axxy), dd_mul(sy, axxyy));
+  return dd_add(dd_mul(cx, bx), dd_mul(sx, bxx));
+}
+
+constexpr int CMAX = 16;
+
+// One cluster of C CTAs per matrix (C = 1: one block, no cluster). a (hi,
+// lo): [nb, m, m] the matrix, rotated; v (hi, lo): [nb, m, m] the start
+// basis, updated; both in place. scratch: the CTAs' regions in the
+// "global" regime (G), else unused.
+template <bool G>
+__global__ void __launch_bounds__(NTJ, 1)
     dd_jacobi_kernel(double* __restrict__ gah, double* __restrict__ gal, double* __restrict__ gvh,
-                  double* __restrict__ gvl, const int* __restrict__ pairs, int m, int sweeps) {
-  extern __shared__ double sm[];
-  const int h = m / 2;
-  const int mm = m * m;
-  const size_t off = (size_t)blockIdx.x * mm;
-  double *Ah, *Al, *Vh, *Vl, *rot;
-  if (SMEM) {
-    Ah = sm;
-    Al = Ah + mm;
-    Vh = Al + mm;
-    Vl = Vh + mm;
-    rot = Vl + mm;
-    for (int e = threadIdx.x; e < mm; e += NT) {
-      Ah[e] = gah[off + e];
-      Al[e] = gal[off + e];
-      Vh[e] = gvh[off + e];
-      Vl[e] = gvl[off + e];
+                     double* __restrict__ gvl, double2* scratch, int m, int sweeps, int C) {
+  extern __shared__ double2 smj[];
+  __shared__ double2* peer[CMAX];  // every CTA's region (generic addresses)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x % C, mat = blockIdx.x / C;
+  const int h = m / 2, R = jacobi_rows(m, C), reg = jacobi_region(m, C);
+  const int nvmax = (m + C - 1) / C;
+  double2* base = G ? scratch + (size_t)blockIdx.x * reg : smj;
+  if (threadIdx.x < C)
+    peer[threadIdx.x] = G ? scratch + ((size_t)mat * C + threadIdx.x) * reg
+                          : (C > 1 ? cluster.map_shared_rank(smj, (int)threadIdx.x) : smj);
+  double2* V = base + 2 * R * m;
+  const int ang_at = (2 * R + nvmax) * m;  // [2][h][2] in every region
+  const double2* ang0 = base + ang_at;
+  const int lo = rank * h / C, np = (rank + 1) * h / C - lo;
+  const int vlo = rank * m / C, nv = (rank + 1) * m / C - vlo;
+  const int tid = threadIdx.x;
+  // threads [0, np) are the angle lanes; the warps from aw on rotate
+  const int aw = (np + 31) / 32 * 32, rt = tid - aw, nrot = NTJ - aw;
+  const size_t off = (size_t)mat * m * m;
+  auto sync = [&]() {
+    if (C > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+  // the row at position k in buffer buf (its owner's slot)
+  auto row = [&](int buf, int k) -> double2* {
+    int b;
+    const int s = slot_of(k, m, C, b);
+    return (b == rank ? base : peer[b]) + (size_t)(buf * R + s) * m;
+  };
+  // the angle of pair k into buffer par of every CTA
+  auto publish = [&](int par, int k, dd c, dd s) {
+    for (int b = 0; b < C; ++b) {
+      double2* a = (b == rank ? base : peer[b]) + ang_at + 2 * (par * h + k);
+      st2(a, c);
+      st2(a + 1, s);
     }
-  } else {
-    Ah = gah + off;
-    Al = gal + off;
-    Vh = gvh + off;
-    Vl = gvl + off;
-    rot = sm;
+  };
+  auto angle = [&](int par, int k, dd& c, dd& s) {
+    c = ld2<G>(ang0 + 2 * (par * h + k));
+    s = ld2<G>(ang0 + 2 * (par * h + k) + 1);
+  };
+
+  // round 0: position = label; own rows and V rows in
+  for (int e = tid; e < 2 * np * m; e += NTJ) {
+    const int s = e / m, j = e - s * m, pi = lo + s / 2;
+    const int k = (s & 1) ? m - 1 - pi : pi;
+    st2(base + e, ld(gah, gal, off + (size_t)k * m + j));
   }
-  // rot: c.hi, c.lo, s.hi, s.lo [4][h], then p, q [2][h] as int
-  int* pq = reinterpret_cast<int*>(rot + 4 * h);
-  __syncthreads();
+  for (int e = tid; e < nv * m; e += NTJ) st2(V + e, ld(gvh, gvl, off + (size_t)vlo * m + e));
+  sync();  // the rows are in, and every CTA runs before any remote store
+  if (sweeps > 0 && tid < np) {  // the first angles, from the local rows
+    const int p = lo + tid, q = m - 1 - p;
+    const double2* rp = base + (size_t)(2 * tid) * m;
+    const double2* rq = rp + m;
+    dd c, s;
+    rotation(ld2<G>(rp + p), ld2<G>(rq + q), ld2<G>(rp + q), c, s);
+    publish(0, p, c, s);
+  }
+  sync();
+  int cur = 0, par = 0;
   for (int sw = 0; sw < sweeps; ++sw) {
     for (int r = 0; r < m - 1; ++r) {
-      for (int k = threadIdx.x; k < h; k += NT) {
-        const int a = pairs[(2 * r) * h + k], b = pairs[(2 * r + 1) * h + k];
+      if (rt >= 0) {
+        for (int e = rt; e < (np + nv) * h; e += nrot) {
+          const int t = e / h, k = e - t * h;
+          const int y1 = label_at(k, r, m), y2 = label_at(m - 1 - k, r, m);
+          const int cp = y1 < y2 ? y1 : y2, cq = y1 < y2 ? y2 : y1;
+          dd cc, sc;
+          angle(par, k, cc, sc);
+          const dd nsc = dd_neg(sc);
+          if (t < np) {  // the 2x2 block of own pair t and column pair k
+            const int pi = lo + t, k1 = pi, k2 = m - 1 - pi;
+            const int x1 = label_at(k1, r, m), x2 = label_at(k2, r, m);
+            dd cr, sr;
+            angle(par, pi, cr, sr);
+            const dd s1 = x1 < x2 ? dd_neg(sr) : sr, s2 = x1 < x2 ? sr : dd_neg(sr);
+            const double2* r1 = base + (size_t)(cur * R + 2 * t) * m;
+            const double2* r2 = r1 + m;
+            const dd a1p = ld2<G>(r1 + cp), a1q = ld2<G>(r1 + cq);
+            const dd a2p = ld2<G>(r2 + cp), a2q = ld2<G>(r2 + cq);
+            const dd b1p = dd_add(dd_mul(cc, a1p), dd_mul(nsc, a1q));
+            const dd b1q = dd_add(dd_mul(cc, a1q), dd_mul(sc, a1p));
+            const dd b2p = dd_add(dd_mul(cc, a2p), dd_mul(nsc, a2q));
+            const dd b2q = dd_add(dd_mul(cc, a2q), dd_mul(sc, a2p));
+            double2* w1 = row(cur ^ 1, next_pos(k1, m));
+            double2* w2 = row(cur ^ 1, next_pos(k2, m));
+            st2(w1 + cp, dd_add(dd_mul(cr, b1p), dd_mul(s1, b2p)));
+            st2(w1 + cq, dd_add(dd_mul(cr, b1q), dd_mul(s1, b2q)));
+            st2(w2 + cp, dd_add(dd_mul(cr, b2p), dd_mul(s2, b1p)));
+            st2(w2 + cq, dd_add(dd_mul(cr, b2q), dd_mul(s2, b1q)));
+          } else {  // V's row vlo + t - np, column pair k, in place
+            double2* vr = V + (size_t)(t - np) * m;
+            const dd vp = ld2<false>(vr + cp), vq = ld2<false>(vr + cq);
+            st2(vr + cp, dd_add(dd_mul(cc, vp), dd_mul(nsc, vq)));
+            st2(vr + cq, dd_add(dd_mul(cc, vq), dd_mul(sc, vp)));
+          }
+        }
+      } else if (tid < np && r < m - 2) {
+        // the angle of own pair lo + tid in round r + 1, from this round's
+        // buffer: its labels p < q, their partners pp, qq in round r
+        const int k = lo + tid;
+        const int a = label_at(k, r + 1, m), b = label_at(m - 1 - k, r + 1, m);
         const int p = a < b ? a : b, q = a < b ? b : a;
+        const int kp = pos_of(p, r, m), kq = pos_of(q, r, m);
+        const int pp = label_at(m - 1 - kp, r, m), qq = label_at(m - 1 - kq, r, m);
+        const double2 *rp = row(cur, kp), *rpp = row(cur, m - 1 - kp);
+        const double2 *rq = row(cur, kq), *rqq = row(cur, m - 1 - kq);
+        dd cP, sP, cQ, sQ;
+        angle(par, pair_of(kp, m), cP, sP);
+        angle(par, pair_of(kq, m), cQ, sQ);
+        const dd sp = p < pp ? dd_neg(sP) : sP, sq = q < qq ? dd_neg(sQ) : sQ;
+        const dd app = rotated(ld2<G>(rp + p), ld2<G>(rp + pp), ld2<G>(rpp + p), ld2<G>(rpp + pp),
+                               cP, sp, cP, sp);
+        const dd aqq = rotated(ld2<G>(rq + q), ld2<G>(rq + qq), ld2<G>(rqq + q), ld2<G>(rqq + qq),
+                               cQ, sq, cQ, sq);
+        const dd apq = rotated(ld2<G>(rp + q), ld2<G>(rp + qq), ld2<G>(rpp + q), ld2<G>(rpp + qq),
+                               cP, sp, cQ, sq);
         dd c, s;
-        rotation(ld(Ah, Al, p * m + p), ld(Ah, Al, q * m + q), ld(Ah, Al, p * m + q), c, s);
-        rot[k] = c.hi;
-        rot[h + k] = c.lo;
-        rot[2 * h + k] = s.hi;
-        rot[3 * h + k] = s.lo;
-        pq[k] = p;
-        pq[h + k] = q;
+        rotation(app, aqq, apq, c, s);
+        publish(par ^ 1, k, c, s);
       }
-      __syncthreads();
-      // columns of A and V: items (matrix, row i, pair k)
-      for (int e = threadIdx.x; e < 2 * m * h; e += NT) {
-        const int w = e >= m * h;
-        const int rem = e - w * m * h;
-        const int i = rem / h, k = rem - i * h;
-        double* Xh = w ? Vh : Ah;
-        double* Xl = w ? Vl : Al;
-        const int p = pq[k], q = pq[h + k];
-        const dd c = {rot[k], rot[h + k]}, s = {rot[2 * h + k], rot[3 * h + k]};
-        const dd xp = ld(Xh, Xl, i * m + p), xq = ld(Xh, Xl, i * m + q);
-        st(Xh, Xl, i * m + p, dd_add(dd_mul(c, xp), dd_mul(dd_neg(s), xq)));
-        st(Xh, Xl, i * m + q, dd_add(dd_mul(c, xq), dd_mul(s, xp)));
-      }
-      __syncthreads();
-      // rows of A: items (pair k, column j)
-      for (int e = threadIdx.x; e < h * m; e += NT) {
-        const int k = e / m, j = e - k * m;
-        const int p = pq[k], q = pq[h + k];
-        const dd c = {rot[k], rot[h + k]}, s = {rot[2 * h + k], rot[3 * h + k]};
-        const dd ap = ld(Ah, Al, p * m + j), aq = ld(Ah, Al, q * m + j);
-        st(Ah, Al, p * m + j, dd_add(dd_mul(c, ap), dd_mul(dd_neg(s), aq)));
-        st(Ah, Al, q * m + j, dd_add(dd_mul(c, aq), dd_mul(s, ap)));
-      }
-      __syncthreads();
+      sync();
+      cur ^= 1;
+      if (r < m - 2) par ^= 1;
     }
-    // dd_sym: entry (i, j) = dd_add(A[i,j], A[j,i]) / 2; one thread per i <= j
-    for (int e = threadIdx.x; e < mm; e += NT) {
-      const int i = e / m, j = e - i * m;
-      if (i > j) continue;
-      const dd x = ld(Ah, Al, i * m + j), y = ld(Ah, Al, j * m + i);
-      const dd u = dd_add(x, y), w = dd_add(y, x);
-      st(Ah, Al, i * m + j, {mul(0.5, u.hi), mul(0.5, u.lo)});
-      st(Ah, Al, j * m + i, {mul(0.5, w.hi), mul(0.5, w.lo)});
+    // dd_sym (positions = labels again): own rows, entry (i, j) from the
+    // row of label j; beside it the first angles of the next sweep
+    if (rt >= 0) {
+      double2* out = base + (size_t)((cur ^ 1) * R) * m;
+      const double2* in = base + (size_t)(cur * R) * m;
+      for (int e = rt; e < 2 * np * m; e += nrot) {
+        const int s = e / m, j = e - s * m, pi = lo + s / 2;
+        const int i = (s & 1) ? m - 1 - pi : pi;
+        st2(out + e, half_of(dd_add(ld2<G>(in + e), ld2<G>(row(cur, j) + i))));
+      }
+    } else if (tid < np && sw + 1 < sweeps) {
+      const int p = lo + tid, q = m - 1 - p;
+      const double2* rp = base + (size_t)(cur * R + 2 * tid) * m;
+      const double2* rq = rp + m;
+      const dd app = ld2<G>(rp + p), aqq = ld2<G>(rq + q);
+      dd c, s;
+      rotation(half_of(dd_add(app, app)), half_of(dd_add(aqq, aqq)),
+               half_of(dd_add(ld2<G>(rp + q), ld2<G>(rq + p))), c, s);
+      publish(par ^ 1, p, c, s);
     }
-    __syncthreads();
+    sync();
+    cur ^= 1;
+    par ^= 1;
   }
-  if (SMEM) {
-    for (int e = threadIdx.x; e < mm; e += NT) {
-      gah[off + e] = Ah[e];
-      gal[off + e] = Al[e];
-      gvh[off + e] = Vh[e];
-      gvl[off + e] = Vl[e];
-    }
+  // positions = labels: own rows and V rows out
+  const double2* fin = base + (size_t)(cur * R) * m;
+  for (int e = tid; e < 2 * np * m; e += NTJ) {
+    const int s = e / m, j = e - s * m, pi = lo + s / 2;
+    const int k = (s & 1) ? m - 1 - pi : pi;
+    st(gah, gal, off + (size_t)k * m + j, ld2<G>(fin + e));
   }
+  for (int e = tid; e < nv * m; e += NTJ) st(gvh, gvl, off + (size_t)vlo * m + e, ld2<false>(V + e));
 }
 
 // ---- D2: the left-looking dd Cholesky ---------------------------------------------
 //
-// One block per matrix. Column j: the products P[i,k] = L[i,k] L[j,k] of
-// the rows i >= j over all m columns (the uncomputed ones are zero); their
-// sum in dd_sum's pairwise tree (halving, the odd element folded into the
-// first slot), in place, one barrier a level; c_i = A[i,j] - t_i; the
-// pivot c_j (ok &= c_j > 0), its dd_sqrt, computed by every thread (the
-// same bits); L[j,j] = 0 + piv, L[i,j] = c_i / piv + 0 below.
-template <bool SMEM>
-__global__ void __launch_bounds__(NT)
+// "warp": one block of NTC threads per matrix, L in shared memory. Eight
+// lanes take a row (four rows a warp, ROWS rows at once). Column j: the
+// row's tree of t_i in its slot array S (in place; a __syncwarp a level):
+// level 0 slot s = dd_add(P[s], P[s + m/2]) (slot 0 then adds P[m - 1] at
+// an odd m), P[k] = dd_mul(L[i,k], L[j,k]) formed by the lane; each further
+// level slot k = dd_add(S[k], S[k + half]), slot 0 adding S[n - 1] at an
+// odd n. The columns k >= j are not computed yet, so P[k] = (+0, +0)
+// exactly for k >= j, and so is every slot k >= j of every level (dd_mul and
+// dd_add of (+0, +0) pairs give (+0, +0)): those slots are neither computed
+// nor stored, and a read of one takes (+0, +0); the adds of such a zero to
+// a computed slot are kept (they can change the sign of a zero), so t_i
+// has dd_sum's bits. Then c_i = A[i,j] - t_i (row j: the pivot, ok &=
+// c_j > 0, its dd_sqrt); barrier; L[j,j] = 0 + piv, L[i,j] = c_i / piv + 0
+// below, a thread a row; barrier.
+__global__ void __launch_bounds__(NTC, 1)
     dd_chol_kernel(const double* __restrict__ gah, const double* __restrict__ gal,
-                double* __restrict__ glh, double* __restrict__ gll, double* __restrict__ gph,
-                double* __restrict__ gpl, bool* __restrict__ ok_out, int m) {
-  extern __shared__ double sm[];
+                   double* __restrict__ glh, double* __restrict__ gll, bool* __restrict__ ok_out,
+                   int m) {
+  extern __shared__ double2 smc[];
+  __shared__ double2 piv;
+  __shared__ int okv;
+  const int half0 = m / 2, slots = half0 > 0 ? half0 : 1;
+  double2* L = smc;                                // [m][m]
+  double2* cv = L + m * m;                         // [m]: c_i of the column
+  double2* S = cv + m + (threadIdx.x >> 3) * slots;  // this row group's tree
+  const size_t off = (size_t)blockIdx.x * m * m;
+  const int g = (threadIdx.x >> 3) & 3, l = threadIdx.x & 7, warp = threadIdx.x >> 5;
+  const dd zero = {0.0, 0.0};
+  for (int e = threadIdx.x; e < m * m; e += NTC) L[e] = make_double2(0.0, 0.0);
+  if (threadIdx.x == 0) okv = 1;
+  __syncthreads();
+  for (int j = 0; j < m; ++j) {
+    const double2* Lj = L + (size_t)j * m;
+    auto slot = [&](int k) { return k < j ? ld2<false>(S + k) : zero; };
+    for (int i0 = j + 4 * warp; i0 < m; i0 += ROWS) {  // the same trips across the warp
+      const int i = i0 + g;
+      const double2* Li = L + (size_t)(i < m ? i : j) * m;
+      __syncwarp();
+      int n = m;
+      for (int s = l; s < (half0 < j ? half0 : j); s += 8) {
+        const dd a = dd_mul(ld2<false>(Li + s), ld2<false>(Lj + s));
+        dd v = dd_add(a, s + half0 < j ? dd_mul(ld2<false>(Li + s + half0), ld2<false>(Lj + s + half0))
+                                       : zero);
+        if ((n & 1) && s == 0) v = dd_add(v, zero);  // P[m - 1], column m - 1 >= j
+        st2(S + s, v);
+      }
+      n = half0;
+      while (n > 1) {
+        __syncwarp();
+        const int half = n / 2;
+        for (int k = l; k < (half < j ? half : j); k += 8) {
+          dd v = dd_add(ld2<false>(S + k), slot(k + half));
+          if ((n & 1) && k == 0) v = dd_add(v, slot(n - 1));
+          st2(S + k, v);
+        }
+        n = half;
+      }
+      __syncwarp();
+      if (l == 0 && i < m) {
+        const dd t = m > 1 && j > 0 ? ld2<false>(S) : zero;
+        const dd c = dd_add(ld(gah, gal, off + (size_t)i * m + j), dd_neg(t));
+        if (i == j) {
+          const bool pos = c.hi > 0.0;
+          if (!pos) okv = 0;
+          st2(&piv, dd_sqrt({pos ? c.hi : 1.0, pos ? c.lo : 0.0}));
+        } else {
+          st2(cv + i, c);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = j + threadIdx.x; i < m; i += NTC) {
+      const dd p = ld2<false>(&piv);
+      if (i == j) {
+        st2(L + (size_t)j * m + j, {add(0.0, p.hi), add(0.0, p.lo)});
+      } else {
+        const dd col = dd_div(ld2<false>(cv + i), p);
+        st2(L + (size_t)i * m + j, {add(col.hi, 0.0), add(col.lo, 0.0)});
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) ok_out[blockIdx.x] = okv != 0;
+  for (int e = threadIdx.x; e < m * m; e += NTC) st(glh, gll, off + e, ld2<false>(L + e));
+}
+
+// "global" (past the shared memory's reach): L in the output, the products
+// P[i,k] = L[i,k] L[j,k] of the rows i >= j in a scratch [m][m] (ph, pl),
+// summed in place, one tree level a barrier; c in shared memory.
+__global__ void __launch_bounds__(NTJ)
+    dd_chol_global_kernel(const double* __restrict__ gah, const double* __restrict__ gal,
+                          double* __restrict__ glh, double* __restrict__ gll,
+                          double* __restrict__ gph, double* __restrict__ gpl,
+                          bool* __restrict__ ok_out, int m) {
+  extern __shared__ double smg[];
   const int mm = m * m;
   const size_t off = (size_t)blockIdx.x * mm;
   const double* Ah = gah + off;
   const double* Al = gal + off;
-  double *Lh, *Ll, *Ph, *Pl, *ch;
-  if (SMEM) {
-    Lh = sm;
-    Ll = Lh + mm;
-    Ph = Ll + mm;
-    Pl = Ph + mm;
-    ch = Pl + mm;
-  } else {
-    Lh = glh + off;
-    Ll = gll + off;
-    Ph = gph + off;
-    Pl = gpl + off;
-    ch = sm;
-  }
+  double* Lh = glh + off;
+  double* Ll = gll + off;
+  double* Ph = gph + off;
+  double* Pl = gpl + off;
+  double* ch = smg;
   double* cl = ch + m;
-  for (int e = threadIdx.x; e < mm; e += NT) {
+  for (int e = threadIdx.x; e < mm; e += NTJ) {
     Lh[e] = 0.0;
     Ll[e] = 0.0;
   }
@@ -315,14 +563,14 @@ __global__ void __launch_bounds__(NT)
   bool ok = true;
   for (int j = 0; j < m; ++j) {
     const int rows = m - j;
-    for (int e = threadIdx.x; e < rows * m; e += NT) {
+    for (int e = threadIdx.x; e < rows * m; e += NTJ) {
       const int i = j + e / m, k = e % m;
       st(Ph, Pl, i * m + k, dd_mul(ld(Lh, Ll, i * m + k), ld(Lh, Ll, j * m + k)));
     }
     __syncthreads();
     for (int n = m; n > 1; n /= 2) {
       const int half = n / 2;
-      for (int e = threadIdx.x; e < rows * half; e += NT) {
+      for (int e = threadIdx.x; e < rows * half; e += NTJ) {
         const int i = j + e / half, k = e % half;
         dd acc = dd_add(ld(Ph, Pl, i * m + k), ld(Ph, Pl, i * m + k + half));
         if ((n & 1) && k == 0) acc = dd_add(acc, ld(Ph, Pl, i * m + n - 1));
@@ -330,14 +578,14 @@ __global__ void __launch_bounds__(NT)
       }
       __syncthreads();
     }
-    for (int i = j + threadIdx.x; i < m; i += NT)
+    for (int i = j + threadIdx.x; i < m; i += NTJ)
       st(ch, cl, i, dd_add(ld(Ah, Al, i * m + j), dd_neg(ld(Ph, Pl, i * m))));
     __syncthreads();
     const dd d = ld(ch, cl, j);
     const bool pos = d.hi > 0.0;
     ok = ok && pos;
     const dd piv = dd_sqrt({pos ? d.hi : 1.0, pos ? d.lo : 0.0});
-    for (int i = j + threadIdx.x; i < m; i += NT) {
+    for (int i = j + threadIdx.x; i < m; i += NTJ) {
       if (i == j) {
         st(Lh, Ll, i * m + j, {add(0.0, piv.hi), add(0.0, piv.lo)});
       } else {
@@ -348,12 +596,6 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
   }
   if (threadIdx.x == 0) ok_out[blockIdx.x] = ok;
-  if (SMEM) {
-    for (int e = threadIdx.x; e < mm; e += NT) {
-      glh[off + e] = Lh[e];
-      gll[off + e] = Ll[e];
-    }
-  }
 }
 
 // ---- D3: the dd GEMM ------------------------------------------------------------------
@@ -391,26 +633,67 @@ __global__ void __launch_bounds__(TILE* TILE)
   }
 }
 
-// shared memory of a D1 / D2 block in the "smem" regime (1) and the "global"
-// regime (0)
-int jacobi_bytes(int m, int regime) {
-  return (regime ? 32 * m * m : 0) + 16 * m + 4 * m;
-}
-int chol_bytes(int m, int regime) { return (regime ? 32 * m * m : 0) + 16 * m; }
+// ---- plans ------------------------------------------------------------------------
+//
+// D1: below BLOCK_MAX_M one block; else the first cluster size of
+// CLUSTER_SIZES (at most m/2 CTAs) whose region fits the opt-in shared
+// memory; else "global" with GLOBAL_C CTAs. Chosen by measurement
+// (benchmarks/dd_kernels.py on an H100; PERF.md section 6).
+constexpr int BLOCK_MAX_M = 20;
+constexpr int CLUSTER_SIZES[] = {8, 16};
+constexpr int GLOBAL_C = 16;
 
-int bytes_of(int kernel, int m, int regime) {
-  return kernel == 0 ? jacobi_bytes(m, regime) : chol_bytes(m, regime);
-}
+enum { JACOBI_GLOBAL = 0, JACOBI_BLOCK = 1, JACOBI_CLUSTER = 2 };
+enum { CHOL_GLOBAL = 0, CHOL_WARP = 1 };
 
-// "smem" (1) where the block fits the current device's opt-in shared memory
-// (m <= 84 on an H100 for both), else "global" (0); -2 if neither fits
-int regime_of(int kernel, int m) {
+int optin_bytes() {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return ERR_SHAPE;
-  if (bytes_of(kernel, m, 1) <= optin) return 1;
-  return bytes_of(kernel, m, 0) <= optin ? 0 : ERR_SHAPE;
+    return -1;
+  return optin;
+}
+
+int jacobi_fits(int m, int C, int optin) {
+  const int np = (m / 2 + C - 1) / C;
+  return C >= 1 && C <= CMAX && C <= m / 2 && np <= NTJ - 32 &&
+         (long long)16 * jacobi_region(m, C) + 8 * CMAX <= optin;
+}
+
+// the regime of D1 at m (force > 0: C = force CTAs in shared memory, < 0:
+// -force CTAs in "global"; 0: the rule above), its cluster size in *C
+int jacobi_plan(int m, int force, int* C) {
+  const int optin = optin_bytes();
+  if (optin < 0 || m < 2 || m % 2) return ERR_SHAPE;
+  if (force > 0) {
+    *C = force;
+    return jacobi_fits(m, force, optin) ? (force == 1 ? JACOBI_BLOCK : JACOBI_CLUSTER) : ERR_SHAPE;
+  }
+  if (force < 0) {
+    *C = -force;
+    return -force <= CMAX && -force <= m / 2 && (m / 2 + *C - 1) / *C <= NTJ - 32 ? JACOBI_GLOBAL
+                                                                                 : ERR_SHAPE;
+  }
+  if (m <= BLOCK_MAX_M || m / 2 < 2) {
+    *C = 1;
+    if (jacobi_fits(m, 1, optin)) return JACOBI_BLOCK;
+  }
+  for (int c : CLUSTER_SIZES) {
+    *C = c < m / 2 ? c : m / 2;
+    if (jacobi_fits(m, *C, optin)) return *C == 1 ? JACOBI_BLOCK : JACOBI_CLUSTER;
+  }
+  *C = GLOBAL_C < m / 2 ? GLOBAL_C : m / 2;
+  return (m / 2 + *C - 1) / *C <= NTJ - 32 ? JACOBI_GLOBAL : ERR_SHAPE;
+}
+
+// L, c and the row groups' trees
+int chol_bytes(int m) { return 16 * (m * m + m + ROWS * (m / 2 > 0 ? m / 2 : 1)); }
+
+int chol_plan(int m) {
+  const int optin = optin_bytes();
+  if (optin < 0 || m < 1) return ERR_SHAPE;
+  if (chol_bytes(m) + 32 <= optin) return CHOL_WARP;
+  return 16 * m <= optin ? CHOL_GLOBAL : ERR_SHAPE;
 }
 
 template <typename K>
@@ -418,56 +701,97 @@ cudaError_t prepare(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <bool G>
+int launch_jacobi(double* ah, double* al, double* vh, double* vl, double2* scratch, int nb, int m,
+                  int sweeps, int C, cudaStream_t st) {
+  auto kern = dd_jacobi_kernel<G>;
+  const int bytes = G ? 0 : 16 * jacobi_region(m, C);
+  cudaError_t err = prepare(kern, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb * C, 1, 1);
+  cfg.blockDim = dim3(NTJ, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  if (C > 1) {
+    if (C > 8) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    // the clusters never wait for each other: any number may queue, but
+    // one must be able to run
+    int active = 0;
+    err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (active < 1) return ERR_SHAPE;
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, ah, al, vh, vl, scratch, m, sweeps, C);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each returns a cudaError_t (0 = success) or -2 (the shape does not fit).
 
-// The regime that lt_dd_jacobi (kernel 0) or lt_dd_chol (kernel 1) takes at
-// m on the current device: 1 = "smem" (the matrices in shared memory), 0 =
-// "global" (lt_dd_chol then needs its product scratch); -2 if none fits.
-extern "C" int lt_dd_regime(int kernel, int m) { return m < 1 ? ERR_SHAPE : regime_of(kernel, m); }
-
-// D1. ah, al, vh, vl: [nb, m, m] f64, rotated in place (A: the matrix, V:
-// the basis); pairs: [m-1, 2, m/2] int32; m even.
-extern "C" int lt_dd_jacobi(double* ah, double* al, double* vh, double* vl, const int* pairs,
-                            int nb, int m, int sweeps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m < 2 || m % 2 || sweeps < 0 || nb < 1) return ERR_SHAPE;
-  const int regime = regime_of(0, m);
+// The plan of lt_dd_jacobi (kernel 0; force as lt_dd_jacobi's) or
+// lt_dd_chol (kernel 1) at m on the current device: returns the regime
+// (D1: 0 "global", 1 "block", 2 "cluster"; D2: 0 "global", 1 "warp") or -2;
+// out[0] = the CTAs a matrix, out[1] = the scratch a matrix in 16-byte
+// words (D1 "global": the CTAs' regions; D2 "global": the products).
+extern "C" int lt_dd_plan(int kernel, int m, int force, int* out) {
+  int C = 1;
+  const int regime = kernel == 0 ? jacobi_plan(m, force, &C) : chol_plan(m);
   if (regime < 0) return regime;
-  const int bytes = jacobi_bytes(m, regime);
-  cudaError_t err;
-  if (regime) {
-    err = prepare(dd_jacobi_kernel<true>, bytes);
-    if (err != cudaSuccess) return err;
-    dd_jacobi_kernel<true><<<nb, NT, bytes, st>>>(ah, al, vh, vl, pairs, m, sweeps);
-  } else {
-    err = prepare(dd_jacobi_kernel<false>, bytes);
-    if (err != cudaSuccess) return err;
-    dd_jacobi_kernel<false><<<nb, NT, bytes, st>>>(ah, al, vh, vl, pairs, m, sweeps);
-  }
-  return cudaGetLastError();
+  out[0] = C;
+  out[1] = regime != 0 ? 0 : (kernel == 0 ? C * jacobi_region(m, C) : m * m);
+  return regime;
 }
 
-// D2. ah, al: [nb, m, m] f64 input; lh, ll: [nb, m, m] output (L); ph, pl:
-// [nb, m, m] product scratch (read only in the "global" regime, else may be
-// null); ok: [nb] bool output.
-extern "C" int lt_dd_chol(const double* ah, const double* al, double* lh, double* ll, double* ph,
-                          double* pl, bool* ok, int nb, int m, void* stream) {
+// D1. ah, al, vh, vl: [nb, m, m] f64, rotated in place (A: the matrix, V:
+// the basis); m even; scratch: nb times lt_dd_plan's out[1] words where
+// that is nonzero. force: 0 the plan's choice; k > 0 a cluster of k CTAs in
+// shared memory (1: "block"), k < 0 "global" with -k (a comparison).
+extern "C" int lt_dd_jacobi(double* ah, double* al, double* vh, double* vl, void* scratch,
+                            int nb, int m, int sweeps, int force, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m < 1 || nb < 1) return ERR_SHAPE;
-  const int regime = regime_of(1, m);
-  if (regime < 0 || (!regime && (ph == nullptr || pl == nullptr))) return ERR_SHAPE;
-  const int bytes = chol_bytes(m, regime);
+  if (sweeps < 0 || nb < 1) return ERR_SHAPE;
+  int C = 1;
+  const int regime = jacobi_plan(m, force, &C);
+  if (regime < 0 || (regime == JACOBI_GLOBAL && scratch == nullptr)) return ERR_SHAPE;
+  double2* s = static_cast<double2*>(scratch);
+  return regime == JACOBI_GLOBAL ? launch_jacobi<true>(ah, al, vh, vl, s, nb, m, sweeps, C, st)
+                                 : launch_jacobi<false>(ah, al, vh, vl, s, nb, m, sweeps, C, st);
+}
+
+// D2. ah, al: [nb, m, m] f64 input; lh, ll: [nb, m, m] output (L); scratch:
+// nb times lt_dd_plan's out[1] words ("global": the products; else may be
+// null); ok: [nb] bool output.
+extern "C" int lt_dd_chol(const double* ah, const double* al, double* lh, double* ll,
+                          void* scratch, bool* ok, int nb, int m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nb < 1) return ERR_SHAPE;
+  const int regime = chol_plan(m);
+  if (regime < 0 || (regime == CHOL_GLOBAL && scratch == nullptr)) return ERR_SHAPE;
   cudaError_t err;
-  if (regime) {
-    err = prepare(dd_chol_kernel<true>, bytes);
+  if (regime == CHOL_WARP) {
+    const int bytes = chol_bytes(m);
+    err = prepare(dd_chol_kernel, bytes);
     if (err != cudaSuccess) return err;
-    dd_chol_kernel<true><<<nb, NT, bytes, st>>>(ah, al, lh, ll, ph, pl, ok, m);
+    dd_chol_kernel<<<nb, NTC, bytes, st>>>(ah, al, lh, ll, ok, m);
   } else {
-    err = prepare(dd_chol_kernel<false>, bytes);
+    double* ph = static_cast<double*>(scratch);
+    err = prepare(dd_chol_global_kernel, 16 * m);
     if (err != cudaSuccess) return err;
-    dd_chol_kernel<false><<<nb, NT, bytes, st>>>(ah, al, lh, ll, ph, pl, ok, m);
+    dd_chol_global_kernel<<<nb, NTJ, 16 * m, st>>>(ah, al, lh, ll, ph, ph + (size_t)nb * m * m,
+                                                   ok, m);
   }
   return cudaGetLastError();
 }

@@ -19,9 +19,8 @@ order of operations, so that the two agree bit for bit on the card:
 `dd_chol`, `dd_matmul` and `dd_eigh_jacobi` take the plain version for a
 tensor on the CPU and launch the kernel for a CUDA tensor, with no
 fallback; any other device raises. Each kernel wrapper counts its launches
-(``.launches``; D1 and D2 also ``.launches_by_regime``: "smem", the
-matrices in one block's shared memory, m <= 84 on an H100, or "global",
-as the kernel library picks them from m and the card).
+(``.launches``; D1 and D2 also ``.launches_by_regime``, the regimes the
+kernel library picks from m and the card: `plan_for`).
 
 `dd_matmul` computes every term in dd (dd_mul, summed by dd_add in
 ascending k); the JAX package's is the Ozaki-sliced GEMM stack, whose
@@ -69,6 +68,7 @@ __all__ = [
     "dd_eigh_jacobi",
     "dd_jacobi_plain",
     "dd_jacobi_cuda",
+    "plan_for",
     "regime_for",
 ]
 
@@ -191,21 +191,32 @@ def _rotation(app: DD, aqq: DD, apq: DD) -> Tuple[DD, DD]:
 # the kernels (csrc/dd_linalg.cu) and their routes
 # ---------------------------------------------------------------------------
 
-REGIMES = ("global", "smem")  # the codes 0 and 1 of lt_dd_regime
+# the regime codes of lt_dd_plan, per kernel
+REGIMES = {"jacobi": ("global", "block", "cluster"), "chol": ("global", "warp")}
 _KERNEL_CODES = {"jacobi": 0, "chol": 1}
 
 
 @functools.lru_cache(maxsize=None)
-def regime_for(kernel: str, m: int, device_index: int = 0) -> str:
-    """The regime that D1 ("jacobi") or D2 ("chol") takes at m on the card:
-    "smem" where the block's matrices fit the card's opt-in shared memory
-    (m <= 84 on an H100), else "global". The kernel library decides
-    (`lt_dd_regime`); this asks it, for the launch counts and D2's scratch."""
+def plan_for(kernel: str, m: int, force: int = 0, device_index: int = 0) -> Tuple[str, int, int]:
+    """(regime, CTAs a matrix, scratch bytes a matrix) of D1 ("jacobi") or
+    D2 ("chol") at m on the card, as the kernel library plans it
+    (`lt_dd_plan`). D1: "block" (one block) to m 20, "cluster" (the matrix
+    spread over a thread-block cluster's shared memory) to m 264 on an
+    H100, "global" past it; D2: "warp" (L in one block's shared memory) to
+    m 105, "global" past it. ``force`` (D1 only, a comparison):
+    k > 0 a cluster of k CTAs in shared memory, k < 0 "global" with -k."""
+    out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        code = _lib().lt_dd_regime(_KERNEL_CODES[kernel], m)
+        code = _lib().lt_dd_plan(_KERNEL_CODES[kernel], m, force, out)
     if code < 0:
-        raise ValueError(f"dd_{kernel}: m = {m} does not fit the kernel")
-    return REGIMES[code]
+        raise ValueError(f"dd_{kernel}: m = {m} (force {force}) does not fit the kernel")
+    return REGIMES[kernel][code], int(out[0]), 16 * int(out[1])
+
+
+def regime_for(kernel: str, m: int, device_index: int = 0) -> str:
+    """The regime that D1 ("jacobi") or D2 ("chol") takes at m on the card
+    (`plan_for`)."""
+    return plan_for(kernel, m, 0, device_index)[0]
 
 
 def _lib() -> ctypes.CDLL:
@@ -214,14 +225,21 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("dd_linalg")
     if not getattr(lib, "_lt_bound", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.lt_dd_regime.argtypes = [I, I]
-        lib.lt_dd_jacobi.argtypes = [P] * 5 + [I] * 3 + [P]
-        lib.lt_dd_chol.argtypes = [P] * 7 + [I] * 2 + [P]
+        lib.lt_dd_plan.argtypes = [I, I, I, P]
+        lib.lt_dd_jacobi.argtypes = [P] * 5 + [I] * 4 + [P]
+        lib.lt_dd_chol.argtypes = [P] * 6 + [I] * 2 + [P]
         lib.lt_dd_gemm.argtypes = [P] * 6 + [I] * 4 + [P]
-        for fn in (lib.lt_dd_regime, lib.lt_dd_jacobi, lib.lt_dd_chol, lib.lt_dd_gemm):
+        for fn in (lib.lt_dd_plan, lib.lt_dd_jacobi, lib.lt_dd_chol, lib.lt_dd_gemm):
             fn.restype = I
         lib._lt_bound = True
     return lib
+
+
+def _scratch(nbytes: int, device: torch.device) -> Optional[torch.Tensor]:
+    """A kernel's global scratch (16-byte aligned), or None."""
+    if not nbytes:
+        return None
+    return torch.empty((nbytes // 8,), dtype=torch.float64, device=device)
 
 
 def _check(name: str, *ts: torch.Tensor) -> None:
@@ -335,15 +353,13 @@ def dd_chol_cuda(A: DD) -> Tuple[DD, torch.Tensor]:
     nb, m, _ = A.hi.shape
     ah, al = A.hi.contiguous(), A.lo.contiguous()
     _check("dd_chol_cuda", ah, al)
-    regime = regime_for("chol", m, ah.device.index)
+    regime, _, scratch = plan_for("chol", m, 0, ah.device.index)
     lh, ll = torch.empty_like(ah), torch.empty_like(ah)
     ok = torch.empty((nb,), dtype=torch.bool, device=ah.device)
-    # the products of one column: in shared memory, or here
-    P = torch.empty((2, nb, m, m), dtype=ah.dtype, device=ah.device) if regime == "global" else None
     if nb:
-        ph, pl = (None, None) if P is None else (P[0].data_ptr(), P[1].data_ptr())
+        S = _scratch(nb * scratch, ah.device)
         _launch(_lib().lt_dd_chol, ah.device, ah.data_ptr(), al.data_ptr(), lh.data_ptr(),
-                ll.data_ptr(), ph, pl, ok.data_ptr(), nb, m)
+                ll.data_ptr(), None if S is None else S.data_ptr(), ok.data_ptr(), nb, m)
         dd_chol_cuda.launches += 1
         dd_chol_cuda.launches_by_regime[regime] += 1
     return DD(lh, ll), ok
@@ -406,14 +422,9 @@ def dd_jacobi_plain(B: DD, V: DD, sweeps: int) -> Tuple[DD, DD]:
     return A, V
 
 
-@functools.lru_cache(maxsize=None)
-def _pairs_on(m: int, device: torch.device) -> torch.Tensor:
-    """`round_robin_pairs(m)` as an int32 tensor on ``device`` (D1's table)."""
-    return torch.tensor(round_robin_pairs(m), dtype=torch.int32, device=device)
-
-
-def dd_jacobi_cuda(B: DD, V: DD, sweeps: int) -> Tuple[DD, DD]:
-    """D1 on the card: same contract as `dd_jacobi_plain` (one launch)."""
+def _jacobi_run(B: DD, V: DD, sweeps: int, force: int = 0) -> Tuple[Tuple[DD, DD], str]:
+    """One launch of D1 (``force`` as `plan_for`'s), uncounted: ((A, V),
+    the regime)."""
     nb, m, _ = B.hi.shape
     if m % 2 or m < 2 or V.hi.shape != B.hi.shape or sweeps < 0:
         raise ValueError(f"dd_jacobi_cuda: B {tuple(B.hi.shape)}, V {tuple(V.hi.shape)}, "
@@ -421,14 +432,21 @@ def dd_jacobi_cuda(B: DD, V: DD, sweeps: int) -> Tuple[DD, DD]:
     # the kernel rotates these copies in place
     out = [x.clone(memory_format=torch.contiguous_format) for x in (*B, *V)]
     _check("dd_jacobi_cuda", *out)
-    regime = regime_for("jacobi", m, out[0].device.index)
+    regime, _, scratch = plan_for("jacobi", m, force, out[0].device.index)
     if nb:
-        pairs = _pairs_on(m, out[0].device)
+        S = _scratch(nb * scratch, out[0].device)
         _launch(_lib().lt_dd_jacobi, out[0].device, *(t.data_ptr() for t in out),
-                pairs.data_ptr(), nb, m, sweeps)
+                None if S is None else S.data_ptr(), nb, m, sweeps, force)
+    return (DD(out[0], out[1]), DD(out[2], out[3])), regime
+
+
+def dd_jacobi_cuda(B: DD, V: DD, sweeps: int) -> Tuple[DD, DD]:
+    """D1 on the card: same contract as `dd_jacobi_plain` (one launch)."""
+    out, regime = _jacobi_run(B, V, sweeps)
+    if B.hi.shape[0]:
         dd_jacobi_cuda.launches += 1
         dd_jacobi_cuda.launches_by_regime[regime] += 1
-    return DD(out[0], out[1]), DD(out[2], out[3])
+    return out
 
 
 for _fn in (dd_matmul_cuda, dd_chol_cuda, dd_jacobi_cuda):

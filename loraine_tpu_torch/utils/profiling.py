@@ -162,7 +162,8 @@ JACOBI_KERNELS = ("sm_kernel<", "cluster_kernel<", "round_kernel", "gersh_kernel
                   "identity_kernel", "diag_kernel")
 PCG_KERNELS = ("cg_kernel<", "cg_block_kernel<", "cg_cluster_kernel<")
 # the device kernels of csrc/dd_linalg.cu (D1, D2, D3)
-DD_KERNELS = ("dd_jacobi_kernel<", "dd_chol_kernel<", "dd_gemm_kernel")
+DD_KERNELS = ("dd_jacobi_kernel<", "dd_chol_kernel(", "dd_chol_global_kernel",
+              "dd_gemm_kernel")
 # B3, B4 and the polish are instantiations of one template (type, MINRES):
 # the trace tells them apart by its arguments
 PCG_ARGS = {"B3": "<double, true>", "B4": "<float, false>", "polish": "<double, false>"}

@@ -318,11 +318,21 @@ def _dd_on_card(x, rng):
 
 
 # D1-D3 (csrc/dd_linalg.cu) at nt_scale_dd's shapes (theta1's m = 56, a
-# batch of two), at m = 8, and at m = 96, past the "smem" regime (m <= 84
-# on an H100), in "global"
+# batch of two) and on each side of each regime boundary on an H100: D1
+# "block" to m 20, "cluster" of 8 from m 22 to 192 and of 16 from 194 to 264,
+# "global" from 266; D2 "warp" to m 105, "global" from 106 (with the regime
+# each kernel takes at m)
+DD_CARD_SHAPES = [(1, 8, "block", "warp"), (2, 8, "block", "warp"), (1, 20, "block", "warp"),
+                  (1, 22, "cluster", "warp"), (1, 56, "cluster", "warp"),
+                  (2, 56, "cluster", "warp"), (2, 96, "cluster", "warp"),
+                  (1, 104, "cluster", "warp"), (1, 106, "cluster", "global"),
+                  (1, 192, "cluster", "global"), (1, 194, "cluster", "global"),
+                  (1, 264, "cluster", "global"), (1, 266, "global", "global")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,m", [(1, 8), (2, 8), (1, 56), (2, 56), (2, 96)])
-def test_dd_kernels_match_plain_on_card(nb, m):
+@pytest.mark.parametrize("nb,m,d1,d2", DD_CARD_SHAPES)
+def test_dd_kernels_match_plain_on_card(nb, m, d1, d2):
     """D1, D2 and D3 against their plain versions on the same inputs on the
     card, bit for bit (every operation rounds once, in the plain version's
     order), with one launch a call, D1 and D2 in the regime the library
@@ -342,16 +352,14 @@ def test_dd_kernels_match_plain_on_card(nb, m):
     V0 = DD(eye, torch.zeros_like(eye))
     sweeps = 6 if m <= 84 else 2
     kernels = (dl.dd_jacobi_cuda, dl.dd_chol_cuda, dl.dd_matmul_cuda)
-    regime = "smem" if m <= 84 else "global"
+    assert (dl.regime_for("jacobi", m), dl.regime_for("chol", m)) == (d1, d2)
     before = [f.launches for f in kernels]
-    by_regime = [dl.dd_jacobi_cuda.launches_by_regime[regime],
-                 dl.dd_chol_cuda.launches_by_regime[regime]]
+    by_regime = [dl.dd_jacobi_cuda.launches_by_regime[d1], dl.dd_chol_cuda.launches_by_regime[d2]]
     C, L, J = dl.dd_matmul_cuda(A, B), dl.dd_chol_cuda(A), dl.dd_jacobi_cuda(A, V0, sweeps)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1]
-    assert dl.regime_for("jacobi", m) == dl.regime_for("chol", m) == regime
-    assert [dl.dd_jacobi_cuda.launches_by_regime[regime] - by_regime[0],
-            dl.dd_chol_cuda.launches_by_regime[regime] - by_regime[1]] == [1, 1]
+    assert [dl.dd_jacobi_cuda.launches_by_regime[d1] - by_regime[0],
+            dl.dd_chol_cuda.launches_by_regime[d2] - by_regime[1]] == [1, 1]
     assert same(C, dl.dd_matmul_plain(A, B))
     assert same(dl.dd_matmul_cuda(dl.dd_transpose(A), B),
                 dl.dd_matmul_plain(dl.dd_transpose(A), B))
@@ -359,6 +367,29 @@ def test_dd_kernels_match_plain_on_card(nb, m):
     assert same(L[0], Lp[0]) and torch.equal(L[1], Lp[1]) and bool(L[1].all())
     Jp = dl.dd_jacobi_plain(A, V0, sweeps)
     assert same(J[0], Jp[0]) and same(J[1], Jp[1])
+
+
+# D1 forced into every cluster size at theta1's m = 56 (1: one block), and
+# into "global" with one and with 16 CTAs
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", [1, 2, 4, 7, 8, 14, 16, -1, -16])
+def test_dd_jacobi_every_plan_on_card(force):
+    """D1 at (2, 56), two sweeps, in each plan `plan_for` can force, bit for
+    bit against its plain version (the angles, the row moves and the
+    overlapped next angles do not depend on how the pairs are split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from loraine_tpu_torch.ops import dd_linalg as dl
+    from loraine_tpu_torch.ops.dd import DD
+
+    rng = np.random.default_rng(56)
+    A = _dd_on_card(spectrum_matrix("clustered", 56, 2, seed=56), rng)
+    V0 = _dd_on_card(np.linalg.qr(rng.standard_normal((2, 56, 56)))[0], rng)
+    (J, Jv), regime = dl._jacobi_run(A, V0, 2, force)
+    assert regime == ("global" if force < 0 else "block" if force == 1 else "cluster")
+    assert dl.plan_for("jacobi", 56, force)[1] == abs(force)
+    Jp, Jvp = dl.dd_jacobi_plain(A, V0, 2)
+    assert all(torch.equal(u, v) for u, v in zip((*J, *Jv), (*Jp, *Jvp)))
 
 
 @pytest.mark.cuda

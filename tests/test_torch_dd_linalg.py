@@ -404,6 +404,237 @@ def test_chol_kernel_tree_equals_dd_sum(m):
     assert torch.equal(P[0].hi, ref.hi) and torch.equal(P[0].lo, ref.lo)
 
 
+# ---- models of the kernels' orders (csrc/dd_linalg.cu), in torch on the CPU
+
+
+def _tournament(m):
+    """The .cu's tournament arithmetic as numpy functions: the label at
+    position k of round r, the position of label x, a row's next position,
+    the pair of a position, and (owner CTA, slot) of a position under C."""
+    def label_at(k, r):
+        u = k - 1 + r
+        return np.where(k == 0, 0, 1 + np.where(u >= m - 1, u - (m - 1), u))
+
+    def pos_of(x, r):
+        u = x - 1 - r
+        return np.where(x == 0, 0, 1 + np.where(u < 0, u + (m - 1), u))
+
+    def next_pos(k):
+        return np.where(k == 0, 0, np.where(k == 1, m - 1, k - 1))
+
+    def pair_of(k):
+        return np.where(k < m // 2, k, m - 1 - k)
+
+    def slot_of(k, C):
+        h, pi = m // 2, pair_of(k)
+        owner = ((pi + 1) * C - 1) // h
+        return owner, 2 * (pi - owner * h // C) + (k >= h)
+
+    return label_at, pos_of, next_pos, pair_of, slot_of
+
+
+def _dsel(cond, x, y):
+    return DD(torch.where(cond, x.hi, y.hi), torch.where(cond, x.lo, y.lo))
+
+
+def _d1_model(A, V, sweeps):
+    """D1's order on [nb, m, m]: rows by tournament position in two buffers;
+    each 2x2 block (own pair t, column pair k) through the column step and
+    then the row step, written to its rows' next positions; each next angle
+    from the three blocks it needs (`rotated`, from the round's buffer and
+    angles); dd_sym after a sweep with the next sweep's first angles from
+    the unsymmetrized rows. Returns (A, V)."""
+    nb, m, _ = A.hi.shape
+    h = m // 2
+    label_at, pos_of, next_pos, pair_of, _ = _tournament(m)
+    k = np.arange(h)
+
+    def g(X, rows, cols):  # X[:, rows, cols] with broadcast index arrays
+        return DD(X.hi[:, rows, cols], X.lo[:, rows, cols])
+
+    def rotated(axy, axyy, axxy, axxyy, cx, sx, cy, sy):
+        bx = dd_add(dd_mul(cy, axy), dd_mul(sy, axyy))
+        bxx = dd_add(dd_mul(cy, axxy), dd_mul(sy, axxyy))
+        return dd_add(dd_mul(cx, bx), dd_mul(sx, bxx))
+
+    def half(u):
+        return DD(0.5 * u.hi, 0.5 * u.lo)
+
+    def neg_if(cond, x):  # cond [h] numpy, x [nb, h]
+        c = torch.as_tensor(cond)
+        return DD(torch.where(c, -x.hi, x.hi), torch.where(c, -x.lo, x.lo))
+
+    X, V = DD(A.hi.clone(), A.lo.clone()), DD(V.hi.clone(), V.lo.clone())
+    p, q = k, m - 1 - k
+    c, s = tdl._rotation(g(X, p, p), g(X, q, q), g(X, p, q))
+    for sw in range(sweeps):
+        for r in range(m - 1):
+            top, bot = label_at(k, r), label_at(m - 1 - k, r)
+            cp, cq = np.minimum(top, bot), np.maximum(top, bot)
+            if r < m - 2:  # the next angles, from this round's buffer
+                a, b = label_at(k, r + 1), label_at(m - 1 - k, r + 1)
+                pn, qn = np.minimum(a, b), np.maximum(a, b)
+                kp, kq = pos_of(pn, r), pos_of(qn, r)
+                pp, qq = label_at(m - 1 - kp, r), label_at(m - 1 - kq, r)
+                cP, sP = DD(c.hi[:, pair_of(kp)], c.lo[:, pair_of(kp)]), \
+                    DD(s.hi[:, pair_of(kp)], s.lo[:, pair_of(kp)])
+                cQ, sQ = DD(c.hi[:, pair_of(kq)], c.lo[:, pair_of(kq)]), \
+                    DD(s.hi[:, pair_of(kq)], s.lo[:, pair_of(kq)])
+                sp, sq = neg_if(pn < pp, sP), neg_if(qn < qq, sQ)
+                rp, rpp, rq, rqq = kp, m - 1 - kp, kq, m - 1 - kq
+                app = rotated(g(X, rp, pn), g(X, rp, pp), g(X, rpp, pn), g(X, rpp, pp), cP, sp, cP, sp)
+                aqq = rotated(g(X, rq, qn), g(X, rq, qq), g(X, rqq, qn), g(X, rqq, qq), cQ, sq, cQ, sq)
+                apq = rotated(g(X, rp, qn), g(X, rp, qq), g(X, rpp, qn), g(X, rpp, qq), cP, sp, cQ, sq)
+                nxt = tdl._rotation(app, aqq, apq)
+            # the blocks: rows (k, m-1-k) x columns (cp, cq)
+            cc = DD(c.hi[:, None, :], c.lo[:, None, :])
+            sc = DD(s.hi[:, None, :], s.lo[:, None, :])
+            nsc = DD(-sc.hi, -sc.lo)
+            cr = DD(c.hi[:, :, None], c.lo[:, :, None])
+            sr = DD(s.hi[:, :, None], s.lo[:, :, None])
+            first = torch.as_tensor(top < bot)[None, :, None]
+            s1 = _dsel(first, DD(-sr.hi, -sr.lo), sr)
+            s2 = _dsel(first, sr, DD(-sr.hi, -sr.lo))
+            r1, r2 = k[:, None], (m - 1 - k)[:, None]
+            a1p, a1q = g(X, r1, cp[None, :]), g(X, r1, cq[None, :])
+            a2p, a2q = g(X, r2, cp[None, :]), g(X, r2, cq[None, :])
+            b1p = dd_add(dd_mul(cc, a1p), dd_mul(nsc, a1q))
+            b1q = dd_add(dd_mul(cc, a1q), dd_mul(sc, a1p))
+            b2p = dd_add(dd_mul(cc, a2p), dd_mul(nsc, a2q))
+            b2q = dd_add(dd_mul(cc, a2q), dd_mul(sc, a2p))
+            Y = DD(torch.empty_like(X.hi), torch.empty_like(X.lo))
+            w1, w2 = next_pos(k)[:, None], next_pos(m - 1 - k)[:, None]
+            for rows, col, val in ((w1, cp, dd_add(dd_mul(cr, b1p), dd_mul(s1, b2p))),
+                                   (w1, cq, dd_add(dd_mul(cr, b1q), dd_mul(s1, b2q))),
+                                   (w2, cp, dd_add(dd_mul(cr, b2p), dd_mul(s2, b1p))),
+                                   (w2, cq, dd_add(dd_mul(cr, b2q), dd_mul(s2, b1q)))):
+                Y.hi[:, rows, col[None, :]] = val.hi
+                Y.lo[:, rows, col[None, :]] = val.lo
+            vc = DD(c.hi[:, None, :], c.lo[:, None, :])
+            vp, vq = DD(V.hi[:, :, cp], V.lo[:, :, cp]), DD(V.hi[:, :, cq], V.lo[:, :, cq])
+            V = DD(V.hi.clone(), V.lo.clone())
+            for col, val in ((cp, dd_add(dd_mul(vc, vp), dd_mul(nsc, vq))),
+                             (cq, dd_add(dd_mul(vc, vq), dd_mul(sc, vp)))):
+                V.hi[:, :, col] = val.hi
+                V.lo[:, :, col] = val.lo
+            X = Y
+            if r < m - 2:
+                c, s = nxt
+        # positions = labels again: dd_sym, and the next sweep's first angles
+        app, aqq = g(X, p, p), g(X, q, q)
+        c, s = tdl._rotation(half(dd_add(app, app)), half(dd_add(aqq, aqq)),
+                             half(dd_add(g(X, p, q), g(X, q, p))))
+        X = half(dd_add(X, DD(X.hi.mT, X.lo.mT)))
+    return X, V
+
+
+@pytest.mark.parametrize("nb,m,sweeps", [(2, 8, 2), (1, 56, 1)])
+def test_d1_block_order_equals_plain(nb, m, sweeps):
+    """A torch model of D1's order (`_d1_model`: the 2x2 blocks through the
+    column step and the row step in registers, the rows moving by
+    tournament position between two buffers, the next angles recomputed
+    from three blocks a pair, dd_sym's angles from the unsymmetrized rows)
+    equals `dd_jacobi_plain` bit for bit on A and V."""
+    rng = np.random.default_rng(m)
+    A0 = rng.standard_normal((nb, m, m))
+    A = DD(T(A0 + A0.transpose(0, 2, 1)), T(1e-17 * rng.standard_normal((nb, m, m))))
+    V = DD(T(np.linalg.qr(rng.standard_normal((nb, m, m)))[0]),
+           T(1e-17 * rng.standard_normal((nb, m, m))))
+    got = _d1_model(A, V, sweeps)
+    ref = tdl.dd_jacobi_plain(A, V, sweeps)
+    for x, y in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("m", [2, 8, 18, 56, 194, 266])
+def test_d1_cluster_tables(m):
+    """D1's tournament arithmetic and row ownership: `label_at` is
+    `round_robin_pairs` (pair k = positions k and m - 1 - k); each round
+    moves every label one position on (`pos_of`, `next_pos`); under every
+    cluster size that fits m both rows of each pair sit in one CTA, every
+    position has one (CTA, slot) and every CTA's slots are 0 .. 2 np - 1
+    (np its pairs, at most `jacobi_rows`), and a round moves rows only to
+    the neighbouring CTAs, at most one each way."""
+    label_at, pos_of, next_pos, pair_of, slot_of = _tournament(m)
+    pairs = round_robin_pairs(m)
+    h, ks = m // 2, np.arange(m)
+    for r in range(m - 1):
+        assert (label_at(ks[:h], r) == pairs[r, 0]).all()
+        assert (label_at(m - 1 - ks[:h], r) == pairs[r, 1]).all()
+        assert (pos_of(label_at(ks, r), r) == ks).all()
+        # the row at position k in round r is at next_pos(k) in round r + 1
+        assert (label_at(next_pos(ks), r + 1) == label_at(ks, r)).all()
+    for C in sorted({c for c in (1, 2, 4, 7, 8, 14, 16) if c <= h}):
+        owner, slot = slot_of(ks, C)
+        assert (owner == slot_of(m - 1 - ks, C)[0]).all()  # both rows of a pair
+        rows = 2 * ((h + C - 1) // C)
+        for b in range(C):
+            npb = (b + 1) * h // C - b * h // C
+            assert npb >= 1 and sorted(slot[owner == b]) == list(range(2 * npb))
+            assert 2 * npb <= rows
+        moved = owner[next_pos(ks)] - owner
+        assert set(np.abs(moved)) <= {0, 1}
+        for b in range(C):
+            assert (owner[moved == 1] == b).sum() <= 1 and (owner[moved == -1] == b).sum() <= 1
+
+
+def _d2_tree(P, j):
+    """D2's tree of one row at column j in the "warp" regime, over rows of
+    P (dd [B, m], one j per row, P[:, k] = (+0, +0) for k >= j: the columns
+    not computed yet): level 0 slot s = dd_add(P[s], P[s + m/2]) (slot 0
+    then adds the zero P[m - 1] at an odd m), each further level slot k =
+    dd_add(S[k], S[k + half]) (slot 0 adding S[n - 1] at an odd n); a slot
+    k >= j is never computed and reads as (+0, +0). Returns slot 0."""
+    B, m = P.hi.shape
+    zero = DD(torch.zeros(B, dtype=P.hi.dtype), torch.zeros(B, dtype=P.hi.dtype))
+
+    def pick(k, v):  # slot k as D2 holds it
+        live = k < j
+        return DD(torch.where(live, v.hi, 0.0), torch.where(live, v.lo, 0.0))
+
+    if m == 1:
+        return zero
+    half0 = m // 2
+    S = []
+    for s in range(half0):
+        v = dd_add(DD(P.hi[:, s], P.lo[:, s]), pick(s + half0, DD(P.hi[:, s + half0],
+                                                                   P.lo[:, s + half0])))
+        if m % 2 and s == 0:
+            v = dd_add(v, zero)
+        S.append(pick(s, v))
+    n = half0
+    while n > 1:
+        half = n // 2
+        for k in range(half):
+            v = dd_add(S[k], S[k + half])
+            if n % 2 and k == 0:
+                v = dd_add(v, S[n - 1])
+            S[k] = pick(k, v)
+        n = half
+    return pick(0, S[0])
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 7, 8, 33, 56, 57, 64, 65, 104, 105])
+def test_chol_warp_tree_equals_dd_sum(m):
+    """D2's "warp" regime sums a row's products in its own slot array and
+    skips the slots that are exact zeros at column j (`_d2_tree`): at every
+    j it equals `dd_sum` over all m products bit for bit, on cancelling,
+    widely spread data with signed zeros, as the in-place loop of
+    `test_chol_kernel_tree_equals_dd_sum` does for "global"."""
+    rng = np.random.default_rng(m)
+    j = np.repeat(np.arange(m), 2)
+    hi = rng.standard_normal((2 * m, m)) * 2.0 ** rng.integers(-60, 60, (2 * m, m))
+    hi[:, 1::2] = -hi[:, ::2][:, : m // 2]
+    lo = hi * 2.0**-55 * rng.standard_normal((2 * m, m))
+    lo[rng.random((2 * m, m)) < 0.2] = -0.0
+    hi[rng.random((2 * m, m)) < 0.1] = -0.0
+    tail = np.arange(m)[None, :] >= j[:, None]
+    hi[tail], lo[tail] = 0.0, 0.0
+    x = DD(T(hi), T(lo))
+    got, ref = _d2_tree(x, torch.as_tensor(j)), dd_sum(x, axis=-1)
+    assert torch.equal(got.hi, ref.hi) and torch.equal(got.lo, ref.lo)
+
+
 @pytest.mark.parametrize("m", [2, 8, 56])
 def test_dd_jacobi_rounds(m):
     """D1's rounds put p = min and q = max of every pair of
