@@ -10,8 +10,9 @@ What the port runs: ``kit`` 0 and 1, ``precision`` 'f64', 'dd' and 'dd2'
 ``assembly_precision``, ``cg_kernel``, ``cg_materialize``,
 ``chol_backend`` and ``gemm_backend``, ``timing`` (``timing >= 2`` prints
 the per-phase table of `utils/diagnostics.py` after the solve) and
-``profile_dir`` (a `torch.profiler` trace of the solve loop written into
-that directory, CUDA activity included on a card).
+``profile_dir`` (a `torch.profiler` trace of the solve written into that
+directory, CUDA activity included on a card, with the solve's phase spans:
+`utils/timers.py:span`).
 
 On a ('blocks', 'schur') mesh (`parallel/`: one process per rank,
 `torch.distributed`; Gloo ranks on the CPU, ``python -m

@@ -23,10 +23,15 @@ result's ``mixed_handover`` names that iteration.
 
 ``timing >= 2`` (with ``verb > 0``) prints the per-phase table of
 `utils/diagnostics.py` after the solve, and ``profile_dir`` records the
-solve loop with `torch.profiler` (CUDA activity included on a card) into a
+solve with `torch.profiler` (CUDA activity included on a card) into a
 trace file in that directory: the port's counterparts of the JAX package's
 `profile_phases` re-timing and `jax.profiler.trace`
-(`loraine_tpu/ipm/solver.py:215-218, 390-392, 406-415`).
+(`loraine_tpu/ipm/solver.py:215-218, 390-392, 406-415`). Under any
+profiler the solve marks its phases as spans (`utils/timers.py:span`):
+``ltt.solve`` around it, ``ltt.init`` (the initial point), one ``ltt.step``
+an iteration (the step's own spans, `ipm/step.py`, then ``ltt.stats``, the
+host read of its stats and the sync) and ``ltt.result`` (the host copies
+of the `Result`).
 
 On a sharded problem (`parallel/mesh.py`: every rank runs this loop on its
 own slice) the host reads every decision (status, the regularization
@@ -56,7 +61,7 @@ from ..config import Options
 from ..ops.schur import gather_blocks
 from ..problem import SDPProblem, problem_from_sdpa
 from ..utils.device import resolve_device
-from ..utils.timers import PhaseTimer
+from ..utils.timers import PhaseTimer, span
 from .initial import initial_point
 from .state import IPMState
 from .step import step
@@ -232,11 +237,27 @@ class Solver:
 
     # -- main loop --------------------------------------------------------
     def solve(self) -> Result:
+        o = self.opts
+        with self._profiler(o.profile_dir) if o.profile_dir else contextlib.nullcontext():
+            with span("solve"):
+                result = self._solve()
+        if o.timing > 0 and o.verb > 0:
+            print(self.timer.report())
+        if o.timing >= 2 and o.verb > 0:
+            # the per-phase attribution (the reference's TimerOutputs tree,
+            # `src/Solvers.jl:467-476`): re-times each phase standalone at a
+            # representative iterate, so it costs extra device work
+            from ..utils.diagnostics import format_phases, profile_phases
+
+            print(format_phases(profile_phases(self.problem, o), self.device.type))
+        return result
+
+    def _solve(self) -> Result:
         o, p = self.opts, self.problem
         t_start = time.perf_counter()
         self._header()
 
-        with self.timer.phase("initial point"):
+        with self.timer.phase("initial point", "init"):
             state = self.initial_state if self.initial_state is not None else initial_point(p, o)
             state = self._normalize_tails(state)
 
@@ -252,48 +273,48 @@ class Solver:
         iteration_times: List[float] = []
         history: List[Dict[str, float]] = []
 
-        with self._profiler(o.profile_dir) if o.profile_dir else contextlib.nullcontext():
-            while status == 0:
-                t0 = time.perf_counter()
-                with self.timer.phase("ipm step"):
-                    state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
+        while status == 0:
+            t0 = time.perf_counter()
+            with self.timer.phase("ipm step", "step"):
+                state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
+                with span("stats"):
                     stats_h = stats.to_host(self.mesh)  # waits for the step's device work
                     self._sync()
-                dt = time.perf_counter() - t0
-                it += 1
-                iteration_times.append(dt)
-                stats_h["cg_pre"] = stats_h.pop("cg_iter_pre")
-                stats_h["cg_cor"] = stats_h.pop("cg_iter_cor")
-                cg_tot += stats_h["cg_pre"] + stats_h["cg_cor"]
-                history.append({k: stats_h[k] for k in (
-                    "obj", "mu", "err1", "err2", "err3", "err4", "err5", "err6",
-                    "dimacs", "cg_pre", "cg_cor")})
-                status = self._status(stats_h, it, regcount)
-                # tol_cg schedule (`loraine_tpu/ipm/step.py:1413`)
-                tol_cg = max(tol_cg * o.tol_cg_up, o.tol_cg_min)
-                if stats_h["h_shifts"] > 0:
-                    regcount += 1
-                if stats_h["h_ok"] and stats_h["nt_ok"] and math.isfinite(stats_h["dimacs"]) \
-                        and not (stats_h["h_shifts"] > 0 and regcount > 5):
-                    self._log_iter(it, stats_h, dt)
-                if o.verb > 0 and status in (2, 3, 4):
-                    if status == 2:
-                        print("WARNING: Problem probably infeasible (stopping status = 2)")
-                    elif status == 3 and abs(stats_h["obj"]) > 1e55:
-                        print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
-                    elif status == 4 and it >= o.maxit:
-                        print("WARNING: Stopped by iteration limit (stopping status = 4)")
-                if status == 0 and mixed and stats_h["dimacs"] < MIXED_ASSEMBLY_DIMACS:
-                    # hand over to the exact f64 assembly near convergence
-                    mixed, handover = False, it
-                    if o.verb > 0:
-                        print("Switching to exact f64 Schur assembly")
-                if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
-                    # hybrid preconditioner switch (src/Solvers.jl:339-347)
-                    precond_kind = 1
-                    o.aamat = 2
-                    if o.verb > 0:
-                        print("Switching to preconditioner 1")
+            dt = time.perf_counter() - t0
+            it += 1
+            iteration_times.append(dt)
+            stats_h["cg_pre"] = stats_h.pop("cg_iter_pre")
+            stats_h["cg_cor"] = stats_h.pop("cg_iter_cor")
+            cg_tot += stats_h["cg_pre"] + stats_h["cg_cor"]
+            history.append({k: stats_h[k] for k in (
+                "obj", "mu", "err1", "err2", "err3", "err4", "err5", "err6",
+                "dimacs", "cg_pre", "cg_cor")})
+            status = self._status(stats_h, it, regcount)
+            # tol_cg schedule (`loraine_tpu/ipm/step.py:1413`)
+            tol_cg = max(tol_cg * o.tol_cg_up, o.tol_cg_min)
+            if stats_h["h_shifts"] > 0:
+                regcount += 1
+            if stats_h["h_ok"] and stats_h["nt_ok"] and math.isfinite(stats_h["dimacs"]) \
+                    and not (stats_h["h_shifts"] > 0 and regcount > 5):
+                self._log_iter(it, stats_h, dt)
+            if o.verb > 0 and status in (2, 3, 4):
+                if status == 2:
+                    print("WARNING: Problem probably infeasible (stopping status = 2)")
+                elif status == 3 and abs(stats_h["obj"]) > 1e55:
+                    print("WARNING: Problem probably unbounded or infeasible (stopping status = 3)")
+                elif status == 4 and it >= o.maxit:
+                    print("WARNING: Stopped by iteration limit (stopping status = 4)")
+            if status == 0 and mixed and stats_h["dimacs"] < MIXED_ASSEMBLY_DIMACS:
+                # hand over to the exact f64 assembly near convergence
+                mixed, handover = False, it
+                if o.verb > 0:
+                    print("Switching to exact f64 Schur assembly")
+            if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
+                # hybrid preconditioner switch (src/Solvers.jl:339-347)
+                precond_kind = 1
+                o.aamat = 2
+                if o.verb > 0:
+                    print("Switching to preconditioner 1")
 
         solve_time = time.perf_counter() - t_start
         if o.verb > 0:
@@ -302,21 +323,14 @@ class Solver:
             if status == 1:
                 print(f" *** Optimal solution found in {solve_time:8.2f} seconds")
 
-        result = self._extract(state, stats_h, status, it, cg_tot, solve_time, iteration_times)
+        with span("result"):
+            result = self._extract(state, stats_h, status, it, cg_tot, solve_time,
+                                   iteration_times)
         result.history = history
         result.mixed_handover = handover
         if o.verb > 0 and status == 1:
             print(f"Primal objective: {result.objective}")
             print(f"Dual objective:   {result.dual_objective}")
-        if o.timing > 0 and o.verb > 0:
-            print(self.timer.report())
-        if o.timing >= 2 and o.verb > 0:
-            # the per-phase attribution (the reference's TimerOutputs tree,
-            # `src/Solvers.jl:467-476`): re-times each phase standalone at a
-            # representative iterate, so it costs extra device work
-            from ..utils.diagnostics import format_phases, profile_phases
-
-            print(format_phases(profile_phases(self.problem, o), self.device.type))
         return result
 
     def _profiler(self, profile_dir: str):

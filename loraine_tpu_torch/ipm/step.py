@@ -80,6 +80,17 @@ path (kit=0), where its dd Cholesky, GEMM and Jacobi sweeps are the
 kernels D2, D3 and D1, and the f64 NT scaling on the CPU and on the CG
 path (`config.py:nt_dd_for`; the JAX package's rule with the card in the
 TPU's place, but for kit=1).
+
+Under a profiler the step marks its phases as spans (`utils/timers.py:
+span`), in order: ``ltt.nt`` (the NT scaling), ``ltt.residuals`` (mu, the
+residuals, the predictor's right-hand side), ``ltt.schur`` (the Schur
+assembly; on kit=1 the CG solver's set-up), ``ltt.factor`` (kit=0:
+`chol_reg` and `tri_inv`), ``ltt.schur_solve`` (the predictor's solve),
+``ltt.steplen`` (its directions and steplengths), ``ltt.corrector``
+(sigma, the NT correction term, the corrector's right-hand side),
+``ltt.schur_solve`` and ``ltt.steplen`` again for the corrector, and
+``ltt.update`` (the iterate update and the DIMACS errors). ``ltt.eig``
+marks the eigen-work inside ``ltt.nt`` and ``ltt.steplen``.
 """
 from __future__ import annotations
 
@@ -103,6 +114,7 @@ from ..ops.schur import (Aadj, Aadj_dd, Aop, Aop_dd, bsum, bsum_dd, gather_rows_
                          schur_group, schur_group_dd, schur_group_mixed, schur_lp, schur_lp_dd,
                          schur_lp_mixed)
 from ..problem import SDPProblem
+from ..utils.timers import span
 from .initial import EXPON, TAU
 from .state import IPMState, StepStats
 
@@ -300,14 +312,16 @@ def _group_dirs(
     if predict and not dd_mode and eigrange_fn is not None:
         # Predictor identity: with Gi X Gi^T = D and DDsi = D^{-1/2},
         # scaleX = -I - scaleS, so lambda_min(scaleX) = -1 - lambda_max(scaleS)
-        lo, hi = eigrange_fn(scaleS)
+        with span("eig"):
+            lo, hi = eigrange_fn(scaleS)
         alpha = _steplen(-1.0 - hi)
         beta = _steplen(lo)
     else:
         delXb = nt.Gi @ delX @ nt.Gi.mT
         scaleX = sym(nt.DDsi[:, :, None] * delXb * nt.DDsi[:, None, :])
         nb = scaleX.shape[0]
-        ev = eigmin_fn(torch.cat([scaleX, scaleS], dim=0))
+        with span("eig"):
+            ev = eigmin_fn(torch.cat([scaleX, scaleS], dim=0))
         alpha = _steplen(ev[:nb])
         beta = _steplen(ev[nb:])
     if dd2:
@@ -606,135 +620,141 @@ def step(
         Xl_dd = DD(st.X_lin, st.X_lin_lo) if nlin else None
         Sl_dd = DD(st.S_lin, st.S_lin_lo) if nlin else None
 
-    # ---- mu (`find_mu`, src/Solvers.jl:480-494)
-    if dd2:
-        # <X, S> in dd: near the dd2 floor it cancels over ~20 digits
-        tr_dd = _dd0(zero)
-        for g, Xd, Sd in zip(problem.groups, X_dds, S_dds):
-            tr_dd = dd_add(tr_dd, bsum_dd(g, _dd_inner(Xd, Sd)))
-        if nlin:
-            tr_dd = dd_add(tr_dd, _dd_inner(Xl_dd, Sl_dd))
-        mu = dd_to_f64(tr_dd) / denom
-    else:
-        tr = zero
-        for g, X, S in zip(problem.groups, st.X, st.S):
-            tr = tr + bsum(g, btrace(X, S))
-        if nlin:
-            tr = tr + torch.dot(st.X_lin, st.S_lin)
-        mu = tr / denom
-
     # ---- NT scaling (prepare_W): f64 on the hi words, or in dd with tails
-    if nt_dd:
-        pairs = tuple(nt_scale_dd(Xd, Sd, eigh_backend=opts.eigh_backend, mesh=mesh)
-                      for Xd, Sd in zip(X_dds, S_dds))
-        nts = tuple(p_[0] for p_ in pairs)
-        nt_tails = tuple(p_[1] for p_ in pairs)
-    else:
-        nts = tuple(
-            nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend,
-                     chol_backend=opts.chol_backend)
-            for X, S in zip(st.X, st.S)
-        )
-        nt_tails = (None,) * ngroups
-    nt_ok = torch.ones((), dtype=torch.bool, device=device)
-    nt_suspect = torch.zeros((), dtype=torch.bool, device=device)  # certificate broken
-    for nt in nts:
-        nt_ok = nt_ok & nt.ok
-        nt_suspect = nt_suspect | nt.shifted | nt.s_indef
-    if mesh is not None:
-        nt_ok = mesh.reduce(nt_ok, "blocks", "min")
-        nt_suspect = mesh.reduce(nt_suspect, "blocks", "max")
-    Si_lin_dd = lpw_dd = None
-    if nlin and dd2:
-        # Si = 1/S and lpw = X/S at dd resolution (`ipm/step.py:531-539`)
-        Si_lin_dd = dd_div(dd_const(1.0, st.S_lin), Sl_dd)
-        lpw_dd = dd_mul(Xl_dd, Si_lin_dd)
-        Si_lin, lpw = Si_lin_dd.hi, lpw_dd.hi
-    else:
-        Si_lin = (1.0 / st.S_lin) if nlin else None
-        lpw = lp_weight(st.X_lin, Si_lin) if nlin else None
-
-    # ---- residuals (`predictor`, src/predictor_corrector.jl:8-22)
-    if dd_mode:
-        Rp_dd = _dd0(problem.b)
-        for gi, (g, X) in enumerate(zip(problem.groups, st.X)):
-            Rp_dd = dd_add(Rp_dd, dd_neg(Aop_dd(g, X, X_dds[gi].lo if dd2 else None)))
-        if nlin:
-            lin = _cmatvec_dd(C_lin, Xl_dd) if dd2 else acc_matvec(C_lin, st.X_lin)
-            Rp_dd = dd_add(Rp_dd, dd_neg(lin))
-        Rp = dd_to_f64(Rp_dd)
-    else:
-        Rp = problem.b
-        for g, X in zip(problem.groups, st.X):
-            Rp = Rp - Aop(g, X)
-        if nlin:
-            Rp = Rp - C_lin @ st.X_lin
-    Rd_dds = (None,) * ngroups
-    Rd_lin_dd = None
-    if dd2:
-        # Rd = C - S - Aadj(y) at dd resolution (f64 would pin err3 at
-        # u64 ||C||)
-        Rd_dds = []
-        for g, Sd in zip(problem.groups, S_dds):
-            t = two_sum(g.C, -Sd.hi)
-            Rd_dds.append(_dd_sym(dd_add(DD(t.hi, t.lo - Sd.lo), dd_neg(Aadj_dd(g, y_dd)))))
-        Rds = tuple(r.hi for r in Rd_dds)
-    else:
-        Rds = tuple(sym(g.C - S - Aadj(g, st.y)) for g, S in zip(problem.groups, st.S))
-    if nlin and dd2:
-        t = two_sum(problem.d_lin, -Sl_dd.hi)
-        Rd_lin_dd = dd_add(DD(t.hi, t.lo - Sl_dd.lo), dd_neg(_cmatvec_dd(C_lin.mT, y_dd)))
-        Rd_lin = Rd_lin_dd.hi
-    else:
-        Rd_lin = (problem.d_lin - st.S_lin - C_lin.mT @ st.y) if nlin else None
-
-    # ---- predictor RHS (`makeRHS`, src/makeBBBB.jl:221-228)
-    T_dds = (None,) * ngroups
-    if dd_mode:
-        # T = W (Rd + S) W per group, in dd, reused verbatim in the
-        # direction formula so that the feasibility identity cancels exactly
-        if dd2:
-            T_dds = []
-            for nt, tl, Rdd, Sd in zip(nts, nt_tails, Rd_dds, S_dds):
-                M_dd = dd_add(Rdd, Sd)
-                T = _sandwich_dd(nt.W, M_dd.hi, nt.W)
-                tlo = nt.W @ M_dd.lo @ nt.W
-                if tl is not None:
-                    # keep T consistent with the tailed W of the directions
-                    tlo = tlo + _w_tail(tl, nt.W, M_dd.hi)
-                T_dds.append(DD(T.hi, T.lo + tlo))
-            T_dds = tuple(T_dds)
+    with span("nt"):
+        if nt_dd:
+            pairs = tuple(nt_scale_dd(Xd, Sd, eigh_backend=opts.eigh_backend, mesh=mesh)
+                          for Xd, Sd in zip(X_dds, S_dds))
+            nts = tuple(p_[0] for p_ in pairs)
+            nt_tails = tuple(p_[1] for p_ in pairs)
         else:
-            T_dds = tuple(_sandwich_dd(nt.W, Rd + S, nt.W) for nt, Rd, S in zip(nts, Rds, st.S))
-        h_dd = Rp_dd
-        for g, T in zip(problem.groups, T_dds):
-            h_dd = dd_add(h_dd, Aop_dd(g, T.hi, T.lo))
-        if nlin:
+            nts = tuple(
+                nt_scale(X, S, method=opts.nt_method, eigh_backend=opts.eigh_backend,
+                         chol_backend=opts.chol_backend)
+                for X, S in zip(st.X, st.S)
+            )
+            nt_tails = (None,) * ngroups
+        nt_ok = torch.ones((), dtype=torch.bool, device=device)
+        nt_suspect = torch.zeros((), dtype=torch.bool, device=device)  # certificate broken
+        for nt in nts:
+            nt_ok = nt_ok & nt.ok
+            nt_suspect = nt_suspect | nt.shifted | nt.s_indef
+        if mesh is not None:
+            nt_ok = mesh.reduce(nt_ok, "blocks", "min")
+            nt_suspect = mesh.reduce(nt_suspect, "blocks", "max")
+
+    # ---- mu (`find_mu`, src/Solvers.jl:480-494), the residuals and the
+    # predictor's right-hand side
+    with span("residuals"):
+        if dd2:
+            # <X, S> in dd: near the dd2 floor it cancels over ~20 digits
+            tr_dd = _dd0(zero)
+            for g, Xd, Sd in zip(problem.groups, X_dds, S_dds):
+                tr_dd = dd_add(tr_dd, bsum_dd(g, _dd_inner(Xd, Sd)))
+            if nlin:
+                tr_dd = dd_add(tr_dd, _dd_inner(Xl_dd, Sl_dd))
+            mu = dd_to_f64(tr_dd) / denom
+        else:
+            tr = zero
+            for g, X, S in zip(problem.groups, st.X, st.S):
+                tr = tr + bsum(g, btrace(X, S))
+            if nlin:
+                tr = tr + torch.dot(st.X_lin, st.S_lin)
+            mu = tr / denom
+
+        Si_lin_dd = lpw_dd = None
+        if nlin and dd2:
+            # Si = 1/S and lpw = X/S at dd resolution (`ipm/step.py:531-539`)
+            Si_lin_dd = dd_div(dd_const(1.0, st.S_lin), Sl_dd)
+            lpw_dd = dd_mul(Xl_dd, Si_lin_dd)
+            Si_lin, lpw = Si_lin_dd.hi, lpw_dd.hi
+        else:
+            Si_lin = (1.0 / st.S_lin) if nlin else None
+            lpw = lp_weight(st.X_lin, Si_lin) if nlin else None
+
+        # ---- residuals (`predictor`, src/predictor_corrector.jl:8-22)
+        if dd_mode:
+            Rp_dd = _dd0(problem.b)
+            for gi, (g, X) in enumerate(zip(problem.groups, st.X)):
+                Rp_dd = dd_add(Rp_dd, dd_neg(Aop_dd(g, X, X_dds[gi].lo if dd2 else None)))
+            if nlin:
+                lin = _cmatvec_dd(C_lin, Xl_dd) if dd2 else acc_matvec(C_lin, st.X_lin)
+                Rp_dd = dd_add(Rp_dd, dd_neg(lin))
+            Rp = dd_to_f64(Rp_dd)
+        else:
+            Rp = problem.b
+            for g, X in zip(problem.groups, st.X):
+                Rp = Rp - Aop(g, X)
+            if nlin:
+                Rp = Rp - C_lin @ st.X_lin
+        Rd_dds = (None,) * ngroups
+        Rd_lin_dd = None
+        if dd2:
+            # Rd = C - S - Aadj(y) at dd resolution (f64 would pin err3 at
+            # u64 ||C||)
+            Rd_dds = []
+            for g, Sd in zip(problem.groups, S_dds):
+                t = two_sum(g.C, -Sd.hi)
+                Rd_dds.append(_dd_sym(dd_add(DD(t.hi, t.lo - Sd.lo), dd_neg(Aadj_dd(g, y_dd)))))
+            Rds = tuple(r.hi for r in Rd_dds)
+        else:
+            Rds = tuple(sym(g.C - S - Aadj(g, st.y)) for g, S in zip(problem.groups, st.S))
+        if nlin and dd2:
+            t = two_sum(problem.d_lin, -Sl_dd.hi)
+            Rd_lin_dd = dd_add(DD(t.hi, t.lo - Sl_dd.lo), dd_neg(_cmatvec_dd(C_lin.mT, y_dd)))
+            Rd_lin = Rd_lin_dd.hi
+        else:
+            Rd_lin = (problem.d_lin - st.S_lin - C_lin.mT @ st.y) if nlin else None
+
+        # ---- predictor RHS (`makeRHS`, src/makeBBBB.jl:221-228)
+        T_dds = (None,) * ngroups
+        if dd_mode:
+            # T = W (Rd + S) W per group, in dd, reused verbatim in the
+            # direction formula so that the feasibility identity cancels exactly
             if dd2:
-                v = dd_add(dd_mul(lpw_dd, Rd_lin_dd), Xl_dd)
-                h_dd = dd_add(h_dd, _cmatvec_dd(C_lin, v))
+                T_dds = []
+                for nt, tl, Rdd, Sd in zip(nts, nt_tails, Rd_dds, S_dds):
+                    M_dd = dd_add(Rdd, Sd)
+                    T = _sandwich_dd(nt.W, M_dd.hi, nt.W)
+                    tlo = nt.W @ M_dd.lo @ nt.W
+                    if tl is not None:
+                        # keep T consistent with the tailed W of the directions
+                        tlo = tlo + _w_tail(tl, nt.W, M_dd.hi)
+                    T_dds.append(DD(T.hi, T.lo + tlo))
+                T_dds = tuple(T_dds)
             else:
-                h_dd = dd_add(h_dd, acc_matvec(C_lin, lpw * Rd_lin + st.X_lin))
-    else:
-        h = Rp
-        for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
-            h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
-        if nlin:
-            h = h + C_lin @ (lpw * Rd_lin + st.X_lin)
+                T_dds = tuple(_sandwich_dd(nt.W, Rd + S, nt.W) for nt, Rd, S in zip(nts, Rds, st.S))
+            h_dd = Rp_dd
+            for g, T in zip(problem.groups, T_dds):
+                h_dd = dd_add(h_dd, Aop_dd(g, T.hi, T.lo))
+            if nlin:
+                if dd2:
+                    v = dd_add(dd_mul(lpw_dd, Rd_lin_dd), Xl_dd)
+                    h_dd = dd_add(h_dd, _cmatvec_dd(C_lin, v))
+                else:
+                    h_dd = dd_add(h_dd, acc_matvec(C_lin, lpw * Rd_lin + st.X_lin))
+        else:
+            h = Rp
+            for g, nt, Rd, S in zip(problem.groups, nts, Rds, st.S):
+                h = h + Aop(g, nt.W @ (Rd + S) @ nt.W)
+            if nlin:
+                h = h + C_lin @ (lpw * Rd_lin + st.X_lin)
 
     # ---- predictor solve
     if opts.kit == 0:
         # Schur assembly + regularized Cholesky (absolute 1e-4 shift,
         # `src/predictor_corrector.jl:74`) + explicit inverse factor
-        if dd_mode:
-            Hs_dd = _schur_dd(problem, nts, nt_tails, lpw, lpw_dd)
-            H = Hs_dd.hi
-        else:
-            H = _schur(problem, nts, lpw, mixed_assembly, opts.gemm_backend)
+        with span("schur"):
+            if dd_mode:
+                Hs_dd = _schur_dd(problem, nts, nt_tails, lpw, lpw_dd)
+                H = Hs_dd.hi
+            else:
+                H = _schur(problem, nts, lpw, mixed_assembly, opts.gemm_backend)
         rmesh = mesh if problem.rows_split else None
-        hc = chol_reg(H, 1e-4, 1000, backend=opts.chol_backend, mesh=rmesh)
-        h_shifts, h_ok = hc.shifts, hc.ok
-        Hli = tri_inv(hc.L, mesh=rmesh)
+        with span("factor"):
+            hc = chol_reg(H, 1e-4, 1000, backend=opts.chol_backend, mesh=rmesh)
+            h_shifts, h_ok = hc.shifts, hc.ok
+            Hli = tri_inv(hc.L, mesh=rmesh)
         cg_pre = cg_cor = torch.zeros((), dtype=torch.int32, device=device)
 
         if dd_mode:
@@ -765,12 +785,13 @@ def step(
                 return x + cho_solve_inv(Hli, rhs - Hmv(x), rmesh), cg_pre
     else:
         # the corrector re-solves with the same operator and preconditioner
-        solve_f64 = _cg_solver(
-            problem, nts, lpw, opts,
-            opts.tol_cg if tol_cg is None else tol_cg,
-            opts.preconditioner if precond_kind is None else precond_kind,
-            dd_mode=dd_mode, mixed=mixed_assembly,
-        )
+        with span("schur"):
+            solve_f64 = _cg_solver(
+                problem, nts, lpw, opts,
+                opts.tol_cg if tol_cg is None else tol_cg,
+                opts.preconditioner if precond_kind is None else precond_kind,
+                dd_mode=dd_mode, mixed=mixed_assembly,
+            )
         h_shifts, h_ok = 0, True
         if dd_mode:
             def solve(rhs_dd):
@@ -789,288 +810,294 @@ def step(
         else:
             solve = solve_f64
 
-    dely, cg_pre = solve(h_dd if dd_mode else h)
+    with span("schur_solve"):
+        dely, cg_pre = solve(h_dd if dd_mode else h)
 
     # ---- predictor directions + steplengths
-    dirs = tuple(
-        _group_dirs(g, nt, Rd, X, dely, predict=True, eigmin_fn=eigmin_fn,
-                    eigrange_fn=eigrange_fn, T_dd=T, Rd_dd=Rdd, tail=tl)
-        for g, nt, Rd, X, T, Rdd, tl in zip(problem.groups, nts, Rds, st.X, T_dds, Rd_dds,
-                                            nt_tails)
-    )
-    one = torch.ones((), dtype=dtype, device=device)
-    if nlin:
-        if dd2:
-            ld = _lin_dirs_dd(problem, Xl_dd, Sl_dd, lpw_dd, Rd_lin_dd, dely, predict=True)
-        else:
-            ld = _lin_dirs(problem, st, Si_lin, Rd_lin, dely.hi if dd_mode else dely,
-                           predict=True)
-        alpha_min, beta_min = ld.alpha, ld.beta
-    else:
-        alpha_min, beta_min = one, one
-    for d in dirs:
-        alpha_min = torch.minimum(alpha_min, d.alpha.min())
-        beta_min = torch.minimum(beta_min, d.beta.min())
-    if mesh is not None:
-        alpha_min, beta_min = mesh.reduce(torch.stack([alpha_min, beta_min]), "blocks", "min")
-
-    # trial point + NT correction term (`find_step`,
-    # src/predictor_corrector.jl:302-310)
-    trXnSn_mat = zero
-    RNTs = []
-    for gi, (g, nt, d, X, S) in enumerate(zip(problem.groups, nts, dirs, st.X, st.S)):
-        if dd2:
-            # the trial trace in dd: at mu ~ 1e-18 the f64 product noise
-            # would swamp it
-            Xn = dd_add(X_dds[gi], dd_mul_f64(DD(d.delX, d.delX_lo), d.alpha[:, None, None]))
-            Sn = dd_add(S_dds[gi], dd_mul_f64(DD(d.delS, d.delS_lo), d.beta[:, None, None]))
-            t = _trace_dot_dd(Xn.hi, Sn.hi)
-            t = bsum_dd(g, DD(t.hi, t.lo + ((Xn.hi * Sn.lo).sum() + (Xn.lo * Sn.hi).sum())))
-            trXnSn_mat = trXnSn_mat + t.hi + t.lo
-        else:
-            Xn = X + d.alpha[:, None, None] * d.delX
-            Sn = S + d.beta[:, None, None] * d.delS
-            trXnSn_mat = trXnSn_mat + bsum(g, btrace(Xn, Sn))
-        deed = nt.D[:, :, None] + nt.D[:, None, :]
-        N = nt.Gi @ d.delX @ d.delS @ nt.G
-        RNTs.append(-(N + N.mT) / deed)
-    trXnSn = trXnSn_mat
-    RNT_lin = RNT_lin_dd = None
-    if nlin:
-        if dd2:
-            Xn_l = dd_add(Xl_dd, dd_mul_f64(ld.delX, ld.alpha))
-            Sn_l = dd_add(Sl_dd, dd_mul_f64(ld.delS, ld.beta))
-            t = _dd_dot(Xn_l.hi, Sn_l.hi)
-            trXnSn = trXnSn + t.hi + (t.lo + (torch.dot(Xn_l.hi, Sn_l.lo)
-                                              + torch.dot(Xn_l.lo, Sn_l.hi)))
-            RNT_lin_dd = dd_neg(dd_mul(dd_mul(ld.delX, ld.delS), Si_lin_dd))
-            RNT_lin = RNT_lin_dd.hi
-        else:
-            Xn_lin = st.X_lin + ld.alpha * ld.delX
-            Sn_lin = st.S_lin + ld.beta * ld.delS
-            trXnSn = trXnSn + torch.dot(Xn_lin, Sn_lin)
-            RNT_lin = -(ld.delX * ld.delS) * Si_lin
-
-    # ---- sigma update (`sigma_update`, src/predictor_corrector.jl:148-179)
-    step_pred = torch.minimum(alpha_min, beta_min)
-    expon_used = torch.where(
-        mu > 1e-6,
-        torch.where(
-            step_pred < 1.0 / math.sqrt(3.0),
-            one,
-            torch.clamp(3.0 * step_pred**2, min=EXPON),
-        ),
-        torch.clamp(torch.clamp(3.0 * step_pred**2, max=EXPON), min=1.0),
-    )
-    ratio = trXnSn / denom / mu
-    # the 0.8 fallback tests only the matrix trace, the ratio uses the
-    # combined one (`ipm/step.py:994-1001`)
-    sigma = torch.where(
-        trXnSn_mat < 0,
-        torch.full_like(one, 0.8),
-        torch.clamp(_safe_pow(ratio, expon_used), max=1.0),
-    )
-    sig_mu = sigma * mu
-    if dd2:
-        # the centrality target sigma*mu at dd resolution
-        sig_mu_dd = dd_mul_f64(dd_div(tr_dd, dd_const(float(denom), tr_dd.hi)), sigma)
-
-    # ---- corrector RHS (`corrector`, src/predictor_corrector.jl:183-192)
-    U_dds = (None,) * ngroups
-    U_lin_dd = None
-    if dd_mode:
-        # the reference's G[G'RdG + D - sig*mu/D - RNT]G' written as T - U
-        # with U = G[sig*mu/D + RNT]G' (exact NT identities), so the same T
-        # and U feed the corrector direction (`ipm/step.py:1013-1058`)
-        if nt_dd:
-            U_dds = tuple(_corrector_U_dd(nt, tl, RNT, sig_mu_dd)
-                          for nt, tl, RNT in zip(nts, nt_tails, RNTs))
-        else:
-            U_dds = tuple(
-                _sandwich_dd(nt.G, torch.diag_embed(sig_mu / nt.D) + RNT, nt.G.mT)
-                for nt, RNT in zip(nts, RNTs)
-            )
-        h2_dd = Rp_dd
-        for g, T, U in zip(problem.groups, T_dds, U_dds):
-            h2_dd = dd_add(h2_dd, Aop_dd(g, T.hi, T.lo))
-            h2_dd = dd_add(h2_dd, dd_neg(Aop_dd(g, U.hi, U.lo)))
+    with span("steplen"):
+        dirs = tuple(
+            _group_dirs(g, nt, Rd, X, dely, predict=True, eigmin_fn=eigmin_fn,
+                        eigrange_fn=eigrange_fn, T_dd=T, Rd_dd=Rdd, tail=tl)
+            for g, nt, Rd, X, T, Rdd, tl in zip(problem.groups, nts, Rds, st.X, T_dds, Rd_dds,
+                                                nt_tails)
+        )
+        one = torch.ones((), dtype=dtype, device=device)
         if nlin:
             if dd2:
-                # U_lin = sig_mu*Si + RNT_lin, reused verbatim in the
-                # corrector direction
-                sgv = DD(sig_mu_dd.hi.expand_as(Si_lin_dd.hi), sig_mu_dd.lo.expand_as(Si_lin_dd.hi))
-                U_lin_dd = dd_add(dd_mul(sgv, Si_lin_dd), RNT_lin_dd)
-                arg = dd_add(dd_add(dd_mul(lpw_dd, Rd_lin_dd), Xl_dd), dd_neg(U_lin_dd))
-                h2_dd = dd_add(h2_dd, _cmatvec_dd(C_lin, arg))
+                ld = _lin_dirs_dd(problem, Xl_dd, Sl_dd, lpw_dd, Rd_lin_dd, dely, predict=True)
             else:
-                tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
-                h2_dd = dd_add(h2_dd, acc_matvec(C_lin, lpw * Rd_lin + st.X_lin + tmp))
-        dely2, cg_cor = solve(h2_dd)
-    else:
-        h2 = Rp
-        for g, nt, Rd, RNT in zip(problem.groups, nts, Rds, RNTs):
-            GT = nt.G.mT
-            inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
-            h2 = h2 + Aop(g, nt.G @ inner @ GT)
+                ld = _lin_dirs(problem, st, Si_lin, Rd_lin, dely.hi if dd_mode else dely,
+                               predict=True)
+            alpha_min, beta_min = ld.alpha, ld.beta
+        else:
+            alpha_min, beta_min = one, one
+        for d in dirs:
+            alpha_min = torch.minimum(alpha_min, d.alpha.min())
+            beta_min = torch.minimum(beta_min, d.beta.min())
+        if mesh is not None:
+            alpha_min, beta_min = mesh.reduce(torch.stack([alpha_min, beta_min]), "blocks", "min")
+
+    with span("corrector"):
+        # trial point + NT correction term (`find_step`,
+        # src/predictor_corrector.jl:302-310)
+        trXnSn_mat = zero
+        RNTs = []
+        for gi, (g, nt, d, X, S) in enumerate(zip(problem.groups, nts, dirs, st.X, st.S)):
+            if dd2:
+                # the trial trace in dd: at mu ~ 1e-18 the f64 product noise
+                # would swamp it
+                Xn = dd_add(X_dds[gi], dd_mul_f64(DD(d.delX, d.delX_lo), d.alpha[:, None, None]))
+                Sn = dd_add(S_dds[gi], dd_mul_f64(DD(d.delS, d.delS_lo), d.beta[:, None, None]))
+                t = _trace_dot_dd(Xn.hi, Sn.hi)
+                t = bsum_dd(g, DD(t.hi, t.lo + ((Xn.hi * Sn.lo).sum() + (Xn.lo * Sn.hi).sum())))
+                trXnSn_mat = trXnSn_mat + t.hi + t.lo
+            else:
+                Xn = X + d.alpha[:, None, None] * d.delX
+                Sn = S + d.beta[:, None, None] * d.delS
+                trXnSn_mat = trXnSn_mat + bsum(g, btrace(Xn, Sn))
+            deed = nt.D[:, :, None] + nt.D[:, None, :]
+            N = nt.Gi @ d.delX @ d.delS @ nt.G
+            RNTs.append(-(N + N.mT) / deed)
+        trXnSn = trXnSn_mat
+        RNT_lin = RNT_lin_dd = None
         if nlin:
-            tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
-            h2 = h2 + C_lin @ (lpw * Rd_lin + st.X_lin + tmp)
-        dely2, cg_cor = solve(h2)
+            if dd2:
+                Xn_l = dd_add(Xl_dd, dd_mul_f64(ld.delX, ld.alpha))
+                Sn_l = dd_add(Sl_dd, dd_mul_f64(ld.delS, ld.beta))
+                t = _dd_dot(Xn_l.hi, Sn_l.hi)
+                trXnSn = trXnSn + t.hi + (t.lo + (torch.dot(Xn_l.hi, Sn_l.lo)
+                                                  + torch.dot(Xn_l.lo, Sn_l.hi)))
+                RNT_lin_dd = dd_neg(dd_mul(dd_mul(ld.delX, ld.delS), Si_lin_dd))
+                RNT_lin = RNT_lin_dd.hi
+            else:
+                Xn_lin = st.X_lin + ld.alpha * ld.delX
+                Sn_lin = st.S_lin + ld.beta * ld.delS
+                trXnSn = trXnSn + torch.dot(Xn_lin, Sn_lin)
+                RNT_lin = -(ld.delX * ld.delS) * Si_lin
+
+        # ---- sigma update (`sigma_update`, src/predictor_corrector.jl:148-179)
+        step_pred = torch.minimum(alpha_min, beta_min)
+        expon_used = torch.where(
+            mu > 1e-6,
+            torch.where(
+                step_pred < 1.0 / math.sqrt(3.0),
+                one,
+                torch.clamp(3.0 * step_pred**2, min=EXPON),
+            ),
+            torch.clamp(torch.clamp(3.0 * step_pred**2, max=EXPON), min=1.0),
+        )
+        ratio = trXnSn / denom / mu
+        # the 0.8 fallback tests only the matrix trace, the ratio uses the
+        # combined one (`ipm/step.py:994-1001`)
+        sigma = torch.where(
+            trXnSn_mat < 0,
+            torch.full_like(one, 0.8),
+            torch.clamp(_safe_pow(ratio, expon_used), max=1.0),
+        )
+        sig_mu = sigma * mu
+        if dd2:
+            # the centrality target sigma*mu at dd resolution
+            sig_mu_dd = dd_mul_f64(dd_div(tr_dd, dd_const(float(denom), tr_dd.hi)), sigma)
+
+        # ---- corrector RHS (`corrector`, src/predictor_corrector.jl:183-192)
+        U_dds = (None,) * ngroups
+        U_lin_dd = None
+        if dd_mode:
+            # the reference's G[G'RdG + D - sig*mu/D - RNT]G' written as T - U
+            # with U = G[sig*mu/D + RNT]G' (exact NT identities), so the same T
+            # and U feed the corrector direction (`ipm/step.py:1013-1058`)
+            if nt_dd:
+                U_dds = tuple(_corrector_U_dd(nt, tl, RNT, sig_mu_dd)
+                              for nt, tl, RNT in zip(nts, nt_tails, RNTs))
+            else:
+                U_dds = tuple(
+                    _sandwich_dd(nt.G, torch.diag_embed(sig_mu / nt.D) + RNT, nt.G.mT)
+                    for nt, RNT in zip(nts, RNTs)
+                )
+            h2_dd = Rp_dd
+            for g, T, U in zip(problem.groups, T_dds, U_dds):
+                h2_dd = dd_add(h2_dd, Aop_dd(g, T.hi, T.lo))
+                h2_dd = dd_add(h2_dd, dd_neg(Aop_dd(g, U.hi, U.lo)))
+            if nlin:
+                if dd2:
+                    # U_lin = sig_mu*Si + RNT_lin, reused verbatim in the
+                    # corrector direction
+                    sgv = DD(sig_mu_dd.hi.expand_as(Si_lin_dd.hi), sig_mu_dd.lo.expand_as(Si_lin_dd.hi))
+                    U_lin_dd = dd_add(dd_mul(sgv, Si_lin_dd), RNT_lin_dd)
+                    arg = dd_add(dd_add(dd_mul(lpw_dd, Rd_lin_dd), Xl_dd), dd_neg(U_lin_dd))
+                    h2_dd = dd_add(h2_dd, _cmatvec_dd(C_lin, arg))
+                else:
+                    tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
+                    h2_dd = dd_add(h2_dd, acc_matvec(C_lin, lpw * Rd_lin + st.X_lin + tmp))
+        else:
+            h2 = Rp
+            for g, nt, Rd, RNT in zip(problem.groups, nts, Rds, RNTs):
+                GT = nt.G.mT
+                inner = GT @ Rd @ nt.G + torch.diag_embed(nt.D) - torch.diag_embed(sig_mu / nt.D) - RNT
+                h2 = h2 + Aop(g, nt.G @ inner @ GT)
+            if nlin:
+                tmp = ld.delX * ld.delS * Si_lin - sig_mu * Si_lin
+                h2 = h2 + C_lin @ (lpw * Rd_lin + st.X_lin + tmp)
+
+    with span("schur_solve"):
+        dely2, cg_cor = solve(h2_dd if dd_mode else h2)
 
     # ---- corrector directions + final update
-    dirs2 = tuple(
-        _group_dirs(g, nt, Rd, X, dely2, predict=False, eigmin_fn=eigmin_fn, sig_mu=sig_mu,
-                    RNT=RNT, T_dd=T, U_dd=U, Rd_dd=Rdd, tail=tl)
-        for g, nt, Rd, X, RNT, T, U, Rdd, tl in zip(problem.groups, nts, Rds, st.X, RNTs,
-                                                   T_dds, U_dds, Rd_dds, nt_tails)
-    )
-    if nlin:
-        if dd2:
-            ld2 = _lin_dirs_dd(problem, Xl_dd, Sl_dd, lpw_dd, Rd_lin_dd, dely2, predict=False,
-                               U_lin=U_lin_dd)
-        else:
-            ld2 = _lin_dirs(problem, st, Si_lin, Rd_lin, dely2.hi if dd_mode else dely2,
-                            predict=False, sig_mu=sig_mu, RNT_lin=RNT_lin)
-        amin, bmin = ld2.alpha, ld2.beta
-    else:
-        amin, bmin = one, one
-    for d in dirs2:
-        amin = torch.minimum(amin, d.alpha.min())
-        bmin = torch.minimum(bmin, d.beta.min())
-    if mesh is not None:
-        amin, bmin = mesh.reduce(torch.stack([amin, bmin]), "blocks", "min")
-
-    Xl_new_dd = Sl_new_dd = None
-    if dd2:
-        # iterate updates at dd resolution (`ipm/step.py:1138-1166`)
-        y_new_dd = dd_add(y_dd, dd_mul_f64(dely2, bmin))
-        X_new_dds = tuple(_dd_sym(dd_add(Xd, dd_mul_f64(DD(d.delX, d.delX_lo), amin)))
-                          for Xd, d in zip(X_dds, dirs2))
-        S_new_dds = tuple(_dd_sym(dd_add(Sd, dd_mul_f64(DD(d.delS, d.delS_lo), bmin)))
-                          for Sd, d in zip(S_dds, dirs2))
-        y_new = y_new_dd.hi
-        X_new = tuple(x.hi for x in X_new_dds)
-        S_new = tuple(s_.hi for s_ in S_new_dds)
-        if nlin:
-            Xl_new_dd = dd_add(Xl_dd, dd_mul_f64(ld2.delX, amin))
-            Sl_new_dd = dd_add(Sl_dd, dd_mul_f64(ld2.delS, bmin))
-        X_lin_new = Xl_new_dd.hi if nlin else None
-        S_lin_new = Sl_new_dd.hi if nlin else None
-    else:
-        y_new = st.y + bmin * (dd_to_f64(dely2) if dd_mode else dely2)
-        X_new = tuple(sym(X + amin * d.delX) for X, d in zip(st.X, dirs2))
-        S_new = tuple(sym(S + bmin * d.delS) for S, d in zip(st.S, dirs2))
-        X_lin_new = (st.X_lin + amin * ld2.delX) if nlin else None
-        S_lin_new = (st.S_lin + bmin * ld2.delS) if nlin else None
-
-    # ---- DIMACS errors (`check_convergence`, src/Solvers.jl:496-524).
-    # The iterates are feasible by construction (steplengths from certified
-    # lower bounds), so err2/err4 are zero unless the NT scaling itself was
-    # regularized; then report the Gershgorin violation of the new iterate
-    # ('lanczos': see `_psd_violation`).
-    normb = torch.linalg.norm(problem.b)
-    if dd_mode:
-        by_dd = _dd_dot(problem.b, y_new)
-        if dd2:
-            s2 = two_sum(by_dd.hi, torch.dot(problem.b, y_new_dd.lo))
-            by_dd = DD(s2.hi, s2.lo + by_dd.lo)
-        by = dd_to_f64(by_dd)
-        trCX_dd = _dd0(zero)
-    else:
-        by = torch.dot(problem.b, y_new)
-    err1 = torch.linalg.norm(Rp) / (1.0 + normb)
-    err2, err3, err4, err6, trCX = zero, zero, zero, zero, zero
-    for gi, (g, X, S, Rd) in enumerate(zip(problem.groups, X_new, S_new, Rds)):
-        normC = torch.sqrt((g.C**2).sum((-1, -2)))  # [nb]
-        viol = _psd_violation(torch.cat([X, S], dim=0), nt_suspect, cert_mode)
-        violX, violS = viol[: X.shape[0]], viol[X.shape[0] :]
-        CX = (g.C * X).sum((-1, -2))
-        # the group's block sums, completed over 'blocks' in one all-reduce
-        e234c = bsum(g, torch.stack([
-            (violX / (1.0 + normb)).sum(),
-            (torch.sqrt((Rd**2).sum((-1, -2))) / (1.0 + normC)).sum(),
-            (violS / (1.0 + normC)).sum(),
-            CX.sum(),
-        ]))
-        err2 = err2 + e234c[0]
-        err3 = err3 + e234c[1]
-        err4 = err4 + e234c[2]
-        trCX = trCX + e234c[3]
-        if dd_mode:
-            t = _trace_dot_dd(g.C, X)
-            if dd2:
-                s2 = two_sum(t.hi, (g.C * X_new_dds[gi].lo).sum())
-                t = DD(s2.hi, s2.lo + t.lo)
-            trCX_dd = dd_add(trCX_dd, bsum_dd(g, t))
-        if dd2:
-            # per-block <S, X> in dd: near the floor the f64 product noise
-            # exceeds the true barrier value
-            Xd2, Sd2 = X_new_dds[gi], S_new_dds[gi]
-            nb_ = X.shape[0]
-            p = two_prod(Sd2.hi.reshape(nb_, -1), Xd2.hi.reshape(nb_, -1))
-            t = dd_sum(p, axis=-1)  # [nb]
-            cross = (Sd2.hi * Xd2.lo + Sd2.lo * Xd2.hi).reshape(nb_, -1).sum(-1)
-            SX = t.hi + (t.lo + cross)
-        else:
-            SX = (S * X).sum((-1, -2))
-        err6 = err6 + bsum(g, (SX / (1.0 + CX.abs() + by.abs())).sum())
-    if nlin:
-        dX = torch.dot(problem.d_lin, X_lin_new)
-        normd = torch.linalg.norm(problem.d_lin)
-        err2 = err2 + (-X_lin_new.min()).clamp_min(0.0) / (1.0 + normb)
-        err3 = err3 + torch.linalg.norm(Rd_lin) / (1.0 + normd)
-        err4 = err4 + (-S_lin_new.min()).clamp_min(0.0) / (1.0 + normd)
-        if dd_mode:
-            ddX = _dd_dot(problem.d_lin, X_lin_new)
-            if dd2:
-                s2 = two_sum(ddX.hi, torch.dot(problem.d_lin, Xl_new_dd.lo))
-                ddX = DD(s2.hi, s2.lo + ddX.lo)
-            gap = dd_to_f64(dd_add(dd_add(trCX_dd, ddX), dd_neg(by_dd)))
-        else:
-            gap = trCX + dX - by
-        err5 = gap / (1.0 + trCX.abs() + by.abs())
-        if dd2:
-            t = _dd_dot(Sl_new_dd.hi, Xl_new_dd.hi)
-            cross = torch.dot(Sl_new_dd.hi, Xl_new_dd.lo) + torch.dot(Sl_new_dd.lo, Xl_new_dd.hi)
-            SXl = t.hi + (t.lo + cross)
-        else:
-            SXl = torch.dot(S_lin_new, X_lin_new)
-        err6 = err6 + SXl / (1.0 + dX.abs() + by.abs())
-    else:
-        gap = dd_to_f64(dd_add(trCX_dd, dd_neg(by_dd))) if dd_mode else trCX - by
-        err5 = gap / (1.0 + trCX.abs() + by.abs())
-
-    dimacs = err2 + err3 + err4 + err5.abs() + err6
-    if problem.nlmi > 0:
-        dimacs = dimacs + err1
-
-    new_state = IPMState(X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new,
-                         sigma=sigma)
-    if dd2:
-        new_state = IPMState(
-            X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new, sigma=sigma,
-            X_lo=tuple(x.lo for x in X_new_dds), S_lo=tuple(s_.lo for s_ in S_new_dds),
-            y_lo=y_new_dd.lo,
-            X_lin_lo=None if Xl_new_dd is None else Xl_new_dd.lo,
-            S_lin_lo=None if Sl_new_dd is None else Sl_new_dd.lo,
+    with span("steplen"):
+        dirs2 = tuple(
+            _group_dirs(g, nt, Rd, X, dely2, predict=False, eigmin_fn=eigmin_fn, sig_mu=sig_mu,
+                        RNT=RNT, T_dd=T, U_dd=U, Rd_dd=Rdd, tail=tl)
+            for g, nt, Rd, X, RNT, T, U, Rdd, tl in zip(problem.groups, nts, Rds, st.X, RNTs,
+                                                       T_dds, U_dds, Rd_dds, nt_tails)
         )
-    stats = StepStats(
-        obj=-by + problem.b_const,
-        mu=mu,
-        sigma=sigma,
-        err1=err1,
-        err2=err2,
-        err3=err3,
-        err4=err4,
-        err5=err5,
-        err6=err6,
-        dimacs=dimacs,
-        alpha_min=amin,
-        beta_min=bmin,
-        h_shifts=h_shifts,
-        h_ok=h_ok,
-        nt_ok=nt_ok,
-        cg_iter_pre=cg_pre,
-        cg_iter_cor=cg_cor,
-    )
+        if nlin:
+            if dd2:
+                ld2 = _lin_dirs_dd(problem, Xl_dd, Sl_dd, lpw_dd, Rd_lin_dd, dely2, predict=False,
+                                   U_lin=U_lin_dd)
+            else:
+                ld2 = _lin_dirs(problem, st, Si_lin, Rd_lin, dely2.hi if dd_mode else dely2,
+                                predict=False, sig_mu=sig_mu, RNT_lin=RNT_lin)
+            amin, bmin = ld2.alpha, ld2.beta
+        else:
+            amin, bmin = one, one
+        for d in dirs2:
+            amin = torch.minimum(amin, d.alpha.min())
+            bmin = torch.minimum(bmin, d.beta.min())
+        if mesh is not None:
+            amin, bmin = mesh.reduce(torch.stack([amin, bmin]), "blocks", "min")
+
+    with span("update"):
+        Xl_new_dd = Sl_new_dd = None
+        if dd2:
+            # iterate updates at dd resolution (`ipm/step.py:1138-1166`)
+            y_new_dd = dd_add(y_dd, dd_mul_f64(dely2, bmin))
+            X_new_dds = tuple(_dd_sym(dd_add(Xd, dd_mul_f64(DD(d.delX, d.delX_lo), amin)))
+                              for Xd, d in zip(X_dds, dirs2))
+            S_new_dds = tuple(_dd_sym(dd_add(Sd, dd_mul_f64(DD(d.delS, d.delS_lo), bmin)))
+                              for Sd, d in zip(S_dds, dirs2))
+            y_new = y_new_dd.hi
+            X_new = tuple(x.hi for x in X_new_dds)
+            S_new = tuple(s_.hi for s_ in S_new_dds)
+            if nlin:
+                Xl_new_dd = dd_add(Xl_dd, dd_mul_f64(ld2.delX, amin))
+                Sl_new_dd = dd_add(Sl_dd, dd_mul_f64(ld2.delS, bmin))
+            X_lin_new = Xl_new_dd.hi if nlin else None
+            S_lin_new = Sl_new_dd.hi if nlin else None
+        else:
+            y_new = st.y + bmin * (dd_to_f64(dely2) if dd_mode else dely2)
+            X_new = tuple(sym(X + amin * d.delX) for X, d in zip(st.X, dirs2))
+            S_new = tuple(sym(S + bmin * d.delS) for S, d in zip(st.S, dirs2))
+            X_lin_new = (st.X_lin + amin * ld2.delX) if nlin else None
+            S_lin_new = (st.S_lin + bmin * ld2.delS) if nlin else None
+
+        # ---- DIMACS errors (`check_convergence`, src/Solvers.jl:496-524).
+        # The iterates are feasible by construction (steplengths from certified
+        # lower bounds), so err2/err4 are zero unless the NT scaling itself was
+        # regularized; then report the Gershgorin violation of the new iterate
+        # ('lanczos': see `_psd_violation`).
+        normb = torch.linalg.norm(problem.b)
+        if dd_mode:
+            by_dd = _dd_dot(problem.b, y_new)
+            if dd2:
+                s2 = two_sum(by_dd.hi, torch.dot(problem.b, y_new_dd.lo))
+                by_dd = DD(s2.hi, s2.lo + by_dd.lo)
+            by = dd_to_f64(by_dd)
+            trCX_dd = _dd0(zero)
+        else:
+            by = torch.dot(problem.b, y_new)
+        err1 = torch.linalg.norm(Rp) / (1.0 + normb)
+        err2, err3, err4, err6, trCX = zero, zero, zero, zero, zero
+        for gi, (g, X, S, Rd) in enumerate(zip(problem.groups, X_new, S_new, Rds)):
+            normC = torch.sqrt((g.C**2).sum((-1, -2)))  # [nb]
+            viol = _psd_violation(torch.cat([X, S], dim=0), nt_suspect, cert_mode)
+            violX, violS = viol[: X.shape[0]], viol[X.shape[0] :]
+            CX = (g.C * X).sum((-1, -2))
+            # the group's block sums, completed over 'blocks' in one all-reduce
+            e234c = bsum(g, torch.stack([
+                (violX / (1.0 + normb)).sum(),
+                (torch.sqrt((Rd**2).sum((-1, -2))) / (1.0 + normC)).sum(),
+                (violS / (1.0 + normC)).sum(),
+                CX.sum(),
+            ]))
+            err2 = err2 + e234c[0]
+            err3 = err3 + e234c[1]
+            err4 = err4 + e234c[2]
+            trCX = trCX + e234c[3]
+            if dd_mode:
+                t = _trace_dot_dd(g.C, X)
+                if dd2:
+                    s2 = two_sum(t.hi, (g.C * X_new_dds[gi].lo).sum())
+                    t = DD(s2.hi, s2.lo + t.lo)
+                trCX_dd = dd_add(trCX_dd, bsum_dd(g, t))
+            if dd2:
+                # per-block <S, X> in dd: near the floor the f64 product noise
+                # exceeds the true barrier value
+                Xd2, Sd2 = X_new_dds[gi], S_new_dds[gi]
+                nb_ = X.shape[0]
+                p = two_prod(Sd2.hi.reshape(nb_, -1), Xd2.hi.reshape(nb_, -1))
+                t = dd_sum(p, axis=-1)  # [nb]
+                cross = (Sd2.hi * Xd2.lo + Sd2.lo * Xd2.hi).reshape(nb_, -1).sum(-1)
+                SX = t.hi + (t.lo + cross)
+            else:
+                SX = (S * X).sum((-1, -2))
+            err6 = err6 + bsum(g, (SX / (1.0 + CX.abs() + by.abs())).sum())
+        if nlin:
+            dX = torch.dot(problem.d_lin, X_lin_new)
+            normd = torch.linalg.norm(problem.d_lin)
+            err2 = err2 + (-X_lin_new.min()).clamp_min(0.0) / (1.0 + normb)
+            err3 = err3 + torch.linalg.norm(Rd_lin) / (1.0 + normd)
+            err4 = err4 + (-S_lin_new.min()).clamp_min(0.0) / (1.0 + normd)
+            if dd_mode:
+                ddX = _dd_dot(problem.d_lin, X_lin_new)
+                if dd2:
+                    s2 = two_sum(ddX.hi, torch.dot(problem.d_lin, Xl_new_dd.lo))
+                    ddX = DD(s2.hi, s2.lo + ddX.lo)
+                gap = dd_to_f64(dd_add(dd_add(trCX_dd, ddX), dd_neg(by_dd)))
+            else:
+                gap = trCX + dX - by
+            err5 = gap / (1.0 + trCX.abs() + by.abs())
+            if dd2:
+                t = _dd_dot(Sl_new_dd.hi, Xl_new_dd.hi)
+                cross = torch.dot(Sl_new_dd.hi, Xl_new_dd.lo) + torch.dot(Sl_new_dd.lo, Xl_new_dd.hi)
+                SXl = t.hi + (t.lo + cross)
+            else:
+                SXl = torch.dot(S_lin_new, X_lin_new)
+            err6 = err6 + SXl / (1.0 + dX.abs() + by.abs())
+        else:
+            gap = dd_to_f64(dd_add(trCX_dd, dd_neg(by_dd))) if dd_mode else trCX - by
+            err5 = gap / (1.0 + trCX.abs() + by.abs())
+
+        dimacs = err2 + err3 + err4 + err5.abs() + err6
+        if problem.nlmi > 0:
+            dimacs = dimacs + err1
+
+        new_state = IPMState(X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new,
+                             sigma=sigma)
+        if dd2:
+            new_state = IPMState(
+                X=X_new, S=S_new, y=y_new, X_lin=X_lin_new, S_lin=S_lin_new, sigma=sigma,
+                X_lo=tuple(x.lo for x in X_new_dds), S_lo=tuple(s_.lo for s_ in S_new_dds),
+                y_lo=y_new_dd.lo,
+                X_lin_lo=None if Xl_new_dd is None else Xl_new_dd.lo,
+                S_lin_lo=None if Sl_new_dd is None else Sl_new_dd.lo,
+            )
+        stats = StepStats(
+            obj=-by + problem.b_const,
+            mu=mu,
+            sigma=sigma,
+            err1=err1,
+            err2=err2,
+            err3=err3,
+            err4=err4,
+            err5=err5,
+            err6=err6,
+            dimacs=dimacs,
+            alpha_min=amin,
+            beta_min=bmin,
+            h_shifts=h_shifts,
+            h_ok=h_ok,
+            nt_ok=nt_ok,
+            cg_iter_pre=cg_pre,
+            cg_iter_cor=cg_cor,
+        )
     return new_state, stats

@@ -23,6 +23,9 @@ runs chol(X), the congruence L_x^T S L_x and its Jacobi eigendecomposition
 on dd pairs (`ops/dd_linalg.py`: the kernels D2, D3 and D1 on a CUDA
 tensor), so the congruent spectrum (~mu) survives below the f64 formation
 noise u64 ||M||; its dd low words come back as `NTTails`.
+
+The eigen-work of either scaling (`_eigh`, the dd sweeps, the 'svd'
+method's SVD) runs inside the span ``ltt.eig`` (`utils/timers.py:span`).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.timers import span
 from .dd import DD
 from .dd_linalg import (dd_chol, dd_const, dd_div, dd_eigh_jacobi, dd_matmul, dd_mul, dd_sqrt,
                         dd_sym, dd_transpose)
@@ -80,7 +84,8 @@ def nt_scale(
         cboth = chol_reg(torch.cat([X, S], dim=0), reg_eps, max_reg, backend=chol_backend)
         Lx, Ls = cboth.L[:nb], cboth.L[nb:]
         # singular values come descending, as from jnp.linalg.svd
-        _, D, Vt = svd_or_nan(Ls.mT @ Lx)
+        with span("eig"):
+            _, D, Vt = svd_or_nan(Ls.mT @ Lx)
         V = Vt.mT
         ok = torch.as_tensor(cboth.ok, device=X.device)
         shifted = cboth.shifts > 0
@@ -96,7 +101,8 @@ def nt_scale(
         Lx = cx.L
         # eig(L_x^T S L_x) = V D^2 V^T with the same V as svd(L_s^T L_x)
         M = Lx.mT @ S @ Lx
-        lam, V = _eigh(sym(M), eigh_backend)
+        with span("eig"):
+            lam, V = _eigh(sym(M), eigh_backend)
         # Sylvester: S is PD iff every congruent eigenvalue is positive.
         # Below -1e-2 the scaling has failed; small negatives are clamped
         # relative to the spectrum top, like the reference's graduated
@@ -171,8 +177,9 @@ def nt_scale_dd(
     M = dd_sym(dd_matmul(dd_transpose(Lx), dd_matmul(S, Lx)))
     # warm start from the f64 eigenbasis of M.hi: the dd sweeps then only
     # clean up the ~u64 off-diagonal mass
-    _, V0 = _eigh(sym(M.hi), eigh_backend)
-    lam, V = dd_eigh_jacobi(M, sweeps=sweeps, V0=V0)
+    with span("eig"):
+        _, V0 = _eigh(sym(M.hi), eigh_backend)
+        lam, V = dd_eigh_jacobi(M, sweeps=sweeps, V0=V0)
 
     lam_max = lam.hi[..., -1:].clamp_min(1e-300)
     s_indef = (lam.hi[..., 0] <= 0.0).any()

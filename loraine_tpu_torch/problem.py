@@ -20,6 +20,10 @@ entries regrouped by target cell so that the adjoint sum_j y_j A_j is a
 gather and fixed-shape sums (`ops/schur.py` `Aadj`). The JAX package's
 scatter-add would be float atomics on a card, whose result changes from run
 to run in the last bit.
+
+Each entry (`problem_from_sdpa`, `problem_from_dense`, `problem_from_dict`)
+runs inside the span ``ltt.build`` (`utils/timers.py:span`), with
+`_build_problem`'s three phases as its children.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 
 from .io.sdpa import SDPAData, read_sdpa
 from .utils.device import resolve_device
+from .utils.timers import span
 
 __all__ = [
     "AdjLayout",
@@ -322,7 +327,23 @@ def adjoint_layout(
     dtype: torch.dtype, device: torch.device,
 ) -> AdjLayout:
     """The `AdjLayout` of a padded COO ``rows/cols/vals [nb, n, s]`` (numpy),
-    on ``device`` (no JAX counterpart).
+    on ``device`` (no JAX counterpart; the arrays of `_adjoint_arrays`)."""
+    return _upload_adj(_adjoint_arrays(rows, cols, vals, m), dtype, device)
+
+
+def _upload_adj(host: AdjLayout, dtype: torch.dtype, device: torch.device) -> AdjLayout:
+    """A host `AdjLayout` of numpy arrays on ``device``."""
+    return AdjLayout(
+        j=torch.as_tensor(host.j).to(device=device),
+        v=torch.as_tensor(host.v).to(device=device, dtype=dtype),
+        rows=torch.as_tensor(host.rows).to(device=device),
+        cells=torch.as_tensor(host.cells).to(device=device),
+    )
+
+
+def _adjoint_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, m: int) -> AdjLayout:
+    """`AdjLayout`'s arrays on the host (numpy) for a padded COO ``rows/
+    cols/vals [nb, n, s]``.
 
     Rows are K = ceil(sqrt(kmax)) entries wide, kmax being the most entries
     any cell has, so both levels stay near the entry count even when one
@@ -365,12 +386,7 @@ def adjoint_layout(
         cell_of_row = np.repeat(np.arange(cells.size), nr)
         Rows[b, cell_of_row, np.arange(nr.sum()) - np.repeat(row0, nr)] = np.arange(nr.sum())
         Cells[b, : cells.size] = cells
-    return AdjLayout(
-        j=torch.as_tensor(J).to(device=device),
-        v=torch.as_tensor(V).to(device=device, dtype=dtype),
-        rows=torch.as_tensor(Rows).to(device=device),
-        cells=torch.as_tensor(Cells).to(device=device),
-    )
+    return AdjLayout(j=J, v=V, rows=Rows, cells=Cells)
 
 
 def _build_problem(
@@ -388,23 +404,72 @@ def _build_problem(
     sparse_max_nnz: Optional[int] = None,
     sparse_min_n: int = 256,
 ) -> SDPProblem:
-    """Port of `loraine_tpu/problem.py:_build_problem`."""
+    """Port of `loraine_tpu/problem.py:_build_problem`, in three spans
+    (`utils/timers.py:span`): ``ltt.build.factors`` (the rank-1 factors),
+    ``ltt.build.layout`` (the storage choice and each group's host arrays:
+    padded stacks, the sparse COO slots and `AdjLayout`) and
+    ``ltt.build.upload`` (the host arrays copied to ``device``)."""
     n = int(np.asarray(b).shape[0])
     nlmi = len(blocks)
 
     use_rank1 = datarank == -1
     factors: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * nlmi
-    if use_rank1:
-        for i, blk in enumerate(blocks):
-            f = _rank1_factor_block(blk, n)
-            if f is None:
-                use_rank1 = False
-                break
-            factors[i] = f
+    with span("build.factors"):
+        if use_rank1:
+            for i, blk in enumerate(blocks):
+                f = _rank1_factor_block(blk, n)
+                if f is None:
+                    use_rank1 = False
+                    break
+                factors[i] = f
 
-    # storage decision (per problem): rank-1 when it applies, else the
-    # modeled-cost choice, an explicit nnz threshold, or sparse when dense
-    # data would not fit
+    with span("build.layout"):
+        mode = _storage_mode(blocks, n, use_rank1, storage, max_dense_gb, sparse_max_nnz,
+                             sparse_min_n)
+        layouts = [_group_layout(blocks, idxs, m_pad, n, mode, factors)
+                   for m_pad, idxs in _buckets(blocks, nlmi, n, pad_multiple)]
+
+    with span("build.upload"):
+        def dev(x: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(device=device, dtype=dtype)
+
+        groups = []
+        for host, meta in layouts:
+            sparse = {}
+            if mode == "sparse":
+                sparse = dict(
+                    Arows=torch.as_tensor(host["Arows"]).to(device=device),
+                    Acols=torch.as_tensor(host["Acols"]).to(device=device),
+                    Avals=dev(host["Avals"]),
+                    adj=_upload_adj(host["adj"], dtype, device),
+                )
+            groups.append(BlockGroup(
+                C=dev(host["C"]),
+                A=dev(host["A"]) if mode == "dense" else None,
+                B=dev(host["B"]) if mode == "rank1" else None,
+                Bsgn=dev(host["Bsgn"]) if mode == "rank1" else None,
+                **meta, **sparse,
+            ))
+
+        nlin = 0 if C_lin is None else int(np.asarray(C_lin).shape[1])
+        return SDPProblem(
+            groups=tuple(groups),
+            b=dev(b),
+            C_lin=dev(C_lin) if nlin else None,
+            d_lin=dev(d_lin) if nlin else None,
+            n=n,
+            nlin=nlin,
+            nlmi=nlmi,
+            b_const=float(b_const),
+            sum_msizes=sum(g.m * g.nb for g in groups),
+        )
+
+
+def _storage_mode(blocks: List[_BlockData], n: int, use_rank1: bool, storage: str,
+                  max_dense_gb: float, sparse_max_nnz: Optional[int], sparse_min_n: int) -> str:
+    """The storage of the whole problem: rank-1 when it applies, else the
+    modeled-cost choice, an explicit nnz threshold, or sparse when dense
+    data would not fit."""
     mode = storage
     if use_rank1:
         mode = "rank1"
@@ -432,7 +497,11 @@ def _build_problem(
         raise ValueError(f"storage must be auto/dense/sparse, got {storage!r}")
     if mode == "rank1" and not use_rank1:
         raise ValueError("rank-1 storage requires datarank=-1 and factorizable data")
+    return mode
 
+
+def _buckets(blocks: List[_BlockData], nlmi: int, n: int, pad_multiple: int):
+    """(padded size, block indices) of each group, by ascending size."""
     buckets = {}
     for i, blk in enumerate(blocks):
         m_pad = _round_up(blk.m0, pad_multiple)
@@ -446,91 +515,64 @@ def _build_problem(
         if m_max <= 128 and merged_bytes <= 32 * 1024**2:
             idxs = [i for k in sorted(buckets) for i in buckets[k]]
             buckets = {m_max: idxs}
+    return [(m_pad, buckets[m_pad]) for m_pad in sorted(buckets)]
 
-    def dev(x: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(device=device, dtype=dtype)
 
-    groups = []
-    for m_pad in sorted(buckets):
-        idxs = buckets[m_pad]
-        Cstack, Astack, Bstack, Sgnstack, sizes, coo_blocks = [], [], [], [], [], []
-        for i in idxs:
-            blk = blocks[i]
-            m0 = blk.m0
-            sizes.append(m0)
-            Cp = np.zeros((m_pad, m_pad))
-            Cp[:m0, :m0] = blk.C
-            Cp[range(m0, m_pad), range(m0, m_pad)] = 1.0  # identity tail
-            Cstack.append(Cp)
-            if mode == "rank1":
-                B, sgn = factors[i]
-                Bp = np.zeros((n, m_pad))
-                Bp[:, :m0] = B
-                Bstack.append(Bp)
-                Sgnstack.append(sgn)
-            elif mode == "sparse":
-                coo_blocks.append(_expand_coo(blk, n))
-            else:
-                Ap = np.zeros((n, m_pad, m_pad))
-                Ap[:, :m0, :m0] = blk.densify(n)
-                Astack.append(Ap)
-
-        sparse = {}
-        if mode == "sparse":
-            # padded slot layout of the JAX package: per matrix, its entries
-            # in COO order in slots 0..count-1, pads (0, 0, 0.0)
-            s_grp = max(max((int(c.max()) if c.size else 0) for _, c in coo_blocks), 1)
-            Arows = np.zeros((len(idxs), n, s_grp), dtype=np.int64)
-            Acols = np.zeros((len(idxs), n, s_grp), dtype=np.int64)
-            Avals = np.zeros((len(idxs), n, s_grp))
-            for bpos, ((jf, rf, cf, vf), counts) in enumerate(coo_blocks):
-                order = np.argsort(jf, kind="stable")
-                jf, rf, cf, vf = jf[order], rf[order], cf[order], vf[order]
-                slot = np.concatenate([np.arange(c) for c in counts]) if jf.size else jf
-                Arows[bpos, jf, slot] = rf
-                Acols[bpos, jf, slot] = cf
-                Avals[bpos, jf, slot] = vf
-            sparse = dict(
-                Arows=torch.as_tensor(Arows).to(device=device),
-                Acols=torch.as_tensor(Acols).to(device=device),
-                Avals=dev(Avals),
-                adj=adjoint_layout(Arows, Acols, Avals, m_pad, dtype, device),
-            )
-            data_norms = tuple(float(np.sqrt(np.sum(Avals[i] ** 2))) for i in range(len(idxs)))
-        elif mode == "rank1":
-            data_norms = tuple(
-                float(np.sqrt(np.sum(np.sum(B**2, axis=-1) ** 2))) for B in Bstack
-            )
+def _group_layout(blocks: List[_BlockData], idxs: List[int], m_pad: int, n: int, mode: str,
+                  factors) -> Tuple[dict, dict]:
+    """One group's host arrays (numpy, by `BlockGroup` field) and its
+    host-side fields."""
+    Cstack, Astack, Bstack, Sgnstack, sizes, coo_blocks = [], [], [], [], [], []
+    for i in idxs:
+        blk = blocks[i]
+        m0 = blk.m0
+        sizes.append(m0)
+        Cp = np.zeros((m_pad, m_pad))
+        Cp[:m0, :m0] = blk.C
+        Cp[range(m0, m_pad), range(m0, m_pad)] = 1.0  # identity tail
+        Cstack.append(Cp)
+        if mode == "rank1":
+            B, sgn = factors[i]
+            Bp = np.zeros((n, m_pad))
+            Bp[:, :m0] = B
+            Bstack.append(Bp)
+            Sgnstack.append(sgn)
+        elif mode == "sparse":
+            coo_blocks.append(_expand_coo(blk, n))
         else:
-            data_norms = tuple(float(np.sqrt(np.sum(A**2))) for A in Astack)
-        groups.append(
-            BlockGroup(
-                C=dev(np.stack(Cstack)),
-                A=dev(np.stack(Astack)) if mode == "dense" else None,
-                B=dev(np.stack(Bstack)) if mode == "rank1" else None,
-                Bsgn=dev(np.stack(Sgnstack)) if mode == "rank1" else None,
-                m=m_pad,
-                nb=len(idxs),
-                orig_sizes=tuple(sizes),
-                orig_indices=tuple(idxs),
-                data_norms=data_norms,
-                C_norms=tuple(float(np.linalg.norm(Ci)) for Ci in Cstack),
-                **sparse,
-            )
-        )
+            Ap = np.zeros((n, m_pad, m_pad))
+            Ap[:, :m0, :m0] = blk.densify(n)
+            Astack.append(Ap)
 
-    nlin = 0 if C_lin is None else int(np.asarray(C_lin).shape[1])
-    return SDPProblem(
-        groups=tuple(groups),
-        b=dev(b),
-        C_lin=dev(C_lin) if nlin else None,
-        d_lin=dev(d_lin) if nlin else None,
-        n=n,
-        nlin=nlin,
-        nlmi=nlmi,
-        b_const=float(b_const),
-        sum_msizes=sum(g.m * g.nb for g in groups),
-    )
+    host = {"C": np.stack(Cstack)}
+    if mode == "sparse":
+        # padded slot layout of the JAX package: per matrix, its entries
+        # in COO order in slots 0..count-1, pads (0, 0, 0.0)
+        s_grp = max(max((int(c.max()) if c.size else 0) for _, c in coo_blocks), 1)
+        Arows = np.zeros((len(idxs), n, s_grp), dtype=np.int64)
+        Acols = np.zeros((len(idxs), n, s_grp), dtype=np.int64)
+        Avals = np.zeros((len(idxs), n, s_grp))
+        for bpos, ((jf, rf, cf, vf), counts) in enumerate(coo_blocks):
+            order = np.argsort(jf, kind="stable")
+            jf, rf, cf, vf = jf[order], rf[order], cf[order], vf[order]
+            slot = np.concatenate([np.arange(c) for c in counts]) if jf.size else jf
+            Arows[bpos, jf, slot] = rf
+            Acols[bpos, jf, slot] = cf
+            Avals[bpos, jf, slot] = vf
+        host.update(Arows=Arows, Acols=Acols, Avals=Avals,
+                    adj=_adjoint_arrays(Arows, Acols, Avals, m_pad))
+        data_norms = tuple(float(np.sqrt(np.sum(Avals[i] ** 2))) for i in range(len(idxs)))
+    elif mode == "rank1":
+        host.update(B=np.stack(Bstack), Bsgn=np.stack(Sgnstack))
+        data_norms = tuple(
+            float(np.sqrt(np.sum(np.sum(B**2, axis=-1) ** 2))) for B in Bstack
+        )
+    else:
+        host["A"] = np.stack(Astack)
+        data_norms = tuple(float(np.sqrt(np.sum(A**2))) for A in Astack)
+    meta = dict(m=m_pad, nb=len(idxs), orig_sizes=tuple(sizes), orig_indices=tuple(idxs),
+                data_norms=data_norms, C_norms=tuple(float(np.linalg.norm(Ci)) for Ci in Cstack))
+    return host, meta
 
 
 def problem_from_dense(
@@ -560,15 +602,16 @@ def problem_from_dense(
         sparse for small-support data with large n).
       device: where the data lives ('cuda' by default; raises without a card).
     """
-    device = resolve_device(device)
-    blocks = [
-        _BlockData(C=np.asarray(C, dtype=np.float64), A_dense=np.asarray(A, dtype=np.float64))
-        for A, C in zip(As, Cs)
-    ]
-    return _build_problem(
-        blocks, np.asarray(b, dtype=np.float64), C_lin, d_lin, b_const, datarank,
-        pad_multiple, dtype, device, storage=storage,
-    )
+    with span("build"):
+        device = resolve_device(device)
+        blocks = [
+            _BlockData(C=np.asarray(C, dtype=np.float64), A_dense=np.asarray(A, dtype=np.float64))
+            for A, C in zip(As, Cs)
+        ]
+        return _build_problem(
+            blocks, np.asarray(b, dtype=np.float64), C_lin, d_lin, b_const, datarank,
+            pad_multiple, dtype, device, storage=storage,
+        )
 
 
 def problem_from_sdpa(
@@ -586,48 +629,49 @@ def problem_from_sdpa(
     internal dual form: y = x, b = -c, A_j = -F_j, C = -F_0; diagonal blocks
     map to the LP cone with C_lin[j, l] = -diag(F_j)_l, d_lin = -diag(F_0).
     The reported objective ``-b^T y`` then equals SDPA's optimal ``c^T x``."""
-    device = resolve_device(device)
-    data = read_sdpa(source) if isinstance(source, str) else source
-    n = data.nvar
+    with span("build"):
+        device = resolve_device(device)
+        data = read_sdpa(source) if isinstance(source, str) else source
+        n = data.nvar
 
-    blocks: List[_BlockData] = []
-    lp_cols: List[np.ndarray] = []
-    lp_d: List[np.ndarray] = []
-    for bs, (mat, row, col, val) in zip(data.block_sizes, data.blocks):
-        if bs < 0:
-            Cl = np.zeros((n, -bs))
-            dl = np.zeros(-bs)
-            f0 = mat == 0  # diagonal blocks: row == col
-            np.add.at(dl, row[f0], -val[f0])
-            np.add.at(Cl, (mat[~f0] - 1, row[~f0]), -val[~f0])
-            lp_cols.append(Cl)
-            lp_d.append(dl)
-            continue
-        C = np.zeros((bs, bs))
-        f0 = mat == 0
-        np.add.at(C, (row[f0], col[f0]), -val[f0])
-        offd = f0 & (row != col)
-        np.add.at(C, (col[offd], row[offd]), -val[offd])
-        fj = ~f0
-        blocks.append(
-            _BlockData(C=C, A_coo=(mat[fj] - 1, row[fj], col[fj], -val[fj]))
+        blocks: List[_BlockData] = []
+        lp_cols: List[np.ndarray] = []
+        lp_d: List[np.ndarray] = []
+        for bs, (mat, row, col, val) in zip(data.block_sizes, data.blocks):
+            if bs < 0:
+                Cl = np.zeros((n, -bs))
+                dl = np.zeros(-bs)
+                f0 = mat == 0  # diagonal blocks: row == col
+                np.add.at(dl, row[f0], -val[f0])
+                np.add.at(Cl, (mat[~f0] - 1, row[~f0]), -val[~f0])
+                lp_cols.append(Cl)
+                lp_d.append(dl)
+                continue
+            C = np.zeros((bs, bs))
+            f0 = mat == 0
+            np.add.at(C, (row[f0], col[f0]), -val[f0])
+            offd = f0 & (row != col)
+            np.add.at(C, (col[offd], row[offd]), -val[offd])
+            fj = ~f0
+            blocks.append(
+                _BlockData(C=C, A_coo=(mat[fj] - 1, row[fj], col[fj], -val[fj]))
+            )
+
+        return _build_problem(
+            blocks,
+            b=-np.asarray(data.c, dtype=np.float64),
+            C_lin=np.concatenate(lp_cols, axis=1) if lp_cols else None,
+            d_lin=np.concatenate(lp_d) if lp_d else None,
+            b_const=0.0,
+            datarank=datarank,
+            pad_multiple=pad_multiple,
+            dtype=dtype,
+            device=device,
+            storage=storage,
+            max_dense_gb=max_dense_gb,
+            sparse_max_nnz=sparse_max_nnz,
+            sparse_min_n=sparse_min_n,
         )
-
-    return _build_problem(
-        blocks,
-        b=-np.asarray(data.c, dtype=np.float64),
-        C_lin=np.concatenate(lp_cols, axis=1) if lp_cols else None,
-        d_lin=np.concatenate(lp_d) if lp_d else None,
-        b_const=0.0,
-        datarank=datarank,
-        pad_multiple=pad_multiple,
-        dtype=dtype,
-        device=device,
-        storage=storage,
-        max_dense_gb=max_dense_gb,
-        sparse_max_nnz=sparse_max_nnz,
-        sparse_min_n=sparse_min_n,
-    )
 
 
 def problem_from_dict(
@@ -651,23 +695,24 @@ def problem_from_dict(
     Storage follows `_build_problem`'s 'auto' rule, as in the JAX package.
     ``device``: where the problem lives ('cuda' by default; raises without
     a card)."""
-    device = resolve_device(device)
-    n = int(d.get("nvar", len(np.atleast_1d(d.get("c")))))
-    if "As" in d:
-        As = [np.asarray(a) for a in d["As"]]
-        Cs = [np.asarray(c) for c in d["Cs"]]
-        b = np.asarray(d["b"], dtype=np.float64)
-    else:
-        As = [-np.asarray(a) for a in d["A"]]
-        Cs = [-np.asarray(c) for c in d["C"]]
-        b = -np.asarray(d["c"], dtype=np.float64)
-    b_const = -float(d.get("b_const", 0.0))
-    nlin = int(d.get("nlin", 0))
-    C_lin = d_lin = None
-    if nlin > 0:
-        C_lin = -np.asarray(d["C_lin"]) if "C_lin" in d else None
-        d_lin = -np.asarray(d["d"]).reshape(-1)
-    blocks = [_BlockData(C=C, A_dense=A) for A, C in zip(As, Cs)]
-    if b.shape[0] != n:
-        raise ValueError(f"nvar={n} inconsistent with objective length {b.shape[0]}")
-    return _build_problem(blocks, b, C_lin, d_lin, b_const, datarank, pad_multiple, dtype, device)
+    with span("build"):
+        device = resolve_device(device)
+        n = int(d.get("nvar", len(np.atleast_1d(d.get("c")))))
+        if "As" in d:
+            As = [np.asarray(a) for a in d["As"]]
+            Cs = [np.asarray(c) for c in d["Cs"]]
+            b = np.asarray(d["b"], dtype=np.float64)
+        else:
+            As = [-np.asarray(a) for a in d["A"]]
+            Cs = [-np.asarray(c) for c in d["C"]]
+            b = -np.asarray(d["c"], dtype=np.float64)
+        b_const = -float(d.get("b_const", 0.0))
+        nlin = int(d.get("nlin", 0))
+        C_lin = d_lin = None
+        if nlin > 0:
+            C_lin = -np.asarray(d["C_lin"]) if "C_lin" in d else None
+            d_lin = -np.asarray(d["d"]).reshape(-1)
+        blocks = [_BlockData(C=C, A_dense=A) for A, C in zip(As, Cs)]
+        if b.shape[0] != n:
+            raise ValueError(f"nvar={n} inconsistent with objective length {b.shape[0]}")
+        return _build_problem(blocks, b, C_lin, d_lin, b_const, datarank, pad_multiple, dtype, device)

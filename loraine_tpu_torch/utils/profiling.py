@@ -15,20 +15,18 @@ options; on the card kit=0 'dd2' takes the dd NT scaling by default) and
 theta1-dd2-f64nt (theta1-dd2 under nt_precision='f64'); default: tru9,
 vib9, thetaG11.
 For each case, on the card: the problem load; one warm solve (kernel build,
-cuBLAS handles) and two timed solves; one solve with the step's phase
-functions wrapped in `torch.cuda.synchronize()` (ms per iteration of each;
-the syncs inflate the total, and `_schur` contains `schur_group` and
-`schur_lp`), with the CG iterations per IPM iteration done in the B3
-wrapper (`pcg_kernel_ff`) and in the f64 polish; and a `torch.profiler`
-trace of two warm steps from the iterate halfway through the solve: the
-device kernels' time over the traced wall (busy share), the top kernels,
-the device time and launches of the kernels of csrc/jacobi.cu, of
+cuBLAS handles) and two timed solves; and a `torch.profiler` trace of two
+warm steps from the iterate halfway through the solve: the device kernels'
+time over the traced wall (busy share), the device ms a step of each of
+the step's phase spans (``ltt.step`` around each step and the spans inside
+it, `ipm/step.py`; a span's time includes its children's), the top
+kernels, the device time and launches of the kernels of csrc/jacobi.cu, of
 csrc/pcg.cu (their shares of device time, and those of B3, B4 and the
 polish apart) and of csrc/dd_linalg.cu (D1-D3), the wrappers' calls per
-padded size mp and per regime, and the device kernels launched per step. Prints the card's name and power
-limit, then one JSON line per case; ``--out`` also writes all of them to
-FILE. ``--quick`` times one solve after the warm one and leaves out the
-synced run (for the slow precision-tier cases).
+padded size mp and per regime, and the device kernels launched per step.
+Prints the card's name and power limit, then one JSON line per case;
+``--out`` also writes all of them to FILE. ``--quick`` times one solve
+after the warm one (for the slow precision-tier cases).
 
 ``--once`` solves each case once and prints its status, objective,
 iterations, CG iterations, solve time and median time per iteration; with
@@ -50,6 +48,7 @@ import torch
 import loraine_tpu_torch as ltt
 import loraine_tpu_torch.ipm.step as S
 from loraine_tpu_torch.ops import jacobi as tj, pcg as tp
+from loraine_tpu_torch.utils.timers import PREFIX, span
 
 # bench.py:80-83 (tru9, vib9), :86-87 (thetaG11) and maxG11's rank-1 options
 KIT0 = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "verb": 0}
@@ -149,14 +148,6 @@ CASES = {
     "maxG11-dd": ("tests/data/maxG11.dat-s", dict(KIT0, datarank=-1, eDIMACS=1e-8,
                                                   precision="dd")),
 }
-# the functions `ipm/step.py` imports or defines that the synced run times
-# (those a version of the step does not have are left out)
-PHASES = ("nt_scale", "eig_bounds_jacobi", "_schur", "schur_group", "schur_lp", "chol_reg",
-          "tri_inv", "Aop", "Aadj", "prep_alpha", "pcg_kernel_ff", "cg_plain", "_polish")
-# the CG solvers whose iterations the synced run counts: B3 inside its
-# refinement wrapper, and the f64 polish after it (`cg_plain` on the CG
-# route of a version without `_polish`)
-CG_COUNTED = {"pcg_kernel_ff": "b3", "_polish": "polish", "cg_plain": "polish"}
 # the device kernels of csrc/jacobi.cu and csrc/pcg.cu, as the trace names them
 JACOBI_KERNELS = ("sm_kernel<", "cluster_kernel<", "round_kernel", "gersh_kernel",
                   "identity_kernel", "diag_kernel")
@@ -167,39 +158,6 @@ DD_KERNELS = ("dd_jacobi_kernel<", "dd_chol_kernel(", "dd_chol_global_kernel",
 # B3, B4 and the polish are instantiations of one template (type, MINRES):
 # the trace tells them apart by its arguments
 PCG_ARGS = {"B3": "<double, true>", "B4": "<float, false>", "polish": "<double, false>"}
-
-
-def synced_phases(problem, opts):
-    """(ms per iteration of each phase, ms per iteration of the solve, CG
-    iterations per IPM iteration in B3 and in the polish), with every phase
-    call wrapped in device syncs."""
-    names = [k for k in PHASES if hasattr(S, k)]
-    acc = dict.fromkeys(names, 0.0)
-    cg_its = {"b3": 0, "polish": 0}
-    orig = {k: getattr(S, k) for k in names}
-
-    def wrap(name, f):
-        def g(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = f(*a, **kw)
-            torch.cuda.synchronize()
-            acc[name] += time.perf_counter() - t0
-            if name in CG_COUNTED:
-                cg_its[CG_COUNTED[name]] += int(out[1])
-            return out
-        return g
-
-    for k in names:
-        setattr(S, k, wrap(k, orig[k]))
-    try:
-        r = ltt.solve(problem, opts, device="cuda")
-    finally:
-        for k in names:
-            setattr(S, k, orig[k])
-    it = r.iterations
-    return ({k: 1e3 * v / it for k, v in acc.items()}, 1e3 * r.solve_time / it,
-            {k: v / it for k, v in cg_its.items()})
 
 
 def device_rows(prof):
@@ -219,6 +177,19 @@ def device_rows(prof):
         rows = [r for r in allrows if not r[0].startswith(("aten::", "cuda"))]
     rows.sort(key=lambda x: -x[1])
     return rows
+
+
+def span_rows(prof, steps: int):
+    """Device ms a step and calls a step of each ``ltt.`` span in a trace
+    (a span's device time includes its children's)."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith(PREFIX):
+            dt = getattr(e, "device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "cuda_time_total", 0.0)
+            out[e.key] = {"device_ms": dt / 1e3 / steps, "calls": e.count / steps}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_ms"]))
 
 
 def _share(rows, names, busy):
@@ -258,7 +229,8 @@ def traced(problem, opts, state, done: int, steps: int = 2):
         t0 = time.perf_counter()
         st = state
         for _ in range(steps):
-            st, _ = S.step(problem, st, o, **kw)
+            with span("step"):
+                st, _ = S.step(problem, st, o, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
@@ -270,6 +242,7 @@ def traced(problem, opts, state, done: int, steps: int = 2):
     dd_ms, dd_share, dd_n = _share(rows, DD_KERNELS, busy)
     return {"steps": steps, "wall_ms": 1e3 * wall, "device_ms": busy,
             "busy_share": busy / (1e3 * wall), "device_launches_per_step": launched / steps,
+            "spans": span_rows(prof, steps),
             "top": rows[:14],
             "jacobi_device_ms": jac_ms, "jacobi_share": jac_share,
             "jacobi_kernel_launches": jac_n,
@@ -318,7 +291,6 @@ def profile_case(src, opts, quick: bool = False) -> dict:
     load_s = time.perf_counter() - t0
     r = ltt.solve(p, opts, device="cuda")  # warm
     runs = [ltt.solve(p, opts, device="cuda") for _ in range(1 if quick else 2)]
-    phases, ms_it, cg_its = ({}, None, {}) if quick else synced_phases(p, opts)
     done = r.iterations // 2
     mid = ltt.solve(p, dict(opts, maxit=done), device="cuda").final_state
     return {
@@ -326,8 +298,6 @@ def profile_case(src, opts, quick: bool = False) -> dict:
         "cg_iterations": r.cg_iterations,
         "solve_s": [x.solve_time for x in runs],
         "median_iter_ms": [1e3 * float(np.median(x.iteration_times)) for x in runs],
-        "synced_phase_ms_per_iter": phases, "synced_ms_per_iter": ms_it,
-        "synced_cg_its_per_iter": cg_its,
         "trace": traced(p, opts, mid, done),
     }
 
@@ -338,7 +308,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="write the results of all cases to this JSON file")
     ap.add_argument("--once", action="store_true", help="one solve per case, no profile")
     ap.add_argument("--quick", action="store_true",
-                    help="one timed solve after the warm one and no synced run")
+                    help="one timed solve after the warm one")
     ap.add_argument("--plain-b1", action="store_true",
                     help="with --once: B1's plain version on the card instead of the kernel")
     args = ap.parse_args(argv)

@@ -418,3 +418,28 @@ def test_dd_eigh_card_matches_cpu(warm):
     assert float(diff.abs().max()) < 2e-29
     VtV = dd_to_f64(dl.dd_matmul(dl.dd_transpose(V), V)).cpu()
     assert float((VtV - torch.eye(7, dtype=torch.float64)).abs().max()) < 1e-28
+
+
+@pytest.mark.cuda
+def test_spans_link_device_work_and_add_no_device_range():
+    """A profiled solve on the card: one ``ltt.step`` an iteration, and the
+    spans (operator-scope ranges, `utils/timers.py:span`) leave no range of
+    their own among the device activities."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the device side of a trace exists only on a card")
+    import os
+
+    import loraine_tpu_torch as ltt
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "tru3.dat-s")
+    opts = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
+    problem = ltt.problem_from_sdpa(path, device="cuda")
+    ltt.solve(problem, opts, device="cuda")  # warm: kernel build, handles
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = ltt.solve(problem, opts, device="cuda")
+    events = prof.profiler.kineto_results.events()
+    device = [e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert device, "the trace holds no device activity"
+    assert not [n for n in device if n.startswith("ltt.")]
+    assert sum(e.name() == "ltt.step" for e in events) == res.iterations == 12
