@@ -10,12 +10,16 @@ Phases:
      one nvcc each for sm_90a, started together) from the checkout.
   2. each Jacobi kernel against its plain PyTorch version on the card, at
      the solver's shapes (nb, m) in {(1, 16), (2, 16), (1, 56), (2, 56),
-     (1, 144), (1, 152), (1, 800), (2, 800), (1, 808), (1, 1000), (1, 2000)}
+     (1, 144), (1, 145), (1, 800), (2, 800), (1, 808), (1, 1000), (1, 2000)}
      (tru3, vib3 and control1, theta1, vib9's and tru9's groups, maxG11,
      thetaG11, the tori of phase 41) and at the edges of the kernel's
-     regimes, (1, 128), (4, 144), (1, 176), (1, 192), (1, 912), (2, 1008)
-     and (1, 2416) (B1: "sm" below mp 144 or past one wave of clusters,
-     "cluster" to 912, "grid" to 2400, then "rounds"; B2: "sm" below 192),
+     regimes, (1, 128), (4, 144), (8, 144), (1, 152), (1, 160), (2, 160),
+     (1, 176), (1, 192), (1, 912), (2, 1008) and (1, 2416) ("dsmem" from mp
+     64 to 400 (B1) or 480 (B2) for up to 7 matrices, beside every other
+     one-launch regime that fits there (time, us a round, bit equality),
+     and so at its edges (1, 400), (1, 416), (1, 480), (1, 496), (7, 160)
+     and (8, 160) with no plain version; else "sm" where it fits,
+     "cluster" to 912, "grid" to 2400, then "rounds"),
      on clustered (IPM-like) and random spectra, (1, 2000), (2, 1008) and
      (1, 2416) with one sweep: the contracts (after the sweep schedule),
      whether B1 equals the plain version bit for bit (a check in every
@@ -318,15 +322,18 @@ VIB9_REF = (0.01276683, 34)
 THETAG11_REF = (400.00023146, 17)
 MAXG11_REF = (629.16479325, 14)
 OBJ_RTOL = 1e-5
-SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 128), (1, 144), (4, 144), (1, 152),
-          (1, 176), (1, 192), (1, 800), (2, 800), (1, 808), (1, 912), (1, 1000), (1, 2000),
-          (2, 1008), (1, 2416)]
+SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 128), (1, 144), (4, 144), (8, 144), (1, 145),
+          (1, 152), (1, 160), (2, 160), (1, 176), (1, 192), (1, 800), (2, 800), (1, 808),
+          (1, 912), (1, 1000), (1, 2000), (2, 1008), (1, 2416)]
 # phase 2 runs these with one sweep (the plain version takes seconds a sweep
 # there): bit equality and certified bounds, not a converged seed
 ONE_SWEEP = ((1, 2000), (2, 1008), (1, 2416))
 # (nb, mp) where phase 2 also forces "grid" beside "cluster" (ROADMAP Queue B
 # item 1: a one-launch kernel with no cluster barrier)
 GRID_VS_CLUSTER = ((1, 800), (2, 800), (1, 816))
+# (nb, mp) at the edges of "dsmem" (ops/jacobi.py::DSMEM_TO, DSMEM_WAVE),
+# where phase 2 forces it beside every other one-launch regime that fits
+DSMEM_EDGES = ((1, 400), (1, 416), (1, 480), (1, 496), (7, 160), (8, 160))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the
 # tensor cores, f64 on the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
@@ -389,9 +396,10 @@ MODE_SHAPES = ((2, 50), (2, 800))
 # examples/ex_corr.jl:30-31 (tests/test_models.py)
 CORR_REF = (-0.9779977649, 0.8719210472)
 # the __global__ kernels of csrc/jacobi.cu (at theta1's mp = 64 B1 and B2
-# each launch one sm_kernel: the "sm" regime)
-JACOBI_GLOBALS = ("sm_kernel", "cluster_kernel", "grid_kernel", "round_kernel",
-                  "identity_kernel", "diag_kernel", "gersh_kernel")
+# each launch one dsmem::cluster_kernel: the "dsmem" regime; "cluster_kernel"
+# counts it too)
+JACOBI_GLOBALS = ("sm_kernel", "cluster_kernel", "dsmem::cluster_kernel", "grid_kernel",
+                  "round_kernel", "identity_kernel", "diag_kernel", "gersh_kernel")
 # the last phase: toroidal max-cut graphs (rows, cols, seed), n = 1000 (Jacobi
 # mp 1008) and n = 2000 (G-set G32's size and edge count), and what the
 # "rounds" kernel (one launch per round) gives under TORUS_OPTS (status, iterations,
@@ -484,6 +492,31 @@ def regime_ms(tj, eigvecs: bool, Mn, sweeps: int, regime: str, reps: int) -> flo
     return cuda_ms(lambda: forced_run(tj, eigvecs, Mn, sweeps, regime), reps)
 
 
+def one_launch_fits(tj, mp: int, eigvecs: bool) -> list:
+    """The regimes "sm" and "cluster" where a matrix of padded size mp fits
+    them (a cluster needs two pairs a block: mp >= 64)."""
+    return [r for r in ("sm", "cluster") if (r == "sm" or mp >= 4 * tj.CLUSTER)
+            and tj.smem_bytes(r, mp, eigvecs) <= tj.SMEM_LIMIT]
+
+
+def dsmem_beside(tj, eigvecs: bool, Mn, sweeps: int, reps: int, tag: str) -> None:
+    """Forces "dsmem" and every other one-launch regime that fits Mn's
+    shape: time and us a round of each, and their bit equality (checked)."""
+    kname, mp = ("B1" if eigvecs else "B2"), Mn.shape[-1]
+    rounds = sweeps * (mp - 1)
+    ref = forced_run(tj, eigvecs, Mn, sweeps, "dsmem")
+    ms = regime_ms(tj, eigvecs, Mn, sweeps, "dsmem", reps)
+    line = f"{tag}: {kname} dsmem ms={ms:.4f} ({1e3 * ms / rounds:.3f} us/round)"
+    for other in one_launch_fits(tj, mp, eigvecs):
+        same = all(torch.equal(a, b) for a, b in zip(
+            ref, forced_run(tj, eigvecs, Mn, sweeps, other)))
+        ms = regime_ms(tj, eigvecs, Mn, sweeps, other, reps)
+        line += (f" | {other} ms={ms:.4f} ({1e3 * ms / rounds:.3f} us/round) "
+                 f"bitwise_equal_{other}={same}")
+        check(same, f"{tag}: {kname} dsmem differs from {other}")
+    print(line, flush=True)
+
+
 def seed_quality(A, lam, V, scale):
     """(max reconstruction error / scale, max orthogonality error) of an f32
     eigenpair seed, in f64."""
@@ -544,13 +577,13 @@ def kernels_vs_plain(tj) -> dict:
             old_b = regime_ms(tj, False, Mn, s2, "rounds", reps)
             reg_e, reg_b = tj.regime_for(nb, mp, True, sms), tj.regime_for(nb, mp, False, sms)
             for kname, eigvecs, reg, s in (("B1", True, reg_e, s1), ("B2", False, reg_b, s2)):
-                other = {"sm": "cluster", "cluster": "sm"}.get(reg)
-                # (a cluster needs two pairs a block: mp >= 64)
-                if other and mp >= 4 * tj.CLUSTER and \
-                        tj.smem_bytes(other, mp, eigvecs) <= tj.SMEM_LIMIT:
-                    print(f"phase 2 nb={nb} m={m} mp={mp} {kind}: {kname} {other} regime "
-                          f"instead of {reg}: ms={regime_ms(tj, eigvecs, Mn, s, other, reps):.4f}",
-                          flush=True)
+                if reg == "dsmem":  # beside each regime it was timed against
+                    dsmem_beside(tj, eigvecs, Mn, s, reps, f"phase 2 nb={nb} m={m} mp={mp} {kind}")
+                for other in one_launch_fits(tj, mp, eigvecs):
+                    if reg in ("sm", "cluster") and other != reg:
+                        print(f"phase 2 nb={nb} m={m} mp={mp} {kind}: {kname} {other} regime "
+                              f"instead of {reg}: "
+                              f"ms={regime_ms(tj, eigvecs, Mn, s, other, reps):.4f}", flush=True)
                 if kind == "clustered" and (nb, mp) in GRID_VS_CLUSTER:
                     same = all(torch.equal(a, b) for a, b in zip(
                         forced_run(tj, eigvecs, Mn, s, "grid"),
@@ -571,10 +604,12 @@ def kernels_vs_plain(tj) -> dict:
                 f"bitwise_equal_plain={bitwise} "
                 f"|lam-plain|/scale={e_plain:.2e} |lam-f64|/scale={e_f64:.2e} "
                 f"recon={recon:.2e} (plain {recon_p:.2e}) orth={orth:.2e} (plain {orth_p:.2e}) "
-                f"ms={ms_e:.4f} rounds_ms={old_e:.4f} plain_ms={pms_e:.1f} eigh_ms={lib_e:.4f} "
+                f"ms={ms_e:.4f} ({1e3 * ms_e / (s1 * (mp - 1)):.3f} us/round) "
+                f"rounds_ms={old_e:.4f} plain_ms={pms_e:.1f} eigh_ms={lib_e:.4f} "
                 f"bound_ms={bnd_e[0]:.4f} ({bnd_e[1]}) | "
                 f"B2 {reg_b} sweeps={s2} |bound-plain|/scale={b_plain:.2e} slack/scale={slack:.2e} "
-                f"(plain {slack_p:.2e}) valid={valid} ms={ms_b:.4f} rounds_ms={old_b:.4f} "
+                f"(plain {slack_p:.2e}) valid={valid} ms={ms_b:.4f} "
+                f"({1e3 * ms_b / (s2 * (mp - 1)):.3f} us/round) rounds_ms={old_b:.4f} "
                 f"plain_ms={pms_b:.1f} "
                 f"eigvalsh_ms={lib_b:.4f} bound_ms={bnd_b[0]:.4f} ({bnd_b[1]})",
                 flush=True,
@@ -622,6 +657,13 @@ def kernels_vs_plain(tj) -> dict:
                       + f" bound_ms B1 {bnd['B1'][0]:.4f} B2 {bnd['B2'][0]:.4f}", flush=True)
     for kname, seen in regimes.items():
         check(seen == set(tj.REGIMES), f"{kname}: regimes {sorted(seen)} ran in phase 2")
+    # the edges of "dsmem": the sweep schedule, no plain version
+    for nb, mp in DSMEM_EDGES:
+        A = torch.from_numpy(spectrum_matrix("clustered", mp, nb, seed=1000 * nb + mp)).cuda()
+        Mn, _ = tj._normalize_pad(A)
+        for eigvecs, s in ((True, tj.jacobi_sweeps_for(mp)), (False, tj.bound_sweeps_for(mp))):
+            dsmem_beside(tj, eigvecs, Mn, s, 3, f"phase 2 dsmem edge nb={nb} mp={mp} picked "
+                         f"{tj.regime_for(nb, mp, eigvecs, sms)}")
     return {"err": err, "times": times}
 
 
@@ -1506,8 +1548,8 @@ def diagnostics_phase(launches, ltt, tj, tp, maxg11_f64, p_maxg11, card) -> None
           f"{len(kernels)} device kernels, csrc/jacobi.cu kernels by name {named} "
           f"(wrapper launches B1 {jac['B1']} B2 {jac['B2']}, regime {launches.by_regime['B1']})",
           flush=True)
-    check(named["sm_kernel"] == jac["B1"] + jac["B2"] > 0,
-          "profile_dir trace does not name one sm_kernel per B1/B2 launch")
+    check(named["dsmem::cluster_kernel"] == jac["B1"] + jac["B2"] > 0,
+          "profile_dir trace does not name one dsmem::cluster_kernel per B1/B2 launch")
     r4 = maxg11_f64[0]
     fl = flops.iteration_flops(p_maxg11, 0)
     sec = float(np.median(r4.iteration_times))

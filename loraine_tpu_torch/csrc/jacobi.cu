@@ -26,10 +26,12 @@
 // the round-to-round dependency. The TPU kernel keeps the whole matrix in
 // VMEM for the call; a Hopper SM has 227 KB of shared memory, a cluster of
 // 16 SMs ~3.6 MB. The regime is chosen by the shape (nb, mp) alone
-// (ops/jacobi.py::regime_for, which mirrors the byte counts below): "sm"
-// where it fits and is the faster (B1 below mp 144, B2 below 192, or more
-// matrices than one wave of clusters holds), else "cluster" where it fits,
-// else "grid" where it fits (to mp 2400), else "rounds":
+// (ops/jacobi.py::regime_for, which mirrors the byte counts below): (e)
+// "dsmem" from mp 64 to 400 (B1) or 480 (B2) while one wave of its
+// clusters holds the nb matrices (7 on an H100), where the card timed it
+// the fastest; else "sm" where it fits (so below mp 64, or past that
+// wave), else "cluster" where it fits, else "grid" where it fits (to mp
+// 2400), else "rounds":
 //
 // (a) "sm": one block per matrix, the matrix (and, for B1, the eigenvector
 //     rows) in the block's shared memory for the whole call, one launch.
@@ -116,9 +118,38 @@
 //     raises: a block that never ran would leave the others waiting; a wait
 //     that lasts 20 s traps.
 //
+// (e) "dsmem": one thread block cluster of 16 blocks of 256 threads per
+//     matrix, the rows laid out as in (b) and (d) (B1's eigenvector rows in
+//     the same slots as A's), one launch, and no cluster barrier: each block
+//     stores its pairs' next angles into every other block's shared memory,
+//     and its two leaving rows and the edge values into its neighbours'
+//     free slots, with st.async, which counts the bytes on the receiver's
+//     mbarrier of the round's parity; a block waits only for what it reads.
+//     At mp 160 a round is small (80 rotations, ~10 rows a block), and its
+//     floor is one DSMEM exchange (~0.26 us measured for an all-to-all
+//     store and wait) and the chain of the next angle (the 2x2 blocks
+//     rotated, three divisions, two square roots: ~0.2 us when its code is
+//     cached). Written as (b) and (d) are, the same exchange takes 2.4-2.8
+//     us a round whatever the cluster size: the loop is ~1,800
+//     instructions of branchy index code (label_src, next_slot, divisions
+//     by runtime values), each part run once a round by one or a few
+//     warps, so a round waits on instruction fetch. So here the labels
+//     advance through a table of label_src, the three slot tables through a
+//     fixed gather map (slot_src), per-lane indices are fixed before the
+//     loop, the sends and pushes are short loops, warp 0 (the next angles)
+//     does not wait for the other warps' table work (a named barrier), and
+//     the rows leave as soon as they are rotated, while warp 0 may still
+//     send angles: ~0.9 us a round for B2 and ~1.1 us for B1 at mp 160
+//     (PERF.md). Past mp ~400 (B1; ~700 for B2) "cluster" is the faster:
+//     each block's share of the rotation grows with mp and the angle
+//     stores with the blocks, while (b)'s cluster barrier stays ~0.8 us;
+//     B1 fits only to mp 640 (A and the eigenvector rows in one block). A
+//     cluster that cannot be resident fails the call (-1); a wait that
+//     lasts 20 s traps.
+//
 // Every regime applies the same per-element arithmetic (rotation, rot2x2,
 // rot_pair) and sums the Gershgorin rows in the same order (gersh_row), so
-// the four agree bit for bit. Each operation is a round-to-nearest
+// the five agree bit for bit. Each operation is a round-to-nearest
 // intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never
 // contracts to FMA, in the plain version's order of operations: on the card
 // B1's outputs equal the plain version's tensor ops bit for bit, and B2's
@@ -536,17 +567,21 @@ __device__ void vt_consumer(const int4* log, float* vt, int mp, int nrounds) {
   }
 }
 
-// Slot of local position l after this round's move, in block b of nblk with
-// K local pairs and slot table sl (sl[2K], sl[2K+1]: the free slots, which
-// receive the rows from blocks b-1 and b+1).
-__device__ __forceinline__ int next_slot(const int* sl, int l, int b, int K, int nblk = CL) {
-  const int f0 = sl[2 * K], f1 = sl[2 * K + 1];
+// Where local position l's slot comes from in this round's move, in block b
+// of nblk with K local pairs: an index into the slot table (entries 2K, 2K+1
+// are the free slots, which receive the rows from blocks b-1 and b+1).
+__host__ __device__ __forceinline__ int slot_src(int l, int b, int K, int nblk) {
   if (l < K)  // top positions
-    return b == 0 ? (l == 0 ? sl[0] : l == 1 ? sl[K] : sl[l - 1]) : (l == 0 ? f0 : sl[l - 1]);
-  if (l < 2 * K - 1) return sl[l + 1];  // bottom positions but the last
-  if (l == 2 * K - 1) return b == nblk - 1 ? sl[K - 1] : f1;
-  if (l == 2 * K) return b == 0 ? f0 : b == nblk - 1 ? f1 : sl[K - 1];  // the new free slots
-  return b == 0 ? sl[K - 1] : sl[K];
+    return b == 0 ? (l == 0 ? 0 : l == 1 ? K : l - 1) : (l == 0 ? 2 * K : l - 1);
+  if (l < 2 * K - 1) return l + 1;  // bottom positions but the last
+  if (l == 2 * K - 1) return b == nblk - 1 ? K - 1 : 2 * K + 1;
+  if (l == 2 * K) return b == 0 ? 2 * K : b == nblk - 1 ? 2 * K + 1 : K - 1;  // the new free slots
+  return b == 0 ? K - 1 : K;
+}
+
+// Slot of local position l after this round's move (slot table sl).
+__device__ __forceinline__ int next_slot(const int* sl, int l, int b, int K, int nblk = CL) {
+  return sl[slot_src(l, b, K, nblk)];
 }
 
 // Grid (16, nmat) for B2, (16, 2 nmat) for B1: row y < nmat is the cluster
@@ -1198,6 +1233,381 @@ grid_kernel(const float* __restrict__ a_in, float* x0, float* x1, int* scratch, 
     }
 }
 
+// ---- (e) one portable cluster per matrix, point to point -------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// The one arrival of the barrier's current phase, which then completes
+// once `bytes` have landed (they may land before it).
+__device__ __forceinline__ void mbar_arm(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of the given parity to complete; traps after
+// WAIT_NS, so that a fault ends the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned long long t0 = 0;
+  for (unsigned k = 0;; ++k) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((k & 255) == 255) {  // the clock only on a long wait
+      if (t0 == 0) t0 = now_ns();
+      else if (now_ns() - t0 > WAIT_NS) __trap();
+    }
+  }
+}
+
+// The same place as `local` in the shared memory of block `rank` of the
+// cluster.
+__device__ __forceinline__ unsigned remote(const void* local, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(local)), "r"(rank));
+  return r;
+}
+
+// Stores v at the place of dst in block `rank`, counting its bytes on that
+// block's barrier `bar` (st.async: the bytes complete the barrier's
+// transaction count, so the receiver sees them once its phase completes).
+__device__ __forceinline__ void st_remote(float* dst, int rank, float v, unsigned long long* bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(remote(dst, rank)), "r"(__float_as_uint(v)), "r"(remote(bar, rank))
+               : "memory");
+}
+__device__ __forceinline__ void st_remote(float2* dst, int rank, float2 v,
+                                          unsigned long long* bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+               ::"r"(remote(dst, rank)), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+               "r"(remote(bar, rank))
+               : "memory");
+}
+__device__ __forceinline__ void st_remote(float4* dst, int rank, float4 v,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(remote(dst, rank)), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(remote(bar, rank))
+      : "memory");
+}
+
+namespace dsmem {
+
+constexpr int NTH = 256;       // threads per block
+constexpr int NWD = NTH / 32;  // warps per block
+constexpr int BLOCKS = 16;     // blocks per cluster (non-portable; ops/jacobi.py::DSMEM_CLUSTER)
+
+__host__ __device__ constexpr int pairs_max(int mp) { return (mp / 2 + BLOCKS - 1) / BLOCKS; }
+__host__ __device__ constexpr int slots(int mp) { return 2 * pairs_max(mp) + 2; }
+// Shared memory of a block (ops/jacobi.py::smem_bytes mirrors it): two
+// mbarriers, A's rows [S][mp] (B1: and the eigenvector rows beside them),
+// row records [KM] (16 B), the angles [3][mp/2] (8 B), the labels by
+// position [2][mp] and label_src's table [mp], three slot tables [2][3 S]
+// (the block's and its two neighbours') and their gather map [3 S], edge
+// values [2][EDGE].
+__host__ __device__ constexpr int bytes(int mp, bool vec) {
+  return 16 + 4 * slots(mp) * mp * (vec ? 2 : 1) + 16 * pairs_max(mp) + 24 * mp + 36 * slots(mp) +
+         8 * EDGE;
+}
+
+// Named barrier 1: warp 0 arrives once its lanes hold the 2x2 blocks of the
+// next angles; the other warps wait there before they rotate.
+__device__ __forceinline__ void quads_read() {
+  __syncwarp();
+  asm volatile("barrier.cta.arrive 1, %0;" ::"n"(NTH) : "memory");
+}
+__device__ __forceinline__ void wait_quads_read() {
+  asm volatile("barrier.cta.sync 1, %0;" ::"n"(NTH) : "memory");
+}
+// Named barrier 2, warps 1.. alone: the local rows are rotated.
+__device__ __forceinline__ void rows_rotated() {
+  asm volatile("barrier.cta.sync 2, %0;" ::"n"(NTH - 32) : "memory");
+}
+
+// Grid (C, nmat), clusters of C = BLOCKS blocks: cluster y holds
+// matrix y, block b its pair positions [lo, hi) = pair_lo(b, mp/2, C), in
+// row slots through a slot table, as (d) lays them out; under B1 the
+// eigenvector rows sit in the same slots of a second row array. x0, x1 as
+// in sm_kernel.
+//
+// A round r: every thread waits on the block's barrier of the round's
+// parity for what the round brings (the other blocks' angles of round r,
+// the two arriving rows, already in their slots, and the neighbours' edge
+// values). Warp 0: lane l < K reads the three 2x2 blocks of the next angle
+// of pair lo + l, the warp arrives at named barrier 1, those lanes compute
+// the next angles, and the warp's 32 lanes store them into every other
+// block (st.async). Warps 1..: they gather the next round's labels and
+// slot tables (the block's, and its copies of the neighbours', which say
+// where the leaving rows go) through fixed index tables and write the local
+// pairs' row records; wait at barrier 1; rotate the local rows (and B1's
+// eigenvector rows), each thread one column pair down its row pairs; sync
+// among themselves (named barrier 2); then they take 16 bytes of each
+// leaving row an item (B1: of the eigenvector rows too) and store them into
+// the neighbours' free slots, and the last warp stores the edge values the
+// neighbours need. One __syncthreads() ends the round. So
+// the rows leave while warp 0 still computes or sends angles. No cluster
+// barrier: each store counts its bytes on the receiver's barrier, and a
+// block waits only for what it reads. The loop is short and nearly free of
+// branches: a round is a chain of a few hundred instructions, most of them
+// one warp's, and two DSMEM stores' flight.
+//
+// Why the buffers suffice. A block's round r+2 stores need every block's
+// round r+1 angles, which a block sends only after its wait of round r:
+// so a barrier (by round parity) never takes bytes of a phase still open,
+// and the angles, three buffers by round, never land in a buffer still read
+// (round r's, by the rotation beside the sends of round r+1's). Labels,
+// slot tables and edge values are double buffered by parity: a round reads
+// what the round before wrote, and writes what the next reads, before the
+// __syncthreads() that ends it. A row lands in the slot its receiver's own
+// leaving row vacated the round before; the receiver read that row (to
+// send it, and items w < 6 the edge values they keep from it) before it
+// sent the row the sender waits for, because each pushing item loads its
+// part of both leaving rows before it stores either.
+template <bool VEC>
+__global__ void __launch_bounds__(NTH)
+cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int mp, int nrounds) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int4 smem4[];
+  constexpr int C = BLOCKS;
+  const int b = (int)cluster.block_rank(), mat = blockIdx.y;
+  const int half = mp / 2, tid = threadIdx.x, S = slots(mp), T = 3 * S, m4 = mp / 4;
+  const int lo = pair_lo(b, half, C), hi = pair_lo(b + 1, half, C), K = hi - lo;
+  const bool top_edge = b > 0, bottom_edge = b < C - 1;
+  const int Kdn = top_edge ? lo - pair_lo(b - 1, half, C) : 0;     // K of block b - 1
+  const int Kup = bottom_edge ? pair_lo(b + 2, half, C) - hi : 0;  // K of block b + 1
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem4);  // [2]
+  float* rows = reinterpret_cast<float*>(smem4 + 1);    // [S][mp], 16-byte aligned
+  float* V = rows + S * mp;                              // B1: [S][mp], A's slots
+  int4* rr = reinterpret_cast<int4*>(V + (VEC ? S * mp : 0));  // [KM]: row offsets, c, s
+  float2* ang = reinterpret_cast<float2*>(rr + pairs_max(mp));  // [3][half]
+  int* lab = reinterpret_cast<int*>(ang + 3 * half);    // [2][mp]: label at each position
+  int* src = lab + 2 * mp;                               // [mp]: label_src
+  int* tab = src + mp;    // [2][T]: slot tables of this block, block b+1, block b-1 (S each)
+  int* gat = tab + 2 * T;                                // [T]: tab_next[e] = tab[gat[e]]
+  float* edge = reinterpret_cast<float*>(gat + T);      // [2][EDGE], as in (b)
+  // round 0, as in (d): the local rows, every angle and the edge values
+  // straight from the input; position i holds label i
+  const float* a = a_in + (size_t)mat * mp * mp;
+  for (int e = tid; e < 2 * K * mp; e += NTH) {
+    const int l = e / mp, c = e - l * mp;
+    const int label = l < K ? lo + l : half + lo + l - K;
+    rows[l * mp + c] = a[(size_t)label * mp + c];
+    if (VEC) V[l * mp + c] = c == label ? 1.0f : 0.0f;
+  }
+  for (int x = tid; x < mp; x += NTH) {
+    lab[x] = x;
+    src[x] = label_src(x, half, mp);
+  }
+  for (int e = tid; e < T; e += NTH) {
+    const int t = e / S, l = e - t * S, Kt = t == 0 ? K : t == 1 ? Kup : Kdn;
+    const bool used = Kt > 0 && l < 2 * Kt + 2;  // block 0 has no b-1, block C-1 no b+1
+    tab[e] = l;
+    gat[e] = used ? t * S + slot_src(l, t == 0 ? b : t == 1 ? b + 1 : b - 1, Kt, C) : e;
+  }
+  for (int k = tid; k < half; k += NTH) {
+    float c, s;
+    rotation(a[(size_t)k * mp + k], a[(size_t)k * mp + k + half],
+             a[(size_t)(k + half) * mp + k + half], c, s);
+    ang[k] = make_float2(c, s);
+  }
+  if (tid < EDGE) {
+    const int tp[4] = {lo - 1, half + lo - 1, lo + 1, half + lo + 1};
+    const int bt[2] = {hi, half + hi};
+    if (tid < 8 && top_edge) edge[tid] = a[(size_t)tp[tid / 4] * mp + tp[tid % 4]];
+    if (tid >= 8 && bottom_edge) edge[tid] = a[(size_t)bt[(tid - 8) / 2] * mp + bt[tid % 2]];
+  }
+  // lane l < K of warp 0: the next pair lo + l takes its rows from pairs ip
+  // and iq; lane 0's pair ip and lane K-1's pair iq are the neighbours',
+  // whose 2x2 blocks come as edge values
+  const NextPair nxp = next_pair_of(lo + (tid < K ? tid : 0), half);
+  const bool e_top = top_edge && tid == 0, e_bot = bottom_edge && tid == K - 1;
+  const int li = (e_top ? nxp.iq : nxp.ip) - lo, lj = (e_bot ? nxp.ip : nxp.iq) - lo;
+  // warp 0's sends: item e = lane + 32 t is pair e % K to the (e / K + 1)-th
+  // block after b
+  const int nsend = K * (C - 1), dp = 32 % K, dq = 32 / K;
+  const int p0 = tid % K, q0 = (tid & 31) / K;
+  // rotating threads: thread u keeps column pair j0 (+ nu ...) and walks
+  // row pairs g0, g0 + R, ...; under B1 then 16 bytes (column c0) of the
+  // eigenvector rows of pairs h0, h0 + R4, ...
+  const int u = tid - 32, nu = NTH - 32;
+  const int R = nu >= half ? nu / half : 1, j0 = u % half, g0 = u / half;
+  const int R4 = nu / m4 > 0 ? nu / m4 : 1, c0 = u % m4, h0 = u / m4;
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();  // the barriers are set, and every block runs, before any remote store
+  // bytes a round brings: the other blocks' angles, and from each
+  // neighbour a row (B1: two) and its edge values (4 from b-1, 2 from b+1)
+  const unsigned row_bytes = 4u * mp * (VEC ? 2 : 1);
+  const unsigned expect = 8u * (half - K) + (top_edge ? row_bytes + 16 : 0) +
+                          (bottom_edge ? row_bytes + 8 : 0);
+  for (int r = 0; r < nrounds; ++r) {
+    const int cur = r & 1, nx = cur ^ 1, b3 = r % 3, n3 = b3 == 2 ? 0 : b3 + 1;
+    const int* labc = lab + cur * mp;
+    int* labn = lab + nx * mp;
+    const int* tc = tab + cur * T;
+    int* tn = tab + nx * T;
+    const float2* angc = ang + b3 * half;
+    float2* angn = ang + n3 * half;
+    const float* ec = edge + cur * EDGE;
+    const bool more = r + 1 < nrounds;
+    if (r > 0) {
+      if (tid == 0) mbar_arm(bar + cur, expect);
+      mbar_wait(bar + cur, ((r - 1) >> 1) & 1);
+    }
+    // the pushing threads' slots: the two leaving rows, the neighbours' free slots
+    const int s_top = tc[K - 1], s_bot = tc[K], f_up = tc[S + 2 * Kup], f_dn = tc[2 * S + 2 * Kdn + 1];
+    if (tid < 32) {
+      const bool angle = more && tid < K;
+      Quad bpp, bpq, bqq;
+      if (angle) {
+        const int pc0 = labc[nxp.ip], pc1 = labc[nxp.ip + half];
+        const int qc0 = labc[nxp.iq], qc1 = labc[nxp.iq + half];
+        const int ri0 = tc[li] * mp, ri1 = tc[K + li] * mp, rj0 = tc[lj] * mp, rj1 = tc[K + lj] * mp;
+        const Quad lpp = load_quad(rows, ri0, ri1, pc0, pc1), lpq = load_quad(rows, ri0, ri1, qc0, qc1);
+        const Quad lqq = load_quad(rows, rj0, rj1, qc0, qc1);
+        bpp = e_top ? Quad{ec[0], ec[1], ec[4], ec[5]} : lpp;
+        bpq = e_top ? Quad{ec[2], ec[3], ec[6], ec[7]} : lpq;
+        bqq = e_bot ? Quad{ec[8], ec[9], ec[10], ec[11]} : lqq;
+      }
+      quads_read();
+      float c = 1.0f, s = 0.0f;
+      if (angle) {
+        float apq, aqq;
+        const float app = next_angle_inputs(bpp, bpq, bqq, nxp, angc, apq, aqq);
+        rotation(app, apq, aqq, c, s);
+        angn[lo + tid] = make_float2(c, s);
+      }
+      if (more) {  // the K new angles into every other block, spread over the warp
+        int p = p0, q = q0;
+        for (int e = tid; e - tid < nsend; e += 32) {
+          const float cx = __shfl_sync(0xffffffffu, c, p), sx = __shfl_sync(0xffffffffu, s, p);
+          const int dst = b + 1 + q;
+          if (e < nsend) st_remote(angn + lo + p, dst < C ? dst : dst - C, make_float2(cx, sx), bar + nx);
+          p += dp;
+          q += dq;
+          if (p >= K) {
+            p -= K;
+            ++q;
+          }
+        }
+      }
+    } else {
+      if (more)  // the next round's labels and slot tables
+        for (int x = u; x < mp + T; x += nu) {
+          if (x < mp) labn[x] = labc[src[x]];
+          else tn[x - mp] = tc[gat[x - mp]];
+        }
+      for (int i = u; i < K; i += nu) {
+        const float2 ai = angc[lo + i];
+        rr[i] = make_int4(tc[i] * mp, tc[K + i] * mp, __float_as_int(ai.x), __float_as_int(ai.y));
+      }
+      wait_quads_read();  // warp 0 holds its 2x2 blocks; the records are written
+      // J^T A J on the local rows: column pair j, row pairs g0, g0 + R, ...
+      if (g0 < R)
+        for (int j = j0; j < half; j += nu) {
+          const int cr = labc[j], cs = labc[j + half];
+          const float2 aj = angc[j];
+#pragma unroll 2
+          for (int i = g0; i < K; i += R) {
+            const int4 rec = rr[i];
+            float* rp = rows + rec.x;
+            float* rq = rows + rec.y;
+            rot2x2(rp[cr], rp[cs], rq[cr], rq[cs], __int_as_float(rec.z), __int_as_float(rec.w),
+                   aj.x, aj.y);
+          }
+        }
+      if (VEC && h0 < R4)  // the eigenvector rows, 16 bytes an item
+        for (int c4 = c0; c4 < m4; c4 += nu) {
+#pragma unroll 2
+          for (int i = h0; i < K; i += R4) {
+            const int4 rec = rr[i];
+            float4* vp = reinterpret_cast<float4*>(V + rec.x) + c4;
+            float4* vq = reinterpret_cast<float4*>(V + rec.y) + c4;
+            float4 x = *vp, y = *vq;
+            rot_pair4(x, y, __int_as_float(rec.z), __int_as_float(rec.w));
+            *vp = x;
+            *vq = y;
+          }
+        }
+      if (more) {
+        rows_rotated();
+        for (int w = u; w < (VEC ? 2 : 1) * m4; w += nu) {
+          // items w < 6 first keep, for lanes 0 and K-1 of the next round,
+          // the edge values that lie in a leaving row: row p2 (now the first
+          // bottom row, leaving for b-1) at the labels of positions lo-1,
+          // half+lo-1, lo+1, half+lo+1, and row y (now the last top row,
+          // leaving for b+1) at those of hi, half+hi
+          if (w < 4 && top_edge)
+            edge[nx * EDGE + 4 + w] =
+                rows[s_bot * mp + labn[(w & 1 ? half : 0) + lo + (w & 2 ? 1 : -1)]];
+          if (w >= 4 && w < 6 && bottom_edge)
+            edge[nx * EDGE + 4 + w] = rows[s_top * mp + labn[(w & 1) * half + hi]];
+          // 16 bytes of each leaving row (w >= mp/4: of the eigenvector
+          // rows), both loaded before either is stored: the last top row
+          // into block b+1's free slot, the first bottom row into block b-1's
+          float* M = VEC && w >= m4 ? V : rows;
+          const int c = 4 * (w < m4 ? w : w - m4);
+          float4 vt, vb;
+          if (bottom_edge) vt = *reinterpret_cast<const float4*>(M + s_top * mp + c);
+          if (top_edge) vb = *reinterpret_cast<const float4*>(M + s_bot * mp + c);
+          if (bottom_edge) st_remote(reinterpret_cast<float4*>(M + f_up * mp + c), b + 1, vt, bar + nx);
+          if (top_edge) st_remote(reinterpret_cast<float4*>(M + f_dn * mp + c), b - 1, vb, bar + nx);
+        }
+        // the neighbours' edge values from rows that stay, as in (b):
+        // block b+1's row p (position hi-1 next round) at positions hi-1,
+        // half+hi-1, hi+1, half+hi+1; block b-1's row q (position half+lo
+        // next round) at lo, half+lo
+        const int i = tid - (NTH - 32);
+        if (i >= 0 && i < 4 && bottom_edge)
+          st_remote(edge + nx * EDGE + i, b + 1,
+                    rows[tn[K - 1] * mp + labn[(i & 1 ? half : 0) + hi + (i & 2 ? 1 : -1)]],
+                    bar + nx);
+        if (i >= 4 && i < 6 && top_edge)
+          st_remote(edge + nx * EDGE + 6 + i, b - 1, rows[tn[K] * mp + labn[(i & 1) * half + lo]],
+                    bar + nx);
+      }
+    }
+    __syncthreads();
+  }
+  const int last = (nrounds - 1) & 1;
+  const int* labf = lab + last * mp;
+  const int* tf = tab + last * T;
+  auto label = [&](int l) { return labf[l < K ? lo + l : half + lo + l - K]; };
+  if (VEC) {
+    for (int l = tid; l < 2 * K; l += NTH)
+      x1[(size_t)mat * mp + label(l)] = rows[tf[l] * mp + label(l)];
+    float* vt = x0 + (size_t)mat * mp * mp;
+    for (int e = tid; e < 2 * K * m4; e += NTH) {
+      const int l = e / m4, c = e - l * m4;
+      reinterpret_cast<float4*>(vt + (size_t)label(l) * mp)[c] =
+          reinterpret_cast<const float4*>(V + tf[l] * mp)[c];
+    }
+  } else {
+    for (int l = tid >> 5; l < 2 * K; l += NWD)
+      gersh_row(rows + tf[l] * mp, label(l), mp, x0 + (size_t)mat * mp, x1 + (size_t)mat * mp);
+  }
+  cluster.sync();  // no block leaves while a peer may still address its memory
+}
+
+}  // namespace dsmem
+
 // ---- launchers of the one-launch regimes -----------------------------------
 
 template <bool VEC>
@@ -1257,6 +1667,39 @@ int launch_cluster(const float* a, float* x0, float* x1, int4* log, int nb, int 
   return cudaGetLastError();
 }
 
+template <bool VEC>
+int launch_dsmem(const float* a, float* x0, float* x1, int nb, int mp, int nrounds,
+                 cudaStream_t st) {
+  constexpr int C = dsmem::BLOCKS;
+  const int bytes = dsmem::bytes(mp, VEC);
+  // a block needs two pairs and at most one warp of angle threads
+  if (bytes > SMEM_MAX || mp / 2 / C < 2 || dsmem::pairs_max(mp) > 32) return ERR_SHAPE;
+  auto kern = dsmem::cluster_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, nb, 1);
+  cfg.blockDim = dim3(dsmem::NTH, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return ERR_NO_CLUSTER;  // the clusters are independent and may queue
+  err = cudaLaunchKernelEx(&cfg, kern, a, x0, x1, mp, nrounds);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <int VM>
 int launch_grid_vm(const float* a, float* x0, float* x1, int* scratch, int nb, int mp,
                    int nrounds, GridPlan pl, int sms, cudaStream_t st) {
@@ -1305,9 +1748,9 @@ int launch_grid(const float* a, float* x0, float* x1, int* scratch, int nb, int 
 
 // Regime codes: 0 = (c) one launch per round, 1 = (a) one block per matrix,
 // 2 = (b) one cluster per matrix, 3 = (d) one cooperative launch over the
-// card. Returns a cudaError_t (0 = success) or -1 (no cluster of this shape,
-// or not every block of the grid, can be resident) / -2 (shape does not fit
-// the regime).
+// card, 4 = (e) one cluster per matrix, point to point. Returns a
+// cudaError_t (0 = success) or -1 (no cluster of this shape, or not every
+// block of the grid, can be resident) / -2 (shape does not fit the regime).
 //
 // B1. a: [nb, mp, mp] input (overwritten in regime 0 only); a2: [nb, mp, mp]
 // scratch and pairs: [mp-1, 2, mp/2] labels (regime 0 only); vt: [nb, mp, mp]
@@ -1324,6 +1767,7 @@ extern "C" int lt_jacobi_eigh_f32(float* a, float* a2, float* vt, float* lam,
                                 nrounds, st);
   if (regime == 3)
     return launch_grid(a, vt, lam, static_cast<int*>(scratch), nb, mp, nrounds, true, st);
+  if (regime == 4) return launch_dsmem<true>(a, vt, lam, nb, mp, nrounds, st);
   const int total = nb * mp * mp;
   identity_kernel<<<(total + 255) / 256, 256, 0, st>>>(vt, mp, total);
   cudaError_t err = cudaGetLastError();
@@ -1346,6 +1790,7 @@ extern "C" int lt_jacobi_bounds_f32(float* a, float* a2, float* g, float* h,
     return launch_cluster<false>(a, g, h, nullptr, nb, mp, nrounds, st);
   if (regime == 3)
     return launch_grid(a, g, h, static_cast<int*>(scratch), nb, mp, nrounds, false, st);
+  if (regime == 4) return launch_dsmem<false>(a, g, h, nb, mp, nrounds, st);
   float* fin = nullptr;
   cudaError_t err =
       run_rounds(a, a2, nullptr, pairs, nb, mp, nrounds, st, &fin);

@@ -13,14 +13,17 @@ dispatchers `jacobi_eigh_padded` / `jacobi_bounds_padded` take the plain
 version only for a tensor on the CPU; for a CUDA tensor they launch the
 kernel or raise, with no fallback.
 
-The kernel has four regimes, chosen by the shape and the card's SM count
-(`regime_for`): "sm" (one block per matrix in shared memory), "cluster"
-(one 16-block thread block cluster per matrix; B1 adds a cluster for the
-eigenvector rows), "grid" (one cooperative launch over the card, past a
-cluster's capacity, where the card's SMs hold the rows) and, past that,
-"rounds" (one launch per round). In "sm", "cluster" and "grid" a call is
-one launch of the Jacobi kernel (a "grid" call with more matrices than one
-launch holds runs them in turns).
+The kernel has five regimes, chosen by the shape and the card's SM count
+(`regime_for`): "sm" (one block per matrix in shared memory), "dsmem" (one
+16-block cluster per matrix, rows and eigenvector rows spread over its
+blocks, each round's exchange pushed into the peers' shared memory and
+waited for on each block's own barrier), "cluster" (one 16-block thread
+block cluster per matrix with a cluster barrier a round; B1 adds a cluster
+for the eigenvector rows), "grid" (one cooperative launch over the card,
+past a cluster's capacity, where the card's SMs hold the rows) and, past
+that, "rounds" (one launch per round). In every regime but "rounds" a call
+is one launch of the Jacobi kernel (a "grid" call with more matrices than
+one launch holds runs them in turns).
 Each regime rounds every operation once in the plain version's order, so
 on the card B1 equals the plain version bit for bit and B2 differs only by
 the order of the Gershgorin row sums.
@@ -213,15 +216,18 @@ def jacobi_bounds_plain(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, to
 # "sm", one block per matrix in shared memory; "cluster", one cluster of
 # CLUSTER blocks per matrix (B1 adds a second cluster for the eigenvector
 # rows); "grid", one cooperative launch of a block on each SM, beyond a
-# cluster's capacity; "rounds", one launch per round, beyond the grid's.
+# cluster's capacity; "rounds", one launch per round, beyond the grid's;
+# "dsmem", one cluster of DSMEM_CLUSTER blocks per matrix with no cluster
+# barrier a round, at the small sizes where it is the fastest.
 # "grid"'s capacity depends on the card's SMs; without a card the shape rule
 # assumes H100_SMS.
 # The index in REGIMES is the C side's regime code.
-REGIMES = ("rounds", "sm", "cluster", "grid")
+REGIMES = ("rounds", "sm", "cluster", "grid", "dsmem")
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 CLUSTER = 16  # blocks per cluster
+DSMEM_CLUSTER = 16  # blocks per "dsmem" cluster (csrc/jacobi.cu::dsmem::BLOCKS)
 H100_SMS = 132  # SMs of an H100 SXM
-EDGE = 12  # edge values a "cluster" or "grid" block keeps
+EDGE = 12  # edge values a "cluster", "grid" or "dsmem" block keeps
 
 
 def _ceil_div(x: int, k: int) -> int:
@@ -237,10 +243,30 @@ def cluster_pairs(mp: int) -> list:
 
 
 def grid_pairs(mp: int, blocks: int) -> list:
-    """[lo_b, hi_b) of the pair positions block b of a "grid" matrix owns
-    (csrc/jacobi.cu::pair_lo with ``blocks`` blocks)."""
+    """[lo_b, hi_b) of the pair positions block b of a "grid" matrix (or a
+    "dsmem" cluster) owns (csrc/jacobi.cu::pair_lo with ``blocks`` blocks)."""
     half = mp // 2
     return [(b * half // blocks, (b + 1) * half // blocks) for b in range(blocks)]
+
+
+def _dsmem_bytes(mp: int, eigvecs: bool) -> int:
+    """csrc/jacobi.cu::dsmem::bytes: two mbarriers, A's rows [S][mp] with S
+    = 2 KM + 2, KM = ceil(mp/2 / DSMEM_CLUSTER) (and the eigenvector rows beside
+    them for B1), row records [KM] (16 B), the angles [3][mp/2] (8 B), the
+    labels by position [2][mp] and label_src's table [mp], three slot tables
+    [2][3 S] and their gather map [3 S], two sets of edge values."""
+    pairs = _ceil_div(mp // 2, DSMEM_CLUSTER)
+    slots = 2 * pairs + 2
+    return (16 + 4 * slots * mp * (2 if eigvecs else 1) + 16 * pairs + 24 * mp + 36 * slots
+            + 8 * EDGE)
+
+
+def _dsmem_fits(mp: int, eigvecs: bool) -> bool:
+    """A "dsmem" block needs two pairs (from mp 64), at most 32 (one warp of
+    angle threads), and its shared memory (B1 to mp 640)."""
+    half = mp // 2
+    return (half // DSMEM_CLUSTER >= 2 and _ceil_div(half, DSMEM_CLUSTER) <= 32
+            and _dsmem_bytes(mp, eigvecs) <= SMEM_LIMIT)
 
 
 def _grid_bytes(mp: int, blocks: int, vsmem: bool) -> int:
@@ -281,14 +307,15 @@ def grid_plan(nb: int, mp: int, eigvecs: bool, sms: int = H100_SMS) -> dict:
 
 def smem_bytes(regime: str, mp: int, eigvecs: bool, nb: int = 1, sms: int = H100_SMS) -> int:
     """Dynamic shared memory a block of ``regime`` needs (csrc/jacobi.cu's
-    sm_bytes, cluster_bytes and grid_bytes): A's rows at stride mp + 1
-    ("sm"), mp + 4 ("cluster") or mp ("grid"), the eigenvector rows at
-    stride mp; per pair a row record (16 B) and an angle (8 B), both double
-    buffered ("grid": the angles once), and two label words; in a cluster
-    or a grid block, two slot tables and 12 edge values (a cluster adds the
-    neighbours' slot numbers, 16 B). B1's consumer blocks hold mp x
+    sm_bytes, cluster_bytes, grid_bytes and dsmem::bytes): A's rows at
+    stride mp + 1 ("sm"), mp + 4 ("cluster") or mp ("grid"), the eigenvector
+    rows at stride mp; per pair a row record (16 B) and an angle (8 B), both
+    double buffered ("grid": the angles once), and two label words; in a
+    cluster or a grid block, two slot tables and 12 edge values (a cluster
+    adds the neighbours' slot numbers, 16 B). B1's consumer blocks hold mp x
     (ceil(mp/16) rounded up to even) eigenvector entries, the angles and the
-    labels. "grid" depends on nb and the card's SMs through `grid_plan`."""
+    labels. "grid" depends on nb and the card's SMs through `grid_plan`;
+    "dsmem" is `_dsmem_bytes`."""
     if regime == "sm":
         return 4 * mp * (mp + 1) + 4 * mp * mp * eigvecs + 28 * mp
     if regime == "cluster":
@@ -300,29 +327,39 @@ def smem_bytes(regime: str, mp: int, eigvecs: bool, nb: int = 1, sms: int = H100
     if regime == "grid":
         plan = grid_plan(nb, mp, eigvecs, sms)
         return _grid_bytes(mp, plan["blocks"], plan["vsmem"])
+    if regime == "dsmem":
+        return _dsmem_bytes(mp, eigvecs)
     if regime == "rounds":
         return 0
     raise ValueError(f"unknown regime {regime!r}")
 
 
-# Where both one-launch regimes fit, the cluster regime is the faster one
-# from these padded sizes on (B1, B2; chip_smoke.py phase 2 times both)...
-CLUSTER_FROM = {True: 144, False: 192}
-# ...while one wave of clusters holds every matrix: an H100 holds at least 6
-# clusters of 16 blocks at once (B1, two clusters a matrix, takes as long at
-# nb 3 as at nb 1, twice as long at nb 4). Past that the matrices run in
-# waves, and "sm", one block a matrix all at once, is the faster.
-CLUSTER_WAVE = 6
+# "dsmem" is the fastest one-launch regime from its least size (mp 64: two
+# pairs a block) to these padded sizes (B1, B2) while one wave of its
+# clusters holds every matrix: an H100 holds 7 clusters of 16 blocks at once.
+# Timed against "sm" and "cluster" at mp 64..800 and nb 1..16 on an H100
+# SXM at 700 W (PERF.md section 6): B1 at mp 400 10.27 ms
+# against "cluster" 12.94, at 480 20.57 against 16.42; B2 at 480 5.63
+# against 6.64 (faster to 720, by 2-4% past 480); B1 at (7, 160) 2.34 ms
+# as at (1, 160), at (8, 160) 2.64: past one wave the clusters queue, and
+# the regimes of the sizes stay. chip_smoke.py phase 2 times it beside
+# every other one-launch regime that fits, at these edges too: it was
+# also faster at B1 mp 416, 11.35 against 13.80 ms, and B2 496, 6.26
+# against 7.18; these bounds stay at the sizes the first sweep timed.
+DSMEM_TO = {True: 400, False: 480}
+DSMEM_WAVE = 7
 
 
 def regime_for(nb: int, mp: int, eigvecs: bool, sms: int = H100_SMS) -> str:
     """The regime of nb matrices at padded size mp on a card of ``sms``
-    SMs: "sm" below CLUSTER_FROM or past one wave of clusters, where its
-    block fits SMEM_LIMIT (B1 to mp 160, B2 to 224); else "cluster" where
-    its blocks fit (to mp 912); else "grid" where the card holds its plan
-    (to mp 2400 on 132 SMs); else "rounds"."""
-    if smem_bytes("sm", mp, eigvecs) <= SMEM_LIMIT and (
-            mp < CLUSTER_FROM[eigvecs] or nb * (1 + eigvecs) > CLUSTER_WAVE):
+    SMs: "dsmem" to DSMEM_TO while its blocks fit and one wave of its
+    clusters holds the nb matrices; else "sm" where its block fits
+    SMEM_LIMIT (B1 to mp 160, B2 to 224: below mp 64 or past that wave);
+    else "cluster" where its blocks fit (to mp 912); else "grid" where the
+    card holds its plan (to mp 2400 on 132 SMs); else "rounds"."""
+    if nb <= DSMEM_WAVE and mp <= DSMEM_TO[eigvecs] and _dsmem_fits(mp, eigvecs):
+        return "dsmem"
+    if smem_bytes("sm", mp, eigvecs) <= SMEM_LIMIT:
         return "sm"
     if smem_bytes("cluster", mp, eigvecs) <= SMEM_LIMIT:
         return "cluster"
@@ -397,6 +434,11 @@ def _run(eigvecs: bool, Mp: torch.Tensor, outs, sweeps: int, regime: str) -> Non
                 f"{_grid_bytes(mp, plan['blocks'], plan['vsmem'])} bytes of "
                 f"shared memory each cannot be resident on this card at once "
                 f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        if regime == "dsmem":
+            raise RuntimeError(
+                f"{fn.__name__}: no cluster of {DSMEM_CLUSTER} blocks with "
+                f"{_dsmem_bytes(mp, eigvecs)} bytes of shared memory each can be "
+                f"resident on this card (cudaOccupancyMaxActiveClusters)")
         raise RuntimeError(
             f"{fn.__name__}: no cluster of {CLUSTER} blocks with "
             f"{smem_bytes(regime, mp, eigvecs)} bytes of shared memory each can be resident "

@@ -14,17 +14,18 @@ from loraine_tpu_torch.ops import int8gemm as ti, jacobi as tj, pcg as tp
 from torch_cases import spectrum_matrix
 
 
-# one shape per regime of each kernel (B1, B2): (sm, sm), (sm, sm),
-# (cluster, cluster), (cluster, sm), (cluster, cluster), (grid, grid),
-# (sm, sm) past one wave of B1's clusters; then (grid, grid) at the
-# 2000-node torus's size (B1's eigenvector rows in global memory) and with
-# two matrices sharing the card, and (rounds, rounds) past the grid's
-# capacity on an H100 SXM, one sweep each (None: the sweep schedule)
+# the regimes of each kernel (B1, B2) by shape: (dsmem, dsmem) at theta1's
+# m, two of them, (1, 176), (1, 240) and (4, 144); (cluster, cluster) at
+# maxG11's; (grid, grid) at the 1000-node torus's; (sm, sm) at tru3's and
+# past one wave of "dsmem" clusters; then (grid, grid) at the 2000-node
+# torus's size (B1's eigenvector rows in global memory) and with two
+# matrices sharing the card, and (rounds, rounds) past the grid's capacity
+# on an H100 SXM, one sweep each (None: the sweep schedule)
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,m,sweeps", [(1, 56, None), (2, 56, None), (1, 800, None),
                                          (1, 176, None), (1, 240, None), (1, 1000, None),
-                                         (4, 144, None), (1, 2000, 1), (2, 1000, 1),
-                                         (1, 2416, 1)])
+                                         (4, 144, None), (1, 13, None), (8, 144, None),
+                                         (1, 2000, 1), (2, 1000, 1), (1, 2416, 1)])
 def test_kernels_match_plain_on_card(nb, m, sweeps):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
@@ -75,6 +76,38 @@ def test_kernels_match_plain_on_card(nb, m, sweeps):
     slack_k = (torch.maximum(ev[:, 0] - lo_k, hi_k - ev[:, -1]) / scale).max()
     slack_p = (torch.maximum(ev[:, 0] - lo_p, hi_p - ev[:, -1]) / scale).max()
     assert slack_k < max(1e-3, 2 * float(slack_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 3])
+def test_dsmem_equals_plain_and_replaced_regime_on_card(nb):
+    """B1 and B2 at tru9's padded size (m 145, mp 160) take "dsmem", one
+    launch each under its name; B1's (lam, VT) equal the plain version's bit
+    for bit, and both kernels' outputs equal those of "sm", "cluster" (the
+    regimes "dsmem" replaced there) and "rounds" (B2's row sums add in
+    another order than the plain version's, so B2 is held to the other
+    regimes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    m = 145
+    A = torch.from_numpy(spectrum_matrix("clustered", m, nb, seed=nb)).cuda()
+    Mn, _ = tj._normalize_pad(A)
+    mp = Mn.shape[-1]
+    sms = tj.sm_count(Mn.device)
+    s1, s2 = tj.jacobi_sweeps_for(m), tj.bound_sweeps_for(m)
+    assert mp == 160 and tj.regime_for(nb, mp, True, sms) == tj.regime_for(nb, mp, False, sms) == "dsmem"
+    before = [fn.launches_by_regime.copy() for fn in (tj.jacobi_eigh_cuda, tj.jacobi_bounds_cuda)]
+    lam, vt = tj.jacobi_eigh_cuda(Mn, s1)
+    g, h = tj.jacobi_bounds_cuda(Mn, s2)
+    after = [fn.launches_by_regime for fn in (tj.jacobi_eigh_cuda, tj.jacobi_bounds_cuda)]
+    assert [a - b for a, b in zip(after, before)] == [{"dsmem": 1}, {"dsmem": 1}]
+    lam_p, vt_p = tj.jacobi_eigh_plain(Mn, s1)
+    assert torch.equal(lam, lam_p) and torch.equal(vt, vt_p)
+    for regime in ("sm", "cluster", "rounds"):  # each fits both kernels at mp 160
+        vt_o, lam_o, g_o, h_o = (torch.empty_like(t) for t in (vt, lam, g, h))
+        tj._run(True, Mn, (vt_o, lam_o), s1, regime)
+        tj._run(False, Mn, (g_o, h_o), s2, regime)
+        assert all(torch.equal(a, b) for a, b in zip((lam, vt, g, h), (lam_o, vt_o, g_o, h_o)))
 
 
 def _cg_case(n):

@@ -114,11 +114,15 @@ def test_cpu_tensors_take_the_plain_version():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("nb,mp,b1,b2", [
-    (1, 16, "sm", "sm"), (1, 64, "sm", "sm"), (1, 112, "sm", "sm"), (1, 128, "sm", "sm"),
-    (1, 144, "cluster", "sm"), (1, 160, "cluster", "sm"),  # shipped: tru3 .. tru9/vib9
-    (3, 160, "cluster", "sm"), (4, 144, "sm", "sm"),       # one wave of clusters, two
-    (1, 176, "cluster", "sm"), (1, 192, "cluster", "cluster"), (1, 224, "cluster", "cluster"),
-    (7, 224, "cluster", "sm"), (1, 240, "cluster", "cluster"),
+    (1, 16, "sm", "sm"), (1, 64, "dsmem", "dsmem"), (1, 112, "dsmem", "dsmem"),
+    (1, 128, "dsmem", "dsmem"),
+    (1, 144, "dsmem", "dsmem"), (1, 160, "dsmem", "dsmem"),  # shipped: tru3 .. tru9/vib9
+    (3, 160, "dsmem", "dsmem"), (4, 144, "dsmem", "dsmem"),  # one wave of "dsmem" clusters
+    (8, 144, "sm", "sm"), (8, 160, "sm", "sm"),              # past it: the sizes' old regimes
+    (1, 176, "dsmem", "dsmem"), (1, 192, "dsmem", "dsmem"), (1, 224, "dsmem", "dsmem"),
+    (7, 224, "dsmem", "dsmem"), (8, 224, "cluster", "sm"), (1, 240, "dsmem", "dsmem"),
+    (1, 400, "dsmem", "dsmem"), (1, 416, "cluster", "dsmem"), (1, 480, "cluster", "dsmem"),
+    (1, 496, "cluster", "cluster"),                                  # DSMEM_TO and past it
     (1, 800, "cluster", "cluster"), (2, 800, "cluster", "cluster"),  # maxG11
     (1, 816, "cluster", "cluster"),                                  # thetaG11
     (1, 912, "cluster", "cluster"), (1, 928, "grid", "grid"), (1, 1008, "grid", "grid"),
@@ -130,17 +134,19 @@ def test_regime_by_shape(nb, mp, b1, b2):
         got = tj.regime_for(nb, mp, eigvecs)
         assert got == want
         assert tj.smem_bytes(got, mp, eigvecs, nb) <= tj.SMEM_LIMIT
+        # "dsmem" exactly where the card timed it the fastest
+        dsmem = nb <= tj.DSMEM_WAVE and mp <= tj.DSMEM_TO[eigvecs] and tj._dsmem_fits(mp, eigvecs)
+        assert (got == "dsmem") == dsmem
         fits = {r: tj.smem_bytes(r, mp, eigvecs) <= tj.SMEM_LIMIT for r in ("sm", "cluster")}
         fits["grid"] = tj.grid_plan(nb, mp, eigvecs)["fits"]
         if got == "rounds":  # only past every one-launch regime
             assert not any(fits.values())
         if got == "grid":  # only past a cluster's capacity
             assert not fits["sm"] and not fits["cluster"]
-        if got == "cluster" and fits["sm"]:  # the faster, and all in one wave
-            assert mp >= tj.CLUSTER_FROM[eigvecs]
-            assert nb * (2 if eigvecs else 1) <= tj.CLUSTER_WAVE
-        if got == "sm":  # the slower one, or more matrices than a wave holds
-            assert mp < tj.CLUSTER_FROM[eigvecs] or nb * (1 + eigvecs) > tj.CLUSTER_WAVE
+        if got == "cluster":  # only where one block does not hold the matrix
+            assert not fits["sm"]
+        if got == "sm":  # below "dsmem"'s least size, or past one wave of it
+            assert mp < 64 or nb > tj.DSMEM_WAVE
 
 
 def _label_src(i, half, mp):
@@ -261,6 +267,129 @@ def test_cluster_ownership_follows_pair_table(mp):
             np.testing.assert_array_equal(model.rows[b][top, 0], table[r % (mp - 1), 0, lo:hi])
             np.testing.assert_array_equal(model.rows[b][bot, 0], table[r % (mp - 1), 1, lo:hi])
         model.move()
+
+
+def _slot_src(l, b, K, nblk):
+    """csrc/jacobi.cu::slot_src: the index into the slot table that local
+    position l's slot comes from in a round's move (2K, 2K+1: the free
+    slots)."""
+    if l < K:
+        if b == 0:
+            return 0 if l == 0 else K if l == 1 else l - 1
+        return 2 * K if l == 0 else l - 1
+    if l < 2 * K - 1:
+        return l + 1
+    if l == 2 * K - 1:
+        return K - 1 if b == nblk - 1 else 2 * K + 1
+    if l == 2 * K:
+        return 2 * K if b == 0 else 2 * K + 1 if b == nblk - 1 else K - 1
+    return K - 1 if b == 0 else K
+
+
+@pytest.mark.parametrize("nblk", [4, 16])
+def test_slot_src_is_next_slot(nblk):
+    # the "dsmem" gather map (next table = table[slot_src]) is next_slot
+    rng = np.random.default_rng(nblk)
+    for K in (2, 3, 10):
+        for b in range(nblk):
+            sl = list(rng.permutation(2 * K + 2))
+            assert [sl[_slot_src(l, b, K, nblk)] for l in range(2 * K + 2)] == \
+                _next_slots(sl, b, K, nblk)
+
+
+class _DsmemModel:
+    """One matrix in the "dsmem" regime (csrc/jacobi.cu::dsmem): block b of
+    nblk holds the rows of its pair positions (`grid_pairs`) in row slots,
+    through its slot table, and keeps copies of its neighbours' tables; all
+    three advance by the fixed gather map of `_slot_src`. After a round it
+    stores its last top row into block b+1's free slot 2K and its first
+    bottom row into block b-1's free slot 2K+1, as its copies of their
+    tables name them. A row is its label."""
+
+    def __init__(self, mp, nblk):
+        self.half, self.nblk = mp // 2, nblk
+        self.split = tj.grid_pairs(mp, nblk)
+        self.K = [hi - lo for lo, hi in self.split]
+        S = 2 * max(self.K) + 2
+        self.rows = [np.full(S, -1) for _ in self.split]
+        self.tab = [list(range(S)) for _ in self.split]              # own
+        self.up = [list(range(S)) for _ in self.split]               # copy of b+1's
+        self.dn = [list(range(S)) for _ in self.split]               # copy of b-1's
+        for b, (lo, _) in enumerate(self.split):
+            K = self.K[b]
+            for l in range(2 * K):
+                self.rows[b][l] = lo + l if l < K else self.half + lo + l - K
+
+    def live(self, b):
+        return set(self.tab[b][:2 * self.K[b]])
+
+    def step(self):
+        last = self.nblk - 1
+        # the neighbours' copies agree with their own tables
+        for b in range(self.nblk):
+            if b < last:
+                assert self.up[b][:2 * self.K[b + 1] + 2] == self.tab[b + 1][:2 * self.K[b + 1] + 2]
+            if b > 0:
+                assert self.dn[b][:2 * self.K[b - 1] + 2] == self.tab[b - 1][:2 * self.K[b - 1] + 2]
+        # the pushes: every store lands in a slot no live position uses
+        sent = []
+        for b, K in enumerate(self.K):
+            if b < last:
+                dst = self.up[b][2 * self.K[b + 1]]
+                assert dst not in self.live(b + 1)
+                sent.append((b + 1, dst, self.rows[b][self.tab[b][K - 1]]))
+            if b > 0:
+                dst = self.dn[b][2 * self.K[b - 1] + 1]
+                assert dst not in self.live(b - 1)
+                sent.append((b - 1, dst, self.rows[b][self.tab[b][K]]))
+        for b, dst, row in sent:
+            self.rows[b][dst] = row
+
+        def gather(t, blk, K):
+            if not 0 <= blk <= last:
+                return t
+            return [t[_slot_src(l, blk, K, self.nblk)] if l < 2 * K + 2 else t[l]
+                    for l in range(len(t))]
+        K = self.K
+        self.tab = [gather(t, b, K[b]) for b, t in enumerate(self.tab)]
+        self.up = [gather(t, b + 1, K[b + 1] if b < last else 0) for b, t in enumerate(self.up)]
+        self.dn = [gather(t, b - 1, K[b - 1] if b > 0 else 0) for b, t in enumerate(self.dn)]
+        for b in range(self.nblk):
+            assert sorted(self.tab[b]) == list(range(len(self.tab[b])))  # a permutation
+
+
+@pytest.mark.parametrize("mp,nblk", [(16, 4), (64, 16), (160, 16), (160, 8), (224, 16)])
+def test_dsmem_rows_follow_pair_table(mp, nblk):
+    """The "dsmem" regime's row ownership and neighbour exchange at tru3's,
+    theta1's, tru9's and a larger padded size: each position owned once,
+    both rows of every pair in one block in every round of a sweep and the
+    first of the next, each arriving row in a free slot. The kernel's
+    clusters have 16 blocks; the layout's rules hold at any size, so mp 16,
+    which a cluster of 16 cannot split, is modelled over 4, and mp 160 over
+    8 as well."""
+    half = mp // 2
+    if mp < 64:  # a cluster of 16 needs two pairs a block
+        assert not tj._dsmem_fits(mp, False) and tj.regime_for(1, mp, False) == "sm"
+    else:
+        assert tj.regime_for(1, mp, True) == tj.regime_for(1, mp, False) == "dsmem"
+    split = tj.grid_pairs(mp, nblk)
+    owned = np.concatenate([np.r_[lo:hi, half + lo:half + hi] for lo, hi in split])
+    np.testing.assert_array_equal(np.sort(owned), np.arange(mp))
+    assert min(hi - lo for lo, hi in split) >= 2 and max(hi - lo for lo, hi in split) <= 32
+    model = _DsmemModel(mp, nblk)
+    table = tj.pair_table(mp)
+    src = np.array([_label_src(i, half, mp) for i in range(mp)])
+    lab = np.arange(mp)  # the kernel's labels by position, gathered through label_src
+    for r in range(mp):
+        np.testing.assert_array_equal(lab[:half], table[r % (mp - 1), 0])
+        np.testing.assert_array_equal(lab[half:], table[r % (mp - 1), 1])
+        for b, (lo, hi) in enumerate(split):
+            K = hi - lo
+            sl = model.tab[b]
+            np.testing.assert_array_equal(model.rows[b][sl[:K]], lab[lo:hi])
+            np.testing.assert_array_equal(model.rows[b][sl[K:2 * K]], lab[half + lo:half + hi])
+        model.step()
+        lab = lab[src]
 
 
 class _GridModel:
