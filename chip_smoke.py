@@ -15,11 +15,13 @@ Phases:
      thetaG11, the tori of phase 41) and at the edges of the kernel's
      regimes, (1, 128), (4, 144), (8, 144), (1, 152), (1, 160), (2, 160),
      (1, 176), (1, 192), (1, 912), (2, 1008) and (1, 2416) ("dsmem" from mp
-     64 to 400 (B1) or 480 (B2) for up to 7 matrices, beside every other
-     one-launch regime that fits there (time, us a round, bit equality),
-     and so at its edges (1, 400), (1, 416), (1, 480), (1, 496), (7, 160)
-     and (8, 160) with no plain version; else "sm" where it fits,
-     "cluster" to 912, "grid" to 2400, then "rounds"),
+     64 to 448 (B2), to 288 (B1 of up to 3 matrices) or 464 (B1 of 4 to 7),
+     for up to 7 matrices, beside every other one-launch regime that fits
+     there (time, us a round, bit equality), and so at its edges (1, 288),
+     (1, 304), (3, 304), (4, 304), (1, 448), (1, 464), (7, 464), (7, 480),
+     (7, 160) and (8, 160) with no plain version; else "sm" where it fits,
+     "cluster" to 912 (B2 of one matrix to 832), "grid" to 2400, then
+     "rounds"),
      on clustered (IPM-like) and random spectra, (1, 2000), (2, 1008) and
      (1, 2416) with one sweep: the contracts (after the sweep schedule),
      whether B1 equals the plain version bit for bit (a check in every
@@ -27,8 +29,12 @@ Phases:
      kernel's, the "rounds" regime's (one launch per round), the plain
      version's and the library call's times (torch.linalg.eigh / eigvalsh
      in f32 on the same tensor) and the bound, and, where the other
-     one-launch regime also fits, its time; at (1, 800), (2, 800) and
-     (1, 808) "grid" forced beside "cluster" (time, bit equality); at
+     one-launch regime also fits, its time; at (1, 800), (2, 800), (1, 808)
+     and (1, 912) "cluster" and "grid" forced (time; B1 and B2 bit for bit,
+     a check: the same rotations and Gershgorin order) and, with
+     ``--parent ROOT``, the "cluster" kernel of another checkout's
+     csrc/jacobi.cu (an earlier commit's, from ``git archive``: time, bit
+     equality, a check); at
      (1, 2000) one call of "grid" and of "rounds" with the full sweep
      schedule; fails unless every regime of both kernels ran.
   3. SDPLIB theta1 (n=104, one 50x50 block) through ``solve_sdpa`` on the
@@ -328,12 +334,15 @@ SHAPES = [(1, 16), (2, 16), (1, 56), (2, 56), (1, 128), (1, 144), (4, 144), (8, 
 # phase 2 runs these with one sweep (the plain version takes seconds a sweep
 # there): bit equality and certified bounds, not a converged seed
 ONE_SWEEP = ((1, 2000), (2, 1008), (1, 2416))
-# (nb, mp) where phase 2 also forces "grid" beside "cluster" (ROADMAP Queue B
-# item 1: a one-launch kernel with no cluster barrier)
-GRID_VS_CLUSTER = ((1, 800), (2, 800), (1, 816))
-# (nb, mp) at the edges of "dsmem" (ops/jacobi.py::DSMEM_TO, DSMEM_WAVE),
-# where phase 2 forces it beside every other one-launch regime that fits
-DSMEM_EDGES = ((1, 400), (1, 416), (1, 480), (1, 496), (7, 160), (8, 160))
+# (nb, mp) where phase 2 also forces "grid" beside "cluster", and times the
+# "cluster" kernel of ``--parent ROOT`` (maxG11's, thetaG11's, the last size
+# a cluster holds)
+GRID_VS_CLUSTER = ((1, 800), (2, 800), (1, 816), (1, 912))
+# (nb, mp) at the edges of "dsmem" (ops/jacobi.py::DSMEM_TO, DSMEM_TO_FEW,
+# CLUSTER_PAIRS, DSMEM_WAVE), where phase 2 forces it beside every other
+# one-launch regime that fits
+DSMEM_EDGES = ((1, 288), (1, 304), (3, 304), (4, 304), (1, 448), (1, 464), (7, 464), (7, 480),
+               (7, 160), (8, 160))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the
 # tensor cores, f64 on the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
@@ -492,6 +501,36 @@ def regime_ms(tj, eigvecs: bool, Mn, sweeps: int, regime: str, reps: int) -> flo
     return cuda_ms(lambda: forced_run(tj, eigvecs, Mn, sweeps, regime), reps)
 
 
+def jacobi_library(root: str):
+    """csrc/jacobi.cu of another checkout (same C interface), built with this
+    checkout's flags into a temporary directory and bound as `tj._lib` binds
+    its own; for timing an earlier kernel beside this one in one process."""
+    import ctypes
+    from loraine_tpu_torch.utils import cuda_build
+    out = os.path.join(tempfile.mkdtemp(prefix="jacobi_other_"), "libjacobi.so")
+    src = os.path.join(root, "loraine_tpu_torch", "csrc", "jacobi.cu")
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", out, src], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(out)
+    for fn in (lib.lt_jacobi_eigh_f32, lib.lt_jacobi_bounds_f32):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.lt_jacobi_grid_scratch.argtypes = [ctypes.c_int] * 3
+    lib.lt_jacobi_grid_scratch.restype = ctypes.c_longlong
+    lib._lt_bound = True
+    return lib
+
+
+def with_library(tj, lib, fn):
+    """fn() with `tj`'s kernels taken from ``lib``."""
+    own = tj._lib
+    tj._lib = lambda: lib
+    try:
+        return fn()
+    finally:
+        tj._lib = own
+
+
 def one_launch_fits(tj, mp: int, eigvecs: bool) -> list:
     """The regimes "sm" and "cluster" where a matrix of padded size mp fits
     them (a cluster needs two pairs a block: mp >= 64)."""
@@ -526,10 +565,12 @@ def seed_quality(A, lam, V, scale):
     return float(recon.max()), float((Vd.mT @ Vd - eye).abs().max())
 
 
-def kernels_vs_plain(tj) -> dict:
+def kernels_vs_plain(tj, parent=None) -> dict:
     """Phase 2. Returns per-kernel max errors and, at the maxG11 shapes B1
     (1, 800) and B2 (2, 800), the kernel's time, the plain version's, the
-    library call's and the bound."""
+    library call's and the bound. ``parent``: another checkout's Jacobi
+    library (`jacobi_library`), whose "cluster" is timed at
+    GRID_VS_CLUSTER."""
     err = {"eigh": 0.0, "bounds": 0.0}
     times = {}
     regimes = {"B1": set(), "B2": set()}
@@ -585,12 +626,22 @@ def kernels_vs_plain(tj) -> dict:
                               f"instead of {reg}: "
                               f"ms={regime_ms(tj, eigvecs, Mn, s, other, reps):.4f}", flush=True)
                 if kind == "clustered" and (nb, mp) in GRID_VS_CLUSTER:
+                    out = forced_run(tj, eigvecs, Mn, s, "cluster")
                     same = all(torch.equal(a, b) for a, b in zip(
-                        forced_run(tj, eigvecs, Mn, s, "grid"),
-                        forced_run(tj, eigvecs, Mn, s, reg)))
-                    print(f"phase 2 nb={nb} m={m} mp={mp} {kind}: {kname} grid regime instead of "
-                          f"{reg}: ms={regime_ms(tj, eigvecs, Mn, s, 'grid', reps):.4f} "
-                          f"bitwise_equal_{reg}={same}", flush=True)
+                        forced_run(tj, eigvecs, Mn, s, "grid"), out))
+                    line = (f"phase 2 nb={nb} m={m} mp={mp} {kind}: {kname} picked {reg}: cluster "
+                            f"ms={regime_ms(tj, eigvecs, Mn, s, 'cluster', reps):.4f} grid "
+                            f"ms={regime_ms(tj, eigvecs, Mn, s, 'grid', reps):.4f} "
+                            f"bitwise_equal={same}")
+                    check(same, f"{kname} grid differs from cluster nb={nb} mp={mp}")
+                    if parent is not None:
+                        old = with_library(tj, parent, lambda: (
+                            forced_run(tj, eigvecs, Mn, s, "cluster"),
+                            regime_ms(tj, eigvecs, Mn, s, "cluster", reps)))
+                        same = all(torch.equal(a, b) for a, b in zip(old[0], out))
+                        line += f" | parent cluster ms={old[1]:.4f} bitwise_equal={same}"
+                        check(same, f"{kname} cluster differs from the parent's mp={mp}")
+                    print(line, flush=True)
             if reg_b == "grid":  # B2: bit for bit the regime it replaced
                 same_b = all(torch.equal(a, b) for a, b in zip(
                     tj.jacobi_bounds_cuda(Mn, s2), forced_run(tj, False, Mn, s2, "rounds")))
@@ -2352,7 +2403,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s into {BUILD_DIR}", flush=True)
 
     # ---- phase 2: Jacobi kernels vs plain versions on the card
-    k = kernels_vs_plain(tj)
+    parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
+    k = kernels_vs_plain(tj, jacobi_library(parent) if parent else None)
     launches = Launches(tj, tp, ti, dl)
 
     # ---- phase 3: theta1, card against the port's CPU run

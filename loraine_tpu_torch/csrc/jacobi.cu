@@ -26,12 +26,13 @@
 // the round-to-round dependency. The TPU kernel keeps the whole matrix in
 // VMEM for the call; a Hopper SM has 227 KB of shared memory, a cluster of
 // 16 SMs ~3.6 MB. The regime is chosen by the shape (nb, mp) alone
-// (ops/jacobi.py::regime_for, which mirrors the byte counts below): (e)
-// "dsmem" from mp 64 to 400 (B1) or 480 (B2) while one wave of its
-// clusters holds the nb matrices (7 on an H100), where the card timed it
-// the fastest; else "sm" where it fits (so below mp 64, or past that
-// wave), else "cluster" where it fits, else "grid" where it fits (to mp
-// 2400), else "rounds":
+// (ops/jacobi.py::regime_for, which mirrors the byte counts below, and
+// holds the boundaries the card timed): (e) "dsmem" from mp 64 to 448 (B2),
+// 288 (B1 of up to 3 matrices) or 464 (B1 of 4 to 7) while one wave of its
+// clusters holds the nb matrices (7 on an H100); else "sm" where it fits
+// (so below mp 64, or past that wave), else (b) "cluster" where it fits (to
+// mp 912; B2 of one matrix to 832), else "grid" where it fits (to mp 2400),
+// else "rounds":
 //
 // (a) "sm": one block per matrix, the matrix (and, for B1, the eigenvector
 //     rows) in the block's shared memory for the whole call, one launch.
@@ -48,37 +49,51 @@
 //     per 2x2 block. Eigenvector rows move two columns a thread. A's row
 //     stride is mp + 1 against bank conflicts.
 //
-// (b) "cluster": one thread block cluster of 16 blocks per matrix (a
-//     non-portable size), the matrix spread over their shared memory, one
-//     launch; mp <= 912. Rows are owned by tournament position: block b
-//     holds the rows at positions [lo_b, hi_b) and [mp/2 + lo_b, mp/2 + hi_b)
-//     (pair_lo), so both rows of each of its pairs are local and every
-//     rotation reads and writes local memory only; the in-place hazard of a
-//     remote partner row does not arise. The tournament then moves one top
-//     row from each block to the next and one bottom row back (pair_table's
-//     permutation shifts position ranges by one). A round is: each block
-//     reads the angles it does not own from their owners (remote loads, in
-//     parallel) while one lane per own pair reads the three 2x2 blocks its
-//     next-round angle needs; __syncthreads(); warps 1..31 rotate the local
-//     rows while those lanes compute the next round's angles (the same
-//     arithmetic as the blocks' owners, so the same bits); __syncthreads();
-//     the two leaving rows go as float4 remote stores into the neighbours'
-//     free row slots, and 12 "edge" values (the entries a neighbour needs
-//     for the pair that takes an arriving row) to the neighbours; one
-//     cluster barrier (and one after the last round, so that no block exits
-//     while another still reads its angles). Angles, records, labels, slot tables and edge values
-//     are double buffered by round. Bound, on an H100, by the cluster
-//     barrier (~0.8 us with 16 x 1024 threads, most of it the release
-//     fence) and by each SM's shared-memory instructions (its share of A,
-//     read and written every round, ~170 KB at mp = 816).
+// (b) "cluster": one thread block cluster of 16 blocks of 1024 threads per
+//     matrix (a non-portable size), the matrix spread over their shared
+//     memory, one launch; mp <= 912. Rows are owned by tournament position:
+//     block b holds the rows at positions [lo_b, hi_b) and [mp/2 + lo_b,
+//     mp/2 + hi_b) (pair_lo) in row slots through a slot table, so both rows
+//     of each of its pairs are local and every rotation reads and writes
+//     local memory only. The tournament then moves one top row from each
+//     block to the next and one bottom row back (pair_table's permutation
+//     shifts position ranges by one) into the slot the receiver's leaving row
+//     vacated, and 12 "edge" values (the entries a neighbour needs for the
+//     pair that takes an arriving row) go with them. No cluster barrier: a
+//     round's angles, rows and edge values are bulk copies
+//     (cp.async.bulk shared::cluster) that count their bytes on the
+//     receiver's mbarrier of the round's parity, and a block waits only for
+//     what it reads next round. Its warps split the round: warp 0 computes
+//     the next round's angles from the 2x2 blocks it reads before the
+//     rotation (the same arithmetic as the owners', so the same bits) and
+//     copies them into the 15 other blocks; warps 2..31 each rotate one
+//     column pair down the local rows, the rows that leave and those the
+//     edge values come from first, then arrive on a local barrier, on which
+//     warp 1 waits to copy the leaving rows and edge values out while they
+//     rotate the rest; only the warps whose columns hold warp 0's 2x2 blocks
+//     wait for it to read them (named barrier 1). Labels come in closed form
+//     from a position's place on the tournament's cycle (cyc), slot tables
+//     through a fixed gather (slot_src), warp 0's per-lane indices from a
+//     packed table: no division by a runtime value in the loop. Bound, on an
+//     H100, by each SM's instruction issue for the rotation: ~44
+//     instructions a 2x2 block, 24 of them unfused f32 multiplies and adds,
+//     over its ~10,600 blocks a round at mp 816. Timed by parts there
+//     (PERF.md, B2): the first version of this regime took 5.05 us a round,
+//     ~1.07 of it its cluster barrier, ~0.55 its remote row stores, ~0.16
+//     its remote angle loads, ~2.44 the rotation and ~1.23 its index code,
+//     two __syncthreads() and the angle chain; this one takes ~2.95 us, of
+//     which the rotation ~2.5 (its first four records at half the rate of
+//     the rest) and ~0.3 the round's wait and table gather before it.
 //     B1's eigenvector rows (2.66 MB at mp = 816) do not fit beside A, but
 //     their columns never mix: a second cluster of 16 blocks per matrix
 //     holds them by column ranges, two columns a thread, and replays the
 //     angles that the first cluster writes to a log in global memory, one
-//     flagged entry per round and pair (put_pair below). The consumer only waits for the producer,
-//     never the reverse, and the host launches at most as many
+//     flagged entry per round and pair (put_pair below), loaded a round
+//     ahead; it keeps pace (it ends within a microsecond of the first), so
+//     B1's round is the first cluster's. The consumer only waits for the
+//     producer, never the reverse, and the host launches at most as many
 //     matrices at once as cudaOccupancyMaxActiveClusters lets be resident
-//     (producers first in the grid); a consumer that waits 20 s traps, so a
+//     (producers first in the grid); a wait that lasts 20 s traps, so a
 //     fault ends the launch instead of hanging the card.
 //
 // (c) "rounds": past (d)'s capacity (mp > 2400 on an H100 SXM's 132 SMs),
@@ -140,10 +155,10 @@
 //     does not wait for the other warps' table work (a named barrier), and
 //     the rows leave as soon as they are rotated, while warp 0 may still
 //     send angles: ~0.9 us a round for B2 and ~1.1 us for B1 at mp 160
-//     (PERF.md). Past mp ~400 (B1; ~700 for B2) "cluster" is the faster:
-//     each block's share of the rotation grows with mp and the angle
-//     stores with the blocks, while (b)'s cluster barrier stays ~0.8 us;
-//     B1 fits only to mp 640 (A and the eigenvector rows in one block). A
+//     (PERF.md). Past mp 448 (B2; 288 for B1 of up to 3 matrices) (b) is
+//     the faster: each block's share of the rotation grows with mp, and
+//     (b) has four times the threads for it; B1 fits only to mp 640 (A and
+//     the eigenvector rows in one block). A
 //     cluster that cannot be resident fails the call (-1); a wait that
 //     lasts 20 s traps.
 //
@@ -167,13 +182,12 @@ namespace {
 
 constexpr int TP = 16;          // (c): pairs per tile edge
 constexpr int NT = TP * TP;     // (c): threads per block
-constexpr int NTR = 1024;       // (a), (b): threads per block
-constexpr int NW = NTR / 32;    // (a), (b): warps per block
-constexpr int CL = 16;          // (b): blocks per cluster
+constexpr int NTR = 1024;       // (a), (b), (d): threads per block
+constexpr int NW = NTR / 32;    // (a), (b), (d): warps per block
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr int ERR_NO_CLUSTER = -1;  // no cluster of this shape can be resident
 constexpr int ERR_SHAPE = -2;       // the shape does not fit the regime
-constexpr int EDGE = 12;         // (b): edge values a block keeps per round
+constexpr int EDGE = 12;         // (b), (d), (e): edge values a block keeps per round
 constexpr unsigned long long WAIT_NS = 20000000000ull;  // consumer timeout
 
 // ---- shared arithmetic -----------------------------------------------------
@@ -373,37 +387,17 @@ __device__ __forceinline__ float next_angle_inputs(const Quad& bpp, const Quad& 
   return rotated(bpp, ai, ai, n.pt, n.pt);
 }
 
-// Byte counts of the one-launch regimes (ops/jacobi.py::smem_bytes mirrors
-// them): A's rows at stride mp + 1 (a), mp + 4 (b); the eigenvector rows at
-// stride mp (a); per pair a row record (16 B) and an angle (8 B), both
-// double buffered, and two label words; in (b) two slot tables, two sets of
-// edge values and the neighbours' slot numbers (16 B); B1's consumer blocks
-// hold mp x cluster_cols(mp) eigenvector entries, one set of angles and the
-// labels.
+// Bytes of an (a) block (ops/jacobi.py::smem_bytes mirrors it; (b), (d) and
+// (e) below): A's rows at stride mp + 1, the eigenvector rows at stride mp,
+// per pair a row record (16 B) and an angle (8 B), both double buffered, and
+// two label words.
 __host__ __device__ constexpr int sm_bytes(int mp, bool vec) {
   return 4 * mp * (mp + 1) + (vec ? 4 * mp * mp : 0) + 28 * mp;
-}
-__host__ __device__ constexpr int cluster_pairs_max(int mp) { return (mp / 2 + CL - 1) / CL; }
-__host__ __device__ constexpr int cluster_slots(int mp) { return 2 * cluster_pairs_max(mp) + 2; }
-// even, so that a consumer block's rows hold whole column pairs
-__host__ __device__ constexpr int cluster_cols(int mp) { return ((mp + CL - 1) / CL + 1) / 2 * 2; }
-// row stride: a multiple of 4 floats, so that rows move as float4
-__host__ __device__ constexpr int cluster_ld(int mp) { return mp + 4; }
-__host__ __device__ constexpr int cluster_row_bytes(int mp) {
-  return 32 * cluster_pairs_max(mp) + 12 * mp + 8 * cluster_slots(mp) + 8 * EDGE + 16 +
-         4 * cluster_slots(mp) * cluster_ld(mp);
-}
-__host__ __device__ constexpr int cluster_col_bytes(int mp) {
-  return 4 * mp * cluster_cols(mp) + 8 * mp;
-}
-__host__ __device__ constexpr int cluster_bytes(int mp, bool vec) {
-  return vec && cluster_col_bytes(mp) > cluster_row_bytes(mp) ? cluster_col_bytes(mp)
-                                                              : cluster_row_bytes(mp);
 }
 
 // First pair position of block b of nblk blocks (a cluster, or a matrix's
 // blocks in (d)).
-__host__ __device__ __forceinline__ int pair_lo(int b, int half, int nblk = CL) {
+__host__ __device__ __forceinline__ int pair_lo(int b, int half, int nblk) {
   return b * half / nblk;
 }
 
@@ -442,17 +436,29 @@ __device__ __forceinline__ void wait_until(F done) {
     }
 }
 
-// The entry written with `flag`.
-__device__ __forceinline__ float2 get_pair(const int4* e, int flag) {
+__device__ __forceinline__ int4 ld_entry(const int4* e) {
   int4 v;
+  asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(e)
+               : "memory");
+  return v;
+}
+
+// The values of entry e written with `flag`: v, loaded earlier, or e
+// reloaded until it holds the flag.
+__device__ __forceinline__ float2 entry_value(const int4* e, int flag, int4 v) {
   wait_until([&] {
-    asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-                 : "l"(e)
-                 : "memory");
-    return v.y == flag && v.w == flag;
+    if (v.y == flag && v.w == flag) return true;
+    v = ld_entry(e);
+    return false;
   });
   return make_float2(__int_as_float(v.x), __int_as_float(v.z));
+}
+
+// The entry written with `flag`.
+__device__ __forceinline__ float2 get_pair(const int4* e, int flag) {
+  return entry_value(e, flag, ld_entry(e));
 }
 
 __device__ __forceinline__ float get_one(const int2* e, int flag) {
@@ -536,36 +542,16 @@ sm_kernel(const float* __restrict__ a_in, float* x0, float* x1, int mp, int nrou
   }
 }
 
-// ---- (b) one cluster per matrix --------------------------------------------
-
-// B1's eigenvector rows: block v of a consumer cluster holds columns
-// [v mp / 16, (v + 1) mp / 16) of every row and replays the producer's
-// angles from the log, round by round.
-__device__ void vt_consumer(const int4* log, float* vt, int mp, int nrounds) {
-  extern __shared__ int4 smem4[];
-  const int half = mp / 2, tid = threadIdx.x, v = blockIdx.x;
-  const int c0 = v * mp / CL, nc = (v + 1) * mp / CL - c0, ldv = cluster_cols(mp);
-  float2* ang = reinterpret_cast<float2*>(smem4);  // [half]
-  int* pq = reinterpret_cast<int*>(ang + half);  // [2][half]
-  float* V = reinterpret_cast<float*>(pq + 2 * half);  // [mp][ldv]
-  for (int e = tid; e < mp * ldv; e += NTR) {  // padding columns stay 0
-    const int p = e / ldv, k = e - p * ldv;
-    V[e] = p == c0 + k && k < nc ? 1.0f : 0.0f;
-  }
-  init_pairs(pq, half);
-  for (int r = 0; r < nrounds; ++r) {
-    for (int k = tid; k < half; k += NTR) ang[k] = get_pair(log + (size_t)r * half + k, r + 1);
-    __syncthreads();
-    const int* pqc = pq + (r & 1) * half;
-    rotate_vt(V, ldv, (nc + 1) / 2, pqc, ang, half, 0);
-    for (int k = tid; k < half; k += NTR) pq[((r + 1) & 1) * half + k] = next_pair(pqc, k, half);
-    __syncthreads();
-  }
-  for (int e = tid; e < mp * nc; e += NTR) {
-    const int p = e / nc, k = e - p * nc;
-    vt[(size_t)p * mp + c0 + k] = V[p * ldv + k];
-  }
-}
+// ---- row slots and edge values of (b), (d) and (e) --------------------------
+//
+// Edge values of block b (EDGE = 12 floats a round in (d) and (e); (b)
+// lays the same values out for its bulk copies, wide::EDGE_IN): [0..3] row
+// p at columns (p, p2, x, q), [4..7] row p2 at the same columns, where p,
+// p2, x, q are the labels at positions lo-1, half+lo-1, lo+1, half+lo+1
+// (the top edge: next round's pair lo takes row p from block b-1 and row p2,
+// which block b sends to b-1); [8..11] rows y and q at columns (y, q),
+// labels at positions hi and half+hi (the bottom edge: next round's pair
+// hi-1 takes row q from block b+1 and row y, which b sends to b+1).
 
 // Where local position l's slot comes from in this round's move, in block b
 // of nblk with K local pairs: an index into the slot table (entries 2K, 2K+1
@@ -580,202 +566,8 @@ __host__ __device__ __forceinline__ int slot_src(int l, int b, int K, int nblk) 
 }
 
 // Slot of local position l after this round's move (slot table sl).
-__device__ __forceinline__ int next_slot(const int* sl, int l, int b, int K, int nblk = CL) {
+__device__ __forceinline__ int next_slot(const int* sl, int l, int b, int K, int nblk) {
   return sl[slot_src(l, b, K, nblk)];
-}
-
-// Grid (16, nmat) for B2, (16, 2 nmat) for B1: row y < nmat is the cluster
-// of matrix y, row nmat + y (B1) the consumer cluster of its eigenvector
-// rows. x0, x1 as in sm_kernel; log [nmat, nrounds, mp/2] (zeroed) only
-// for B1.
-//
-// One cluster barrier a round. Lane l < K of warp 0 is the angle thread of
-// the block's own pair lo + l in the next round: it reads the three 2x2
-// blocks its angle needs before the rotation and computes the angle while
-// warps 1..31 rotate; at the start of the next round every block reads the
-// angles it does not own from their owners (angles, records, labels and
-// slot tables are double buffered by round). Two of those
-// blocks lie in rows of a neighbour for the two pairs that take an
-// arriving row; their entries come from the "edge" values the neighbour
-// pushed the round before. After the rotation the leaving rows go into the
-// neighbours' free slots and the next round's edge values to the
-// neighbours; the barrier then makes all of it visible.
-//
-// Edge values of block b (12 floats a round): [0..3] row p at columns
-// (p, p2, x, q), [4..7] row p2 at the same columns, where p, p2, x, q are the
-// labels at positions lo-1, half+lo-1, lo+1, half+lo+1 (the top edge: next
-// round's pair lo takes row p from block b-1); [8..11] rows y and q at
-// columns (y, q), labels at positions hi and half+hi (the bottom edge: next
-// round's pair hi-1 takes row q from block b+1).
-template <bool VEC>
-__global__ void __launch_bounds__(NTR)
-cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int4* log, int mp,
-               int nrounds, int nmat) {
-  const int mat = VEC ? blockIdx.y % nmat : blockIdx.y;
-  const size_t logoff = (size_t)mat * nrounds * (mp / 2);
-  if (VEC && blockIdx.y >= nmat) {
-    vt_consumer(log + logoff, x0 + (size_t)mat * mp * mp, mp, nrounds);
-    return;
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ int4 smem4[];
-  const int b = (int)cluster.block_rank();
-  const int half = mp / 2, ld = cluster_ld(mp), tid = threadIdx.x, S = cluster_slots(mp);
-  const int KM = cluster_pairs_max(mp);
-  const int lo = pair_lo(b, half), hi = pair_lo(b + 1, half), K = hi - lo;
-  const bool top_edge = b > 0, bottom_edge = b < CL - 1;
-  int4* rr = smem4;  // [2][KM]: records of the local row pairs
-  float2* ang = reinterpret_cast<float2*>(rr + 2 * KM);  // [2][half]
-  int* pq = reinterpret_cast<int*>(ang + 2 * half);  // [2][half]
-  int* slt = pq + 2 * half;  // [2][S]: slots of the local positions, then 2 free
-  float* edge = reinterpret_cast<float*>(slt + 2 * S);  // [2][EDGE]
-  int* nfree = reinterpret_cast<int*>(edge + 2 * EDGE);  // [4]: the neighbours' free slots
-  float* rows = reinterpret_cast<float*>(nfree + 4);  // [S][ld], 16-byte aligned
-  // round 0: local position l < K is top position lo + l, K <= l < 2K bottom
-  // position half + lo + l - K, position i holds label i; every block takes
-  // all angles and its edge values straight from the input
-  const float* a = a_in + (size_t)mat * mp * mp;
-  for (int e = tid; e < 2 * K * mp; e += NTR) {
-    const int l = e / mp, c = e - l * mp;
-    const int label = l < K ? lo + l : half + lo + l - K;
-    rows[l * ld + c] = a[(size_t)label * mp + c];
-  }
-  for (int l = tid; l < 2 * K + 2; l += NTR) slt[l] = l;
-  init_pairs(pq, half);
-  for (int k = tid; k < half; k += NTR) {
-    float c, s;
-    rotation(a[(size_t)k * mp + k], a[(size_t)k * mp + k + half],
-             a[(size_t)(k + half) * mp + k + half], c, s);
-    ang[k] = make_float2(c, s);
-    if (k >= lo && k < hi) {
-      const int l = k - lo;
-      rr[l] = make_int4(l * ld, (K + l) * ld, __float_as_int(c), __float_as_int(s));
-      if (VEC) put_pair(log + logoff + k, c, s, 1);
-    }
-  }
-  if (tid < EDGE) {
-    const int tp[4] = {lo - 1, half + lo - 1, lo + 1, half + lo + 1};
-    const int bt[2] = {hi, half + hi};
-    if (tid < 8 && top_edge) edge[tid] = a[(size_t)tp[tid / 4] * mp + tp[tid % 4]];
-    if (tid >= 8 && bottom_edge) edge[tid] = a[(size_t)bt[(tid - 8) / 2] * mp + bt[tid % 2]];
-  }
-  cluster.sync();  // every block runs before any remote store
-  const int Kup = pair_lo(b + 2, half) - hi;                 // K of block b + 1
-  const int Kdn = top_edge ? lo - pair_lo(b - 1, half) : 0;  // K of block b - 1
-  for (int r = 0; r < nrounds; ++r) {
-    const int cur = r & 1, nx = cur ^ 1;
-    const int* pqc = pq + cur * half;
-    const int* sl = slt + cur * S;
-    const float2* angc = ang + cur * half;
-    const bool more = r + 1 < nrounds;
-    // the angle threads read the blocks of their next-round angle; two
-    // lanes read where this round's leaving rows will go
-    const bool angle = more && tid < K;
-    const int l = tid;
-    NextPair n;
-    Quad bpp, bpq, bqq;
-    if (angle) {
-      n = next_pair_of(lo + l, half);
-      const int vp = pqc[n.ip], vq = pqc[n.iq];
-      const float* ec = edge + cur * EDGE;
-      // the local rows of pair i: slots of positions i and half + i
-      auto local = [&](int i, int v) {
-        return load_quad(rows, sl[i - lo] * ld, sl[K + i - lo] * ld, pq_p(v), pq_q(v));
-      };
-      if (top_edge && l == 0) {  // pair ip = lo - 1 is block b-1's
-        bpp = {ec[0], ec[1], ec[4], ec[5]};
-        bpq = {ec[2], ec[3], ec[6], ec[7]};
-        bqq = local(n.iq, vq);
-      } else if (bottom_edge && l == K - 1) {  // pair iq = hi is block b+1's
-        bpp = local(n.ip, vp);
-        bpq = local(n.ip, vq);
-        bqq = {ec[8], ec[9], ec[10], ec[11]};
-      } else {
-        bpp = local(n.ip, vp);
-        bpq = local(n.ip, vq);
-        bqq = local(n.iq, vq);
-      }
-    }
-    if (more && tid == 30 && bottom_edge)
-      nfree[0] = cluster.map_shared_rank(slt + cur * S, b + 1)[2 * Kup];
-    if (more && tid == 31 && top_edge)
-      nfree[1] = cluster.map_shared_rank(slt + cur * S, b - 1)[2 * Kdn + 1];
-    // meanwhile the other warps take the other blocks' angles of this round
-    // and advance the labels and slot table
-    if (tid >= 512 && tid < 512 + half && (tid - 512 < lo || tid - 512 >= hi)) {
-      const int k = tid - 512;
-      ang[cur * half + k] = cluster.map_shared_rank(ang + cur * half, ((k + 1) * CL - 1) / half)[k];
-    }
-    if (more) {
-      for (int k = tid - 32; k >= 0 && k < half; k += NTR)
-        pq[nx * half + k] = next_pair(pqc, k, half);
-      for (int j = tid - 32 - half; j >= 0 && j < 2 * K + 2; j += NTR)
-        slt[nx * S + j] = next_slot(sl, j, b, K);
-    }
-    __syncthreads();
-    if (angle) {
-      float apq, aqq, c, s;
-      const float app = next_angle_inputs(bpp, bpq, bqq, n, angc, apq, aqq);
-      rotation(app, apq, aqq, c, s);
-      const int k = lo + l;
-      ang[nx * half + k] = make_float2(c, s);  // the other blocks take it next round
-      rr[nx * KM + l] = make_int4(next_slot(sl, l, b, K) * ld, next_slot(sl, K + l, b, K) * ld,
-                                  __float_as_int(c), __float_as_int(s));
-      if (VEC) put_pair(log + logoff + (size_t)(r + 1) * half + k, c, s, r + 2);
-    }
-    rotate_rows(rows, rr + cur * KM, K, pqc, angc, half, 1);
-    __syncthreads();
-    if (!more) break;  // the last round moves no rows (the barrier follows the loop)
-    // edge values of round r+1 (the last warp): rows after this round's
-    // rotation at the labels of round r+1
-    if (tid >= NTR - 32 && tid < NTR - 32 + EDGE) {
-      const int i = tid - (NTR - 32);
-      if (i < 4 && bottom_edge) {  // block b+1's row p: position hi-1 next round
-        const int tp[4] = {hi - 1, half + hi - 1, hi + 1, half + hi + 1};
-        cluster.map_shared_rank(edge, b + 1)[nx * EDGE + i] =
-            rows[next_slot(sl, K - 1, b, K) * ld + next_label(pqc, tp[i], half)];
-      } else if (i >= 4 && i < 8 && top_edge) {  // own row p2: now the first bottom row
-        const int tp[4] = {lo - 1, half + lo - 1, lo + 1, half + lo + 1};
-        edge[nx * EDGE + i] = rows[sl[K] * ld + next_label(pqc, tp[i - 4], half)];
-      } else if (i >= 8 && i < 10 && bottom_edge) {  // own row y: now the last top row
-        const int bt[2] = {hi, half + hi};
-        edge[nx * EDGE + i] = rows[sl[K - 1] * ld + next_label(pqc, bt[i - 8], half)];
-      } else if (i >= 10 && top_edge) {  // block b-1's row q: position half+lo next round
-        const int bt[2] = {lo, half + lo};
-        cluster.map_shared_rank(edge, b - 1)[nx * EDGE + i] =
-            rows[next_slot(sl, K, b, K) * ld + next_label(pqc, bt[i - 10], half)];
-      }
-    }
-    // the leaving rows into the neighbours' free slots, 16 bytes a store
-    const int m4 = mp / 4;
-    for (int e = tid; e < 2 * m4; e += NTR) {
-      const int side = e / m4, c = 4 * (e - side * m4);
-      if (side == 0 && bottom_edge)
-        *reinterpret_cast<float4*>(cluster.map_shared_rank(rows, b + 1) + nfree[0] * ld + c) =
-            *reinterpret_cast<const float4*>(rows + sl[K - 1] * ld + c);
-      if (side == 1 && top_edge)
-        *reinterpret_cast<float4*>(cluster.map_shared_rank(rows, b - 1) + nfree[1] * ld + c) =
-            *reinterpret_cast<const float4*>(rows + sl[K] * ld + c);
-    }
-    cluster.sync();
-  }
-  // The last round's remote angle reads (above) must end before any block
-  // of the cluster exits: its shared memory goes with it.
-  cluster.sync();
-  const int last = (nrounds - 1) & 1;
-  const int* pqf = pq + last * half;
-  const int* sl = slt + last * S;
-  if (VEC) {
-    for (int l = tid; l < 2 * K; l += NTR) {
-      const int p = label_at(pqf, l < K ? lo + l : half + lo + l - K, half);
-      x1[(size_t)mat * mp + p] = rows[sl[l] * ld + p];
-    }
-  } else {
-    for (int l = tid >> 5; l < 2 * K; l += NW) {
-      const int p = label_at(pqf, l < K ? lo + l : half + lo + l - K, half);
-      gersh_row(rows + sl[l] * ld, p, mp, x0 + (size_t)mat * mp, x1 + (size_t)mat * mp);
-    }
-  }
 }
 
 // ---- (c) one launch per round ----------------------------------------------
@@ -1040,7 +832,7 @@ grid_kernel(const float* __restrict__ a_in, float* x0, float* x1, int* scratch, 
   float2* ang = reinterpret_cast<float2*>(V + (VM == V_SMEM ? S * mp : 0));  // [half]
   int* pq = reinterpret_cast<int*>(ang + half);         // [2][half]
   int* slt = pq + 2 * half;                             // [2][S]
-  float* edge = reinterpret_cast<float*>(slt + 2 * S);  // [EDGE], as in (b)
+  float* edge = reinterpret_cast<float*>(slt + 2 * S);  // [EDGE]: edge values
   int4* gang = reinterpret_cast<int4*>(scratch + (size_t)mat * grid_scratch(mp, G, VM));
   int4* grow = gang + mp;
   int4* gvrow = grow + (size_t)2 * G * mp;  // V_SMEM
@@ -1239,8 +1031,9 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
 // The one arrival of the barrier's current phase, which then completes
@@ -1398,7 +1191,7 @@ cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int mp, int
   int* src = lab + 2 * mp;                               // [mp]: label_src
   int* tab = src + mp;    // [2][T]: slot tables of this block, block b+1, block b-1 (S each)
   int* gat = tab + 2 * T;                                // [T]: tab_next[e] = tab[gat[e]]
-  float* edge = reinterpret_cast<float*>(gat + T);      // [2][EDGE], as in (b)
+  float* edge = reinterpret_cast<float*>(gat + T);      // [2][EDGE]: edge values
   // round 0, as in (d): the local rows, every angle and the edge values
   // straight from the input; position i holds label i
   const float* a = a_in + (size_t)mat * mp * mp;
@@ -1447,8 +1240,8 @@ cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int mp, int
   const int R = nu >= half ? nu / half : 1, j0 = u % half, g0 = u / half;
   const int R4 = nu / m4 > 0 ? nu / m4 : 1, c0 = u % m4, h0 = u / m4;
   if (tid == 0) {
-    mbar_init(bar);
-    mbar_init(bar + 1);
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cluster.sync();  // the barriers are set, and every block runs, before any remote store
@@ -1608,6 +1401,497 @@ cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int mp, int
 
 }  // namespace dsmem
 
+// ---- (b) one cluster per matrix, 1024 threads a block, point to point ------
+
+// Makes this thread's shared-memory writes visible to the bulk copies
+// (the async proxy) that another thread issues after a barrier.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One arrival on a barrier of this block.
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) of this
+// block's shared memory at src to cluster address dst, counting them on the
+// barrier at cluster address bar (the receiver's).
+__device__ __forceinline__ void bulk_remote(unsigned dst, const void* src, unsigned bytes,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+namespace wide {
+
+constexpr int BLOCKS = 16;     // blocks per cluster (non-portable; ops/jacobi.py::CLUSTER)
+constexpr int EDGE_IN = 24;    // edge values a block receives and keeps a round, free slots
+constexpr int EDGE_OUT = 12;   // edge values a block sends a round, its free slots
+
+__host__ __device__ constexpr int pairs_max(int mp) { return (mp / 2 + BLOCKS - 1) / BLOCKS; }
+__host__ __device__ constexpr int slots(int mp) { return 2 * pairs_max(mp) + 2; }
+// a block's angles sit in a 16-byte aligned run of ang_stride(mp) entries
+__host__ __device__ constexpr int ang_stride(int mp) { return (pairs_max(mp) + 1) / 2 * 2; }
+// Shared memory of a block of the matrix's cluster (ops/jacobi.py::smem_bytes
+// mirrors it): three mbarriers (32 B), A's rows [S][mp], row records [2][KM]
+// (16 B), the angles [3][BLOCKS][ang_stride] (8 B), warp 0's lane table
+// [32] (16 B), the edge values received [2][EDGE_IN] and sent [2][EDGE_OUT],
+// the slot table [2][S] (2 B).
+__host__ __device__ constexpr int bytes(int mp) {
+  return 32 + 4 * slots(mp) * mp + 32 * pairs_max(mp) + 24 * BLOCKS * ang_stride(mp) + 512 +
+         8 * (EDGE_IN + EDGE_OUT) + 4 * slots(mp);
+}
+// B1's consumer block: columns [v mp / 16, (v + 1) mp / 16) of every
+// eigenvector row at an even stride cols(mp), and two rounds of angles (8 B
+// a pair) and labels (4 B).
+__host__ __device__ constexpr int cols(int mp) { return ((mp + BLOCKS - 1) / BLOCKS + 1) / 2 * 2; }
+__host__ __device__ constexpr int consumer_bytes(int mp) { return 4 * mp * cols(mp) + 12 * mp; }
+
+// The tournament in closed form. Positions 1..mp-1 form one cycle that each
+// round advances by one place (pair_table's permutation; position 0 keeps
+// label 0): cyc(x) is position x's place on it (-1 for position 0), and
+// after rm rounds (0 <= rm < mp - 1) place c holds the label of the
+// position at place c - rm. So a thread that reads the labels of fixed
+// positions keeps their places and the round modulo mp - 1, and reads no
+// table.
+__host__ __device__ __forceinline__ int cyc(int x, int half) {
+  return x == 0 ? -1 : x < half ? x - 1 : 3 * half - 2 - x;
+}
+__host__ __device__ __forceinline__ int label_of(int c, int rm, int half) {
+  if (c < 0) return 0;
+  int d = c - rm;
+  if (d < 0) d += 2 * half - 1;
+  return d < half - 1 ? d + 1 : 3 * half - 2 - d;
+}
+
+// The rotation record of pair i of a block of K pairs: records 0..3 hold
+// the pairs 0 and K-1, whose rows leave, and 1 and K-2, whose rows hold the
+// edge values the neighbours need (rotated first), then pairs 2.. in order.
+__host__ __device__ __forceinline__ int rot_pos(int i, int K) {
+  return i == 0 ? 0 : i == K - 1 ? 1 : i == 1 ? 2 : i == K - 2 ? 3 : i + 2;
+}
+
+// Pair k's angle entry: entry k - lo_b of block b's run, b = ((k + 1) 16 -
+// 1) / half, the block that owns pair k.
+__device__ __forceinline__ int aidx(int k, int half, int KA) {
+  const int o = ((k + 1) * BLOCKS - 1) / half;
+  return o * KA + k - pair_lo(o, half, BLOCKS);
+}
+
+// The entry (rt: top row, ct: top column) of the 2x2 block q rotated by
+// J_i^T q J_j, computed as its owner computes it (rows first, then columns;
+// rot2x2) but only the operations it needs: the same bits, a third of the
+// work on warp 0's chain.
+__device__ __forceinline__ float rotated_entry(const Quad& q, float2 ri, float2 cj, bool rt,
+                                               bool ct) {
+  const float br = rt ? __fsub_rn(__fmul_rn(ri.x, q.pr), __fmul_rn(ri.y, q.qr))
+                      : __fadd_rn(__fmul_rn(ri.y, q.pr), __fmul_rn(ri.x, q.qr));
+  const float bs = rt ? __fsub_rn(__fmul_rn(ri.x, q.ps), __fmul_rn(ri.y, q.qs))
+                      : __fadd_rn(__fmul_rn(ri.y, q.ps), __fmul_rn(ri.x, q.qs));
+  return ct ? __fsub_rn(__fmul_rn(cj.x, br), __fmul_rn(cj.y, bs))
+            : __fadd_rn(__fmul_rn(cj.y, br), __fmul_rn(cj.x, bs));
+}
+
+// Warp 0's lane l < K of block b: the next pair lo + l takes its rows from
+// this round's pairs n.ip and n.iq, whose 2x2 blocks it reads from local
+// positions li, K + li, lj, K + lj (lane 0's pair ip and lane K-1's pair iq
+// are the neighbours': their blocks come as edge values) at the columns of
+// places cp0.., with the angles at ai_p, ai_q; it writes its angle at
+// ai_own and the nrec-th record, whose rows sit next round in this round's
+// table entries sl0, sl1; next round its quads' rows sit in entries si0..
+// Kept packed in shared memory (pack, unpack: places < 1024, angle entries
+// < 512, table entries < 64), so that none of it holds registers across
+// the loop.
+struct Lane {
+  NextPair n;
+  int cp0, cp1, cq0, cq1, ai_p, ai_q, ai_own, nrec, sl0, sl1, si0, si1, sj0, sj1;
+};
+
+__device__ __forceinline__ int4 pack(const Lane& L) {
+  return make_int4(L.cp0 + 1 | (L.cp1 + 1) << 16, L.cq0 + 1 | (L.cq1 + 1) << 16,
+                   L.si0 | L.si1 << 6 | L.sj0 << 12 | L.sj1 << 18 | L.sl0 << 24,
+                   L.n.ip | L.n.iq << 10 | L.n.pt << 20 | L.n.qt << 21 | L.sl1 << 22);
+}
+
+// (places are stored + 1: position 0's place is -1; ip lies in [lo-1,
+// hi-2], iq in [lo+1, hi], so their owners are b-1, b and b+1)
+__device__ __forceinline__ Lane unpack(int4 v, int l, int b, int lo, int hi, int K, int half,
+                                       int KA) {
+  Lane L;
+  L.cp0 = (v.x & 0xffff) - 1, L.cp1 = (v.x >> 16) - 1, L.cq0 = (v.y & 0xffff) - 1, L.cq1 = (v.y >> 16) - 1;
+  L.si0 = v.z & 63, L.si1 = v.z >> 6 & 63, L.sj0 = v.z >> 12 & 63, L.sj1 = v.z >> 18 & 63;
+  L.sl0 = v.z >> 24 & 63;
+  L.n.ip = v.w & 1023, L.n.iq = v.w >> 10 & 1023, L.n.pt = v.w >> 20 & 1, L.n.qt = v.w >> 21 & 1;
+  L.sl1 = v.w >> 22 & 63;
+  L.ai_p = L.n.ip < lo ? (b - 1) * KA + L.n.ip - pair_lo(b - 1, half, BLOCKS) : b * KA + L.n.ip - lo;
+  L.ai_q = L.n.iq >= hi ? (b + 1) * KA + L.n.iq - hi : b * KA + L.n.iq - lo;
+  L.ai_own = b * KA + l, L.nrec = rot_pos(l, K);
+  return L;
+}
+
+// Lane l's fields that pack keeps, from its block's layout.
+__device__ __forceinline__ Lane lane_of(int l, int b, int lo, int K, int half) {
+  Lane L;
+  L.n = next_pair_of(lo + l, half);
+  const bool e_top = b > 0 && l == 0, e_bot = b < BLOCKS - 1 && l == K - 1;
+  const int li = (e_top ? L.n.iq : L.n.ip) - lo, lj = (e_bot ? L.n.ip : L.n.iq) - lo;
+  L.cp0 = cyc(L.n.ip, half), L.cp1 = cyc(L.n.ip + half, half);
+  L.cq0 = cyc(L.n.iq, half), L.cq1 = cyc(L.n.iq + half, half);
+  L.sl0 = slot_src(l, b, K, BLOCKS), L.sl1 = slot_src(K + l, b, K, BLOCKS);
+  L.si0 = slot_src(li, b, K, BLOCKS), L.si1 = slot_src(K + li, b, K, BLOCKS);
+  L.sj0 = slot_src(lj, b, K, BLOCKS), L.sj1 = slot_src(K + lj, b, K, BLOCKS);
+  return L;
+}
+
+// Named barrier 1: warp 0 arrives once its lanes hold the 2x2 blocks of the
+// next angles; the warps whose columns hold those blocks wait there before
+// they rotate (`count` threads in all).
+__device__ __forceinline__ void quads_read(int count) {
+  __syncwarp();
+  asm volatile("barrier.cta.arrive 1, %0;" ::"r"(count) : "memory");
+}
+__device__ __forceinline__ void wait_quads_read(int count) {
+  asm volatile("barrier.cta.sync 1, %0;" ::"r"(count) : "memory");
+}
+
+// B1's eigenvector rows: block v of the consumer cluster holds columns
+// [v mp / 16, (v + 1) mp / 16) of every eigenvector row, two columns a
+// thread (one 8-byte access a row), and replays the producer's angles from
+// the log. A round: rotate with the round's angles and labels, then lanes
+// k < mp/2 take pair k's angle of the next round, loaded a round before
+// (the producer runs ahead, so it is there unless the consumer has caught
+// up), its labels in closed form, and load the angle of the round after;
+// one __syncthreads().
+__device__ void consumer(const int4* log, float* vt, int mp, int nrounds) {
+  extern __shared__ int4 smem4[];
+  const int half = mp / 2, tid = threadIdx.x, v = blockIdx.x, ldv = cols(mp);
+  const int c0 = v * mp / BLOCKS, nc = (v + 1) * mp / BLOCKS - c0;
+  float* V = reinterpret_cast<float*>(smem4);                // [mp][ldv]
+  float2* ang = reinterpret_cast<float2*>(V + mp * ldv);      // [2][half]
+  int* pq = reinterpret_cast<int*>(ang + 2 * half);          // [2][half]
+  for (int e = tid; e < mp * ldv; e += NTR) {  // padding columns stay 0
+    const int p = e / ldv, k = e - p * ldv;
+    V[e] = p == c0 + k && k < nc ? 1.0f : 0.0f;
+  }
+  const bool lane = tid < half;
+  const int ck0 = cyc(tid, half), ck1 = cyc(tid + half, half);
+  int4 pre = make_int4(0, 0, 0, 0);
+  if (lane) {
+    ang[tid] = get_pair(log + tid, 1);
+    pq[tid] = tid | (tid + half) << 16;
+    if (nrounds > 1) pre = ld_entry(log + half + tid);
+  }
+  __syncthreads();
+  int rm = 0;  // r modulo mp - 1
+  for (int r = 0; r < nrounds; ++r) {
+    const int cur = r & 1, nx = cur ^ 1, rn = rm + 1 == mp - 1 ? 0 : rm + 1;
+    rotate_vt(V, ldv, ldv / 2, pq + cur * half, ang + cur * half, half, 0);
+    if (lane && r + 1 < nrounds) {
+      const int4* e = log + (size_t)(r + 1) * half + tid;
+      ang[nx * half + tid] = entry_value(e, r + 2, pre);
+      pq[nx * half + tid] = label_of(ck0, rn, half) | label_of(ck1, rn, half) << 16;
+      if (r + 2 < nrounds) pre = ld_entry(e + half);
+    }
+    __syncthreads();
+    rm = rn;
+  }
+  for (int e = tid; e < mp * nc; e += NTR) {
+    const int p = e / nc, k = e - p * nc;
+    vt[(size_t)p * mp + c0 + k] = V[p * ldv + k];
+  }
+}
+
+// Grid (BLOCKS, nmat), or (BLOCKS, 2 nmat) for B1, clusters of BLOCKS
+// blocks of NTR threads: cluster y < nmat holds matrix y, block b its pair
+// positions [lo, hi) = pair_lo(b, mp/2, BLOCKS), in row slots through a slot
+// table, as (d) and (e) lay them out; for B1 cluster nmat + y is matrix y's
+// consumer, fed by the angle log [nmat, nrounds, mp/2] of 16-byte flagged
+// entries (zeroed). x0, x1 as in sm_kernel.
+//
+// A round r: every thread waits on the block's barrier of the round's
+// parity for what the round brings: the other blocks' angles of round r,
+// the two arriving rows, already in their slots, and the neighbours' edge
+// values with their free slots for this round's rows. Warps 1.. (the
+// rotating warps) gather the next round's slot table through fixed
+// indices; those whose columns hold the 2x2 blocks warp 0 reads wait for it
+// at named barrier 1 (the others start at once); each thread rotates one
+// column pair down its records (rot_pos): first the four that hold the
+// leaving rows and the rows of the edge values, then each warp arrives on
+// the block's `ready` barrier, then the others. Warp 0 does the rest: lane
+// l < K reads the three 2x2 blocks of the next angle of pair lo + l
+// (addresses computed the round before) and the warp arrives at barrier 1;
+// the lanes compute the next angles and write them with the next round's
+// row records (B1: and the log), and 15 lanes copy the block's angles into
+// the other blocks (cp.async.bulk, one copy each); the warp waits for
+// `ready`, copies the two leaving rows into the neighbours' free slots,
+// gathers the neighbours' edge values and its next free slots and copies
+// them too. One __syncthreads() ends the round. So the rotating threads do
+// nothing but rotate, every transfer is a bulk copy that counts its bytes
+// on the receiver's barrier, no thread waits for a remote store, and no
+// cluster barrier: a block waits only for what it reads. Every index is
+// fixed before the loop or computed in closed form (cyc).
+//
+// Edge values (EDGE_IN a round): [0..3] block b-1's row p at the labels of
+// positions lo-1, half+lo-1, lo+1, half+lo+1, [4] b-1's free slot for this
+// block's first bottom row; [8, 9] block b+1's row q at hi, half+hi, [10]
+// b+1's free slot for the last top row; [12..15] row p2 (the row this block
+// sent to b-1) at lo-1.., [16, 17] row y (sent to b+1) at hi, half+hi. The
+// next pair lo takes rows p, p2, the next pair hi-1 rows y, q.
+//
+// Why the buffers suffice. A block's round r+2 copies need every block's
+// round r+1 angles, which a block sends only after its wait of round r:
+// so a barrier (by round parity) never takes bytes of a phase still open,
+// and the angles, three buffers by round, never land in a buffer still read
+// (round r's, by the rotation beside the copies of round r+1's), nor is a
+// buffer rewritten while a copy still reads it. Row records, slot tables
+// and edge values are double buffered by parity: a round reads what the
+// round before wrote, and writes what the next reads, before the
+// __syncthreads() that ends it. A row lands in the slot its receiver's own
+// leaving row vacated the round before, whose copy out had landed before
+// the sender could start the round.
+template <bool VEC>
+__global__ void __launch_bounds__(NTR, 1)
+cluster_kernel(const float* __restrict__ a_in, float* x0, float* x1, int4* log, int mp,
+               int nrounds, int nmat) {
+  constexpr int C = BLOCKS, NU = NTR - 64;  // NU rotating threads (warps 2..)
+  const int mat = VEC ? blockIdx.y % nmat : blockIdx.y;
+  const size_t logoff = (size_t)mat * nrounds * (mp / 2);
+  if (VEC && blockIdx.y >= nmat) {
+    consumer(log + logoff, x0 + (size_t)mat * mp * mp, mp, nrounds);
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int4 smem4[];
+  const int b = (int)cluster.block_rank();
+  const int half = mp / 2, tid = threadIdx.x, S = slots(mp);
+  const int KM = pairs_max(mp), KA = ang_stride(mp), row4 = 4 * mp;  // bytes of a row
+  const int lo = pair_lo(b, half, C), hi = pair_lo(b + 1, half, C), K = hi - lo;
+  const bool top_edge = b > 0, bottom_edge = b < C - 1;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem4);  // [2] + ready
+  unsigned long long* ready = bar + 2;
+  float* rows = reinterpret_cast<float*>(smem4 + 2);     // [S][mp], 16-byte aligned
+  int4* rr = reinterpret_cast<int4*>(rows + S * mp);     // [2][KM]: row bytes, c, s
+  float2* ang = reinterpret_cast<float2*>(rr + 2 * KM);  // [3][C][KA]: by block
+  int4* lanes = reinterpret_cast<int4*>(ang + 3 * C * KA);  // [32]: warp 0's, packed
+  float* edge = reinterpret_cast<float*>(lanes + 32);    // [2][EDGE_IN]
+  float* eout = edge + 2 * EDGE_IN;                      // [2][EDGE_OUT]
+  unsigned short* tab = reinterpret_cast<unsigned short*>(eout + 2 * EDGE_OUT);  // [2][S]
+  char* rowb = reinterpret_cast<char*>(rows);
+  // round 0, as in (d): the local rows, every angle and the edge values
+  // straight from the input; position i holds label i
+  const float* a = a_in + (size_t)mat * mp * mp;
+  for (int e = tid; e < 2 * K * mp; e += NTR) {
+    const int l = e / mp, c = e - l * mp;
+    rows[l * mp + c] = a[(size_t)(l < K ? lo + l : half + lo + l - K) * mp + c];
+  }
+  for (int e = tid; e < S; e += NTR) tab[e] = e;
+  for (int k = tid; k < half; k += NTR) {
+    float c, s;
+    rotation(a[(size_t)k * mp + k], a[(size_t)k * mp + k + half],
+             a[(size_t)(k + half) * mp + k + half], c, s);
+    ang[aidx(k, half, KA)] = make_float2(c, s);
+    if (k >= lo && k < hi) {
+      const int l = k - lo;
+      rr[rot_pos(l, K)] = make_int4(l * row4, (K + l) * row4, __float_as_int(c), __float_as_int(s));
+      if (VEC) put_pair(log + logoff + k, c, s, 1);
+    }
+  }
+  if (tid < 12) {
+    const int tp[4] = {lo - 1, half + lo - 1, lo + 1, half + lo + 1};
+    const int bt[2] = {hi, half + hi};
+    const int i = tid & 3;
+    if (tid < 4 && top_edge) edge[i] = a[(size_t)tp[0] * mp + tp[i]];                   // p
+    if (tid >= 4 && tid < 8 && top_edge) edge[12 + i] = a[(size_t)tp[1] * mp + tp[i]];  // p2
+    if (tid >= 8 && tid < 10 && bottom_edge) edge[16 + i] = a[(size_t)bt[0] * mp + bt[i]];  // y
+    if (tid >= 10 && bottom_edge) edge[8 + (i & 1)] = a[(size_t)bt[1] * mp + bt[i & 1]];  // q
+  }
+  if (tid == 0) {  // the neighbours' free slots of round 0: their identity tables
+    const int Kdn = top_edge ? lo - pair_lo(b - 1, half, C) : 0;
+    const int Kup = bottom_edge ? pair_lo(b + 2, half, C) - hi : 0;
+    reinterpret_cast<int*>(edge)[4] = 2 * Kdn + 1;
+    reinterpret_cast<int*>(edge)[10] = 2 * Kup;
+  }
+  // warp 0's quads in the coming round: row offsets (two a word) and column
+  // labels (two a word), for lane l < K
+  unsigned rows_i, rows_j, cols_p, cols_q;
+  {
+    const Lane L = lane_of(tid < K ? tid : 0, b, lo, K, half);
+    if (tid < K) lanes[tid] = pack(L);
+    const int li = (top_edge && tid == 0 ? L.n.iq : L.n.ip) - lo;
+    const int lj = (bottom_edge && tid == K - 1 ? L.n.ip : L.n.iq) - lo;
+    rows_i = li * mp | (unsigned)((K + li) * mp) << 16;
+    rows_j = lj * mp | (unsigned)((K + lj) * mp) << 16;
+    cols_p = label_of(L.cp0, 0, half) | (unsigned)label_of(L.cp1, 0, half) << 16;
+    cols_q = label_of(L.cq0, 0, half) | (unsigned)label_of(L.cq1, 0, half) << 16;
+  }
+  // rotating threads: thread u keeps column pair j (its labels' places cj0,
+  // cj1, its angle entry aj) and walks records g, g + R, ...: those below
+  // nA, then from nB
+  const int u = tid - 64, nA = K < 4 ? K : 4, R = NU / half;
+  const int j = u >= 0 ? u % half : 0, g = u >= 0 ? u / half : R;
+  const int aj = aidx(j, half, KA), nB = g < nA ? g + (nA - g + R - 1) / R * R : g;
+  // thread u < S advances entry u of the slot table: from entry gsrc
+  const int gsrc = u >= 0 && u < 2 * K + 2 ? slot_src(u, b, K, C) : u;
+  // barrier 1: warp 0 reads the columns of the pairs [lo-1, hi] only, so
+  // only the warps with such a column pair wait for it (cnt1 threads in all)
+  int cnt1 = 32, last = 0;
+  bool wait1 = false;
+  for (int q = 0; q < R; ++q) {
+    const int a0 = q * half + (lo > 0 ? lo - 1 : 0), a1 = q * half + (hi < half ? hi : half - 1);
+    const int w0 = a0 / 32 + 2, w1 = (a1 < NU ? a1 : NU - 1) / 32 + 2;
+    const int from = w0 > last ? w0 : last + 1;
+    if (w1 >= from) cnt1 += 32 * (w1 - from + 1), last = w1;
+    wait1 = wait1 || ((tid >> 5) >= w0 && (tid >> 5) <= w1);
+  }
+  // bytes a round brings: the other blocks' angles (whole 16-byte units),
+  // and from each neighbour a row and its edge values (32 bytes from b-1,
+  // 16 from b+1)
+  unsigned expect = 0;
+  for (int o = 0; o < C; ++o)
+    if (o != b) expect += 16u * ((pair_lo(o + 1, half, C) - pair_lo(o, half, C) + 1) / 2);
+  expect += (top_edge ? row4 + 32 : 0) + (bottom_edge ? row4 + 16 : 0);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_init(ready, NTR / 32 - 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();  // the barriers are set, and every block runs, before any remote copy
+  int rm = 0;  // r modulo mp - 1
+  for (int r = 0; r < nrounds; ++r) {
+    const int cur = r & 1, nx = cur ^ 1, b3 = r % 3, n3 = b3 == 2 ? 0 : b3 + 1;
+    const int rn = rm + 1 == mp - 1 ? 0 : rm + 1;  // r + 1 modulo mp - 1
+    const unsigned short* tc = tab + cur * S;
+    unsigned short* tn = tab + nx * S;
+    const int4* rc = rr + cur * KM;
+    const float2* angc = ang + b3 * C * KA;
+    float2* angn = ang + n3 * C * KA;
+    const bool more = r + 1 < nrounds;
+    if (r > 0) {
+      if (tid == 0) mbar_arm(bar + cur, expect);
+      mbar_wait(bar + cur, ((r - 1) >> 1) & 1);
+    }
+    if (tid < 32) {
+      const bool angle = more && tid < K;
+      const bool e_top = top_edge && tid == 0, e_bot = bottom_edge && tid == K - 1;
+      Quad bpp, bpq, bqq;
+      if (angle) {
+        const float* ec = edge + cur * EDGE_IN;
+        const int ri0 = rows_i & 0xffff, ri1 = rows_i >> 16, rj0 = rows_j & 0xffff, rj1 = rows_j >> 16;
+        const int pc0 = cols_p & 0xffff, pc1 = cols_p >> 16, qc0 = cols_q & 0xffff, qc1 = cols_q >> 16;
+        const Quad lpp = load_quad(rows, ri0, ri1, pc0, pc1), lpq = load_quad(rows, ri0, ri1, qc0, qc1);
+        const Quad lqq = load_quad(rows, rj0, rj1, qc0, qc1);
+        bpp = e_top ? Quad{ec[0], ec[1], ec[12], ec[13]} : lpp;
+        bpq = e_top ? Quad{ec[2], ec[3], ec[14], ec[15]} : lpq;
+        bqq = e_bot ? Quad{ec[16], ec[17], ec[8], ec[9]} : lqq;
+      }
+      quads_read(cnt1);
+      if (angle) {
+        const Lane L = unpack(lanes[tid], tid, b, lo, hi, K, half, KA);
+        float c, s;
+        const float2 ap = angc[L.ai_p], aq = angc[L.ai_q];
+        const float apq = rotated_entry(bpq, ap, aq, L.n.pt, L.n.qt);
+        const float aqq = rotated_entry(bqq, aq, aq, L.n.qt, L.n.qt);
+        rotation(rotated_entry(bpp, ap, ap, L.n.pt, L.n.pt), apq, aqq, c, s);
+        angn[L.ai_own] = make_float2(c, s);
+        rr[nx * KM + L.nrec] =
+            make_int4(tc[L.sl0] * row4, tc[L.sl1] * row4, __float_as_int(c), __float_as_int(s));
+        if (VEC) put_pair(log + logoff + (size_t)(r + 1) * half + lo + tid, c, s, r + 2);
+        // the quads' addresses next round
+        rows_i = tc[L.si0] * mp | (unsigned)(tc[L.si1] * mp) << 16;
+        rows_j = tc[L.sj0] * mp | (unsigned)(tc[L.sj1] * mp) << 16;
+        cols_p = label_of(L.cp0, rn, half) | (unsigned)label_of(L.cp1, rn, half) << 16;
+        cols_q = label_of(L.cq0, rn, half) | (unsigned)label_of(L.cq1, rn, half) << 16;
+      }
+      if (more) {
+        fence_async();
+        __syncwarp();
+        if (tid < C - 1) {  // the block's next angles into every other block
+          const int dst = b + 1 + tid < C ? b + 1 + tid : b + 1 + tid - C;
+          bulk_remote(remote(angn + b * KA, dst), angn + b * KA, 16u * ((K + 1) / 2),
+                      remote(bar + nx, dst));
+        }
+      }
+    } else if (tid < 64) {  // warp 1: the rows and edge values that leave
+      const int t = tid - 32;
+      if (more) {
+        mbar_wait(ready, r & 1);  // the rotating warps have rotated their first records
+        const int* ei = reinterpret_cast<const int*>(edge + cur * EDGE_IN);
+        if (t == 0 && bottom_edge)  // the last top row into block b+1's free slot
+          bulk_remote(remote(rowb + ei[10] * row4, b + 1), rowb + tc[K - 1] * row4, row4,
+                      remote(bar + nx, b + 1));
+        if (t == 1 && top_edge)  // the first bottom row into block b-1's
+          bulk_remote(remote(rowb + ei[4] * row4, b - 1), rowb + tc[K] * row4, row4,
+                      remote(bar + nx, b - 1));
+        // the edge values at their next-round labels (lanes 0..3 block
+        // b+1's row p, 6, 7 block b-1's row q, 8..11 p2, 12, 13 y), and this
+        // block's free slots next round (lanes 4, 5), where its neighbours
+        // copy their rows
+        int epos = 0;
+        if (t < 4) epos = (t & 1 ? half : 0) + hi + (t & 2 ? 1 : -1);
+        if (t == 6 || t == 7) epos = (t & 1) * half + lo;
+        if (t >= 8 && t < 12) epos = (t & 1 ? half : 0) + lo + (t & 2 ? 1 : -1);
+        if (t == 12 || t == 13) epos = (t & 1) * half + hi;
+        const int col = label_of(cyc(epos >= 0 && epos < mp ? epos : 0, half), rn, half);
+        float* eo = eout + nx * EDGE_OUT;
+        float* en = edge + nx * EDGE_IN;
+        if (t < 4) eo[t] = rows[tn[K - 1] * mp + col];
+        if (t == 4) reinterpret_cast<int*>(eo)[4] = tn[2 * K + 1];
+        if (t == 5) reinterpret_cast<int*>(eo)[10] = tn[2 * K];
+        if (t == 6 || t == 7) eo[2 + t] = rows[tn[K] * mp + col];
+        if (t >= 8 && t < 12) en[4 + t] = rows[tc[K] * mp + col];
+        if (t == 12 || t == 13) en[4 + t] = rows[tc[K - 1] * mp + col];
+        fence_async();
+        __syncwarp();
+        if (t == 0 && bottom_edge) bulk_remote(remote(en, b + 1), eo, 32, remote(bar + nx, b + 1));
+        if (t == 1 && top_edge)
+          bulk_remote(remote(en + 8, b - 1), eo + 8, 16, remote(bar + nx, b - 1));
+      }
+    } else {
+      if (more && u < S) tn[u] = tc[gsrc];  // the next round's slot table
+      if (wait1) wait_quads_read(cnt1);
+      // J^T A J on the local rows at column pair j (labels cr, cs): records
+      // n0, n0 + R, ... below n1
+      const int cr = label_of(cyc(j, half), rm, half), cs = label_of(2 * half - 2 - j, rm, half);
+      const float2 aa = angc[aj];
+      char* colr = rowb + 4 * cr;  // a row's elements of the column pair: these
+      char* cols = rowb + 4 * cs;  // plus the row's byte offset
+      auto rotate = [&](int n0, int n1) {
+#pragma unroll 2
+        for (int n = n0; n < n1; n += R) {
+          const int4 rec = rc[n];
+          rot2x2(*reinterpret_cast<float*>(colr + rec.x), *reinterpret_cast<float*>(cols + rec.x),
+                 *reinterpret_cast<float*>(colr + rec.y), *reinterpret_cast<float*>(cols + rec.y),
+                 __int_as_float(rec.z), __int_as_float(rec.w), aa.x, aa.y);
+        }
+      };
+      if (g < R) rotate(g, nA);
+      fence_async();  // the leaving rows and edge values go out by bulk copies
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(ready);
+      if (g < R) rotate(nB, K);
+    }
+    __syncthreads();
+    rm = rn;
+  }
+  const int rl = (nrounds - 1) % (mp - 1);
+  const unsigned short* tf = tab + ((nrounds - 1) & 1) * S;
+  auto label = [&](int l) { return label_of(cyc(l < K ? lo + l : half + lo + l - K, half), rl, half); };
+  if (VEC) {
+    for (int l = tid; l < 2 * K; l += NTR)
+      x1[(size_t)mat * mp + label(l)] = rows[tf[l] * mp + label(l)];
+  } else {
+    for (int l = tid >> 5; l < 2 * K; l += NW)
+      gersh_row(rows + tf[l] * mp, label(l), mp, x0 + (size_t)mat * mp, x1 + (size_t)mat * mp);
+  }
+  cluster.sync();  // no block leaves while a peer may still address its memory
+}
+
+}  // namespace wide
+
 // ---- launchers of the one-launch regimes -----------------------------------
 
 template <bool VEC>
@@ -1622,26 +1906,32 @@ int launch_sm(const float* a, float* x0, float* x1, int nb, int mp, int nrounds,
   return cudaGetLastError();
 }
 
+// (b): B1's producer and consumer clusters must be resident together, so a
+// launch holds half the clusters that can be; B2's are independent and may
+// queue.
 template <bool VEC>
-int launch_cluster(const float* a, float* x0, float* x1, int4* log, int nb, int mp,
-                   int nrounds, cudaStream_t st) {
-  const int bytes = cluster_bytes(mp, VEC);
-  // block 0 needs two top positions (the tournament's fixed position and
-  // the one it feeds);  // two top positions, and lanes 30 and 31 of warp 0 free of angle work
-  if (bytes > SMEM_MAX || mp / 2 < 2 * CL || cluster_pairs_max(mp) > 30) return ERR_SHAPE;
-  auto kern = cluster_kernel<VEC>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+int launch_cluster(const float* a, float* x0, float* x1, int4* log, int nb, int mp, int nrounds,
+                   cudaStream_t st) {
+  constexpr int C = wide::BLOCKS;
+  const int rows = wide::bytes(mp), cons = wide::consumer_bytes(mp);
+  const int bytes = VEC && cons > rows ? cons : rows;
+  // a block needs two pairs and at most one warp of angle lanes, and two
+  // rotating threads for each column pair (so each slot-table entry has
+  // one too; a consumer block then has a thread for each pair's log entry)
+  if (bytes > SMEM_MAX || mp / 2 / C < 2 || wide::pairs_max(mp) > 32 || mp > NTR - 64) return ERR_SHAPE;
+  if (VEC && log == nullptr) return ERR_SHAPE;
+  auto kern = wide::cluster_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.x = C;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, VEC ? 2 : 1, 1);
+  cfg.gridDim = dim3(C, VEC ? 2 : 1, 1);
   cfg.blockDim = dim3(NTR, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = st;
@@ -1650,18 +1940,15 @@ int launch_cluster(const float* a, float* x0, float* x1, int4* log, int nb, int 
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
   if (err != cudaSuccess) return err;
-  // B1's producer and consumer clusters must be resident together; B2's
-  // clusters are independent and may queue
   const int per = VEC ? active / 2 : nb;
   if (active < 1 || per < 1) return ERR_NO_CLUSTER;
   const int half = mp / 2;
   for (int m0 = 0; m0 < nb; m0 += per) {
     const int n = nb - m0 < per ? nb - m0 : per;
-    cfg.gridDim = dim3(CL, VEC ? 2 * n : n, 1);
+    cfg.gridDim = dim3(C, VEC ? 2 * n : n, 1);
     const size_t mat = (size_t)m0 * mp;
-    err = cudaLaunchKernelEx(&cfg, kern, a + mat * mp, x0 + (VEC ? mat * mp : mat),
-                             x1 + mat, VEC ? log + (size_t)m0 * nrounds * half : log,
-                             mp, nrounds, n);
+    err = cudaLaunchKernelEx(&cfg, kern, a + mat * mp, x0 + (VEC ? mat * mp : mat), x1 + mat,
+                             VEC ? log + (size_t)m0 * nrounds * half : log, mp, nrounds, n);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
@@ -1763,8 +2050,7 @@ extern "C" int lt_jacobi_eigh_f32(float* a, float* a2, float* vt, float* lam,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (regime == 1) return launch_sm<true>(a, vt, lam, nb, mp, nrounds, st);
   if (regime == 2)
-    return launch_cluster<true>(a, vt, lam, static_cast<int4*>(scratch), nb, mp,
-                                nrounds, st);
+    return launch_cluster<true>(a, vt, lam, static_cast<int4*>(scratch), nb, mp, nrounds, st);
   if (regime == 3)
     return launch_grid(a, vt, lam, static_cast<int*>(scratch), nb, mp, nrounds, true, st);
   if (regime == 4) return launch_dsmem<true>(a, vt, lam, nb, mp, nrounds, st);
@@ -1786,8 +2072,7 @@ extern "C" int lt_jacobi_bounds_f32(float* a, float* a2, float* g, float* h,
                                     int nrounds, int regime, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (regime == 1) return launch_sm<false>(a, g, h, nb, mp, nrounds, st);
-  if (regime == 2)
-    return launch_cluster<false>(a, g, h, nullptr, nb, mp, nrounds, st);
+  if (regime == 2) return launch_cluster<false>(a, g, h, nullptr, nb, mp, nrounds, st);
   if (regime == 3)
     return launch_grid(a, g, h, static_cast<int*>(scratch), nb, mp, nrounds, false, st);
   if (regime == 4) return launch_dsmem<false>(a, g, h, nb, mp, nrounds, st);

@@ -15,11 +15,16 @@ kernel or raise, with no fallback.
 
 The kernel has five regimes, chosen by the shape and the card's SM count
 (`regime_for`): "sm" (one block per matrix in shared memory), "dsmem" (one
-16-block cluster per matrix, rows and eigenvector rows spread over its
-blocks, each round's exchange pushed into the peers' shared memory and
-waited for on each block's own barrier), "cluster" (one 16-block thread
-block cluster per matrix with a cluster barrier a round; B1 adds a cluster
-for the eigenvector rows), "grid" (one cooperative launch over the card,
+16-block cluster of 256 threads a block per matrix, rows and eigenvector
+rows spread over its blocks, each round's exchange pushed into the peers'
+shared memory and waited for on each block's own barrier), "cluster" (one
+16-block cluster of 1024 threads a block per matrix, no cluster barrier:
+each round's angles, leaving rows and edge values go as bulk copies onto
+the receiver's barrier while the block rotates, warps specialised to the
+angles, the copies and the rotation; B1 adds a cluster for the
+eigenvector rows, which replays the angles from a log in global memory;
+the faster from mp 304 (B1) or 464 (B2) to 912, csrc/jacobi.cu note (b)),
+"grid" (one cooperative launch over the card,
 past a cluster's capacity, where the card's SMs hold the rows) and, past
 that, "rounds" (one launch per round). In every regime but "rounds" a call
 is one launch of the Jacobi kernel (a "grid" call with more matrices than
@@ -214,20 +219,20 @@ def jacobi_bounds_plain(Mp: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, to
 
 # The kernel's regimes, chosen by the shape (csrc/jacobi.cu's note):
 # "sm", one block per matrix in shared memory; "cluster", one cluster of
-# CLUSTER blocks per matrix (B1 adds a second cluster for the eigenvector
-# rows); "grid", one cooperative launch of a block on each SM, beyond a
-# cluster's capacity; "rounds", one launch per round, beyond the grid's;
-# "dsmem", one cluster of DSMEM_CLUSTER blocks per matrix with no cluster
-# barrier a round, at the small sizes where it is the fastest.
+# CLUSTER blocks of 1024 threads per matrix with no cluster barrier a round
+# (B1 adds a second cluster for the eigenvector rows); "grid", one
+# cooperative launch of a block on each SM, beyond a cluster's capacity;
+# "rounds", one launch per round, beyond the grid's; "dsmem", one cluster of
+# CLUSTER blocks of 256 threads per matrix with no cluster barrier a round,
+# at the small sizes where it is the fastest.
 # "grid"'s capacity depends on the card's SMs; without a card the shape rule
 # assumes H100_SMS.
 # The index in REGIMES is the C side's regime code.
 REGIMES = ("rounds", "sm", "cluster", "grid", "dsmem")
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
-CLUSTER = 16  # blocks per cluster
-DSMEM_CLUSTER = 16  # blocks per "dsmem" cluster (csrc/jacobi.cu::dsmem::BLOCKS)
+CLUSTER = 16  # blocks a "cluster" or "dsmem" cluster (csrc/jacobi.cu::wide::BLOCKS, dsmem::BLOCKS)
 H100_SMS = 132  # SMs of an H100 SXM
-EDGE = 12  # edge values a "cluster", "grid" or "dsmem" block keeps
+EDGE = 12  # edge values a "grid" or "dsmem" block keeps ("cluster": the same in 24 slots)
 
 
 def _ceil_div(x: int, k: int) -> int:
@@ -251,21 +256,41 @@ def grid_pairs(mp: int, blocks: int) -> list:
 
 def _dsmem_bytes(mp: int, eigvecs: bool) -> int:
     """csrc/jacobi.cu::dsmem::bytes: two mbarriers, A's rows [S][mp] with S
-    = 2 KM + 2, KM = ceil(mp/2 / DSMEM_CLUSTER) (and the eigenvector rows beside
+    = 2 KM + 2, KM = ceil(mp/2 / CLUSTER) (and the eigenvector rows beside
     them for B1), row records [KM] (16 B), the angles [3][mp/2] (8 B), the
     labels by position [2][mp] and label_src's table [mp], three slot tables
     [2][3 S] and their gather map [3 S], two sets of edge values."""
-    pairs = _ceil_div(mp // 2, DSMEM_CLUSTER)
+    pairs = _ceil_div(mp // 2, CLUSTER)
     slots = 2 * pairs + 2
     return (16 + 4 * slots * mp * (2 if eigvecs else 1) + 16 * pairs + 24 * mp + 36 * slots
             + 8 * EDGE)
+
+
+def _cluster_bytes(mp: int) -> int:
+    """csrc/jacobi.cu::wide::bytes, a block of a "cluster" matrix: three
+    mbarriers (32 B), A's rows [S][mp] with S = 2 KM + 2, KM = ceil(mp/2 /
+    CLUSTER), row records [2][KM] (16 B), the angles [3][CLUSTER][KM
+    rounded up to even] (8 B), warp 0's lane table [32] (16 B), the edge
+    values received [2][24] and sent [2][12] (4 B), the slot table [2][S]
+    (2 B)."""
+    pairs = _ceil_div(mp // 2, CLUSTER)
+    slots = 2 * pairs + 2
+    return (32 + 4 * slots * mp + 32 * pairs + 24 * CLUSTER * 2 * _ceil_div(pairs, 2) + 512
+            + 8 * 36 + 4 * slots)
+
+
+def _consumer_bytes(mp: int) -> int:
+    """csrc/jacobi.cu::wide::consumer_bytes, a block of B1's consumer
+    cluster in "cluster": mp eigenvector rows of ceil(mp/16) columns (rounded
+    up to even), two rounds of angles (8 B a pair) and labels (4 B)."""
+    return 4 * mp * 2 * _ceil_div(_ceil_div(mp, CLUSTER), 2) + 12 * mp
 
 
 def _dsmem_fits(mp: int, eigvecs: bool) -> bool:
     """A "dsmem" block needs two pairs (from mp 64), at most 32 (one warp of
     angle threads), and its shared memory (B1 to mp 640)."""
     half = mp // 2
-    return (half // DSMEM_CLUSTER >= 2 and _ceil_div(half, DSMEM_CLUSTER) <= 32
+    return (half // CLUSTER >= 2 and _ceil_div(half, CLUSTER) <= 32
             and _dsmem_bytes(mp, eigvecs) <= SMEM_LIMIT)
 
 
@@ -307,23 +332,18 @@ def grid_plan(nb: int, mp: int, eigvecs: bool, sms: int = H100_SMS) -> dict:
 
 def smem_bytes(regime: str, mp: int, eigvecs: bool, nb: int = 1, sms: int = H100_SMS) -> int:
     """Dynamic shared memory a block of ``regime`` needs (csrc/jacobi.cu's
-    sm_bytes, cluster_bytes, grid_bytes and dsmem::bytes): A's rows at
-    stride mp + 1 ("sm"), mp + 4 ("cluster") or mp ("grid"), the eigenvector
-    rows at stride mp; per pair a row record (16 B) and an angle (8 B), both
-    double buffered ("grid": the angles once), and two label words; in a
-    cluster or a grid block, two slot tables and 12 edge values (a cluster
-    adds the neighbours' slot numbers, 16 B). B1's consumer blocks hold mp x
-    (ceil(mp/16) rounded up to even) eigenvector entries, the angles and the
-    labels. "grid" depends on nb and the card's SMs through `grid_plan`;
-    "dsmem" is `_dsmem_bytes`."""
+    sm_bytes, grid_bytes, dsmem::bytes, wide::bytes and
+    wide::consumer_bytes): "sm", A's rows at stride mp + 1, the eigenvector
+    rows at stride mp, per pair a row record (16 B) and an angle (8 B), both
+    double buffered, and two label words; "dsmem", `_dsmem_bytes`;
+    "cluster", `_cluster_bytes` (B1: the larger of that and a consumer
+    block, `_consumer_bytes`); "grid" depends on nb and the card's SMs
+    through `grid_plan`."""
     if regime == "sm":
         return 4 * mp * (mp + 1) + 4 * mp * mp * eigvecs + 28 * mp
     if regime == "cluster":
-        pairs = _ceil_div(mp // 2, CLUSTER)
-        slots = 2 * pairs + 2
-        rows = 32 * pairs + 12 * mp + 8 * slots + 112 + 4 * slots * (mp + 4)
-        cols = 4 * mp * 2 * _ceil_div(_ceil_div(mp, CLUSTER), 2) + 8 * mp
-        return max(rows, cols) if eigvecs else rows
+        rows = _cluster_bytes(mp)
+        return max(rows, _consumer_bytes(mp)) if eigvecs else rows
     if regime == "grid":
         plan = grid_plan(nb, mp, eigvecs, sms)
         return _grid_bytes(mp, plan["blocks"], plan["vsmem"])
@@ -334,36 +354,44 @@ def smem_bytes(regime: str, mp: int, eigvecs: bool, nb: int = 1, sms: int = H100
     raise ValueError(f"unknown regime {regime!r}")
 
 
-# "dsmem" is the fastest one-launch regime from its least size (mp 64: two
-# pairs a block) to these padded sizes (B1, B2) while one wave of its
-# clusters holds every matrix: an H100 holds 7 clusters of 16 blocks at once.
-# Timed against "sm" and "cluster" at mp 64..800 and nb 1..16 on an H100
-# SXM at 700 W (PERF.md section 6): B1 at mp 400 10.27 ms
-# against "cluster" 12.94, at 480 20.57 against 16.42; B2 at 480 5.63
-# against 6.64 (faster to 720, by 2-4% past 480); B1 at (7, 160) 2.34 ms
-# as at (1, 160), at (8, 160) 2.64: past one wave the clusters queue, and
-# the regimes of the sizes stay. chip_smoke.py phase 2 times it beside
-# every other one-launch regime that fits, at these edges too: it was
-# also faster at B1 mp 416, 11.35 against 13.80 ms, and B2 496, 6.26
-# against 7.18; these bounds stay at the sizes the first sweep timed.
-DSMEM_TO = {True: 400, False: 480}
+# The one-launch regimes' boundaries, timed on an H100 SXM at 700 W (PERF.md
+# section 6). "dsmem" from its least size (mp 64: two pairs a block) while one
+# wave of its clusters holds every matrix (7 clusters of 16 blocks at once);
+# then "cluster" to the size its blocks hold (912), where "grid" takes over.
+# Timed against the "cluster" of 1024 threads a block with no cluster barrier,
+# ms "dsmem" / "cluster": B2 at mp 448 3.54 / 3.79 and 464 5.54 / 3.86, alike
+# for 1 to 7 matrices; B1 at 304 6.49 / 5.73 for 1 to 3 matrices (one wave of
+# B1's clusters, two a matrix, holds 3: CLUSTER_PAIRS), but at 4 matrices 400
+# 10.62 / 15.83 and at 7 464 20.69 / 29.21. Below mp 304 (B1, few) "dsmem"
+# stays where the earlier "cluster" lost to it. B2 for one matrix past mp
+# 832, "cluster" / "grid": 848 10.95 / 10.65 and on to 912; for two, 848
+# 10.92 / 11.78.
+DSMEM_TO = {True: 464, False: 448}
+DSMEM_TO_FEW = 288  # B1, up to CLUSTER_PAIRS matrices
+CLUSTER_PAIRS = 3
 DSMEM_WAVE = 7
+CLUSTER_TO_ONE = 832  # B2, one matrix
 
 
 def regime_for(nb: int, mp: int, eigvecs: bool, sms: int = H100_SMS) -> str:
     """The regime of nb matrices at padded size mp on a card of ``sms``
-    SMs: "dsmem" to DSMEM_TO while its blocks fit and one wave of its
-    clusters holds the nb matrices; else "sm" where its block fits
-    SMEM_LIMIT (B1 to mp 160, B2 to 224: below mp 64 or past that wave);
-    else "cluster" where its blocks fit (to mp 912); else "grid" where the
-    card holds its plan (to mp 2400 on 132 SMs); else "rounds"."""
-    if nb <= DSMEM_WAVE and mp <= DSMEM_TO[eigvecs] and _dsmem_fits(mp, eigvecs):
+    SMs: "dsmem" to DSMEM_TO (B1 for up to CLUSTER_PAIRS matrices: to
+    DSMEM_TO_FEW) while its blocks fit and one wave of its clusters holds
+    the nb matrices; else "sm" where its block fits SMEM_LIMIT (B1 to mp
+    160, B2 to 224: below mp 64 or past that wave); else "cluster" where
+    its blocks fit (to mp 912; B2 for one matrix to CLUSTER_TO_ONE); else
+    "grid" where the card holds its plan (to mp 2400 on 132 SMs); else
+    "rounds"."""
+    dsmem_to = DSMEM_TO_FEW if eigvecs and nb <= CLUSTER_PAIRS else DSMEM_TO[eigvecs]
+    if nb <= DSMEM_WAVE and mp <= dsmem_to and _dsmem_fits(mp, eigvecs):
         return "dsmem"
     if smem_bytes("sm", mp, eigvecs) <= SMEM_LIMIT:
         return "sm"
-    if smem_bytes("cluster", mp, eigvecs) <= SMEM_LIMIT:
+    grid = grid_plan(nb, mp, eigvecs, sms)["fits"]
+    if smem_bytes("cluster", mp, eigvecs) <= SMEM_LIMIT and not (
+            not eigvecs and nb == 1 and mp > CLUSTER_TO_ONE and grid):
         return "cluster"
-    if grid_plan(nb, mp, eigvecs, sms)["fits"]:
+    if grid:
         return "grid"
     return "rounds"
 
@@ -436,7 +464,7 @@ def _run(eigvecs: bool, Mp: torch.Tensor, outs, sweeps: int, regime: str) -> Non
                 f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
         if regime == "dsmem":
             raise RuntimeError(
-                f"{fn.__name__}: no cluster of {DSMEM_CLUSTER} blocks with "
+                f"{fn.__name__}: no cluster of {CLUSTER} blocks with "
                 f"{_dsmem_bytes(mp, eigvecs)} bytes of shared memory each can be "
                 f"resident on this card (cudaOccupancyMaxActiveClusters)")
         raise RuntimeError(

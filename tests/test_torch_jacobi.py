@@ -121,11 +121,17 @@ def test_cpu_tensors_take_the_plain_version():
     (8, 144, "sm", "sm"), (8, 160, "sm", "sm"),              # past it: the sizes' old regimes
     (1, 176, "dsmem", "dsmem"), (1, 192, "dsmem", "dsmem"), (1, 224, "dsmem", "dsmem"),
     (7, 224, "dsmem", "dsmem"), (8, 224, "cluster", "sm"), (1, 240, "dsmem", "dsmem"),
-    (1, 400, "dsmem", "dsmem"), (1, 416, "cluster", "dsmem"), (1, 480, "cluster", "dsmem"),
-    (1, 496, "cluster", "cluster"),                                  # DSMEM_TO and past it
+    (1, 288, "dsmem", "dsmem"), (1, 304, "cluster", "dsmem"),        # DSMEM_TO_FEW, B1
+    (3, 304, "cluster", "dsmem"), (4, 304, "dsmem", "dsmem"),        # CLUSTER_PAIRS
+    (1, 400, "cluster", "dsmem"), (1, 416, "cluster", "dsmem"), (1, 448, "cluster", "dsmem"),
+    (1, 464, "cluster", "cluster"), (1, 480, "cluster", "cluster"),  # DSMEM_TO, B2
+    (7, 464, "dsmem", "cluster"), (7, 480, "cluster", "cluster"),    # DSMEM_TO, B1
+    (1, 496, "cluster", "cluster"),
     (1, 800, "cluster", "cluster"), (2, 800, "cluster", "cluster"),  # maxG11
     (1, 816, "cluster", "cluster"),                                  # thetaG11
-    (1, 912, "cluster", "cluster"), (1, 928, "grid", "grid"), (1, 1008, "grid", "grid"),
+    (1, 832, "cluster", "cluster"), (1, 848, "cluster", "grid"),     # CLUSTER_TO_ONE
+    (2, 848, "cluster", "cluster"),
+    (1, 912, "cluster", "grid"), (1, 928, "grid", "grid"), (1, 1008, "grid", "grid"),
     (2, 1008, "grid", "grid"), (1, 2000, "grid", "grid"),            # the tori
     (1, 2400, "grid", "grid"), (1, 2416, "rounds", "rounds"),        # GRID_MAX and past it
 ])
@@ -135,14 +141,16 @@ def test_regime_by_shape(nb, mp, b1, b2):
         assert got == want
         assert tj.smem_bytes(got, mp, eigvecs, nb) <= tj.SMEM_LIMIT
         # "dsmem" exactly where the card timed it the fastest
-        dsmem = nb <= tj.DSMEM_WAVE and mp <= tj.DSMEM_TO[eigvecs] and tj._dsmem_fits(mp, eigvecs)
+        to = tj.DSMEM_TO_FEW if eigvecs and nb <= tj.CLUSTER_PAIRS else tj.DSMEM_TO[eigvecs]
+        dsmem = nb <= tj.DSMEM_WAVE and mp <= to and tj._dsmem_fits(mp, eigvecs)
         assert (got == "dsmem") == dsmem
         fits = {r: tj.smem_bytes(r, mp, eigvecs) <= tj.SMEM_LIMIT for r in ("sm", "cluster")}
         fits["grid"] = tj.grid_plan(nb, mp, eigvecs)["fits"]
         if got == "rounds":  # only past every one-launch regime
             assert not any(fits.values())
-        if got == "grid":  # only past a cluster's capacity
-            assert not fits["sm"] and not fits["cluster"]
+        if got == "grid":  # past a cluster's capacity, or B2 of one matrix past mp 832
+            b2_one = not eigvecs and nb == 1 and mp > tj.CLUSTER_TO_ONE
+            assert not fits["sm"] and (not fits["cluster"] or b2_one)
         if got == "cluster":  # only where one block does not hold the matrix
             assert not fits["sm"]
         if got == "sm":  # below "dsmem"'s least size, or past one wave of it
@@ -390,6 +398,255 @@ def test_dsmem_rows_follow_pair_table(mp, nblk):
             np.testing.assert_array_equal(model.rows[b][sl[K:2 * K]], lab[half + lo:half + hi])
         model.step()
         lab = lab[src]
+
+
+def _cyc(x, half):
+    """csrc/jacobi.cu::wide::cyc: position x's place on the tournament's
+    cycle (-1 for position 0, which keeps label 0)."""
+    return -1 if x == 0 else x - 1 if x < half else 3 * half - 2 - x
+
+
+def _label_of(c, rm, half):
+    """csrc/jacobi.cu::wide::label_of: the label at place c after rm rounds."""
+    if c < 0:
+        return 0
+    d = c - rm
+    if d < 0:
+        d += 2 * half - 1
+    return d + 1 if d < half - 1 else 3 * half - 2 - d
+
+
+@pytest.mark.parametrize("mp", [16, 64, 160, 496, 800, 816, 912])
+def test_closed_form_labels_are_pair_table(mp):
+    # the labels a "cluster" thread computes from a position's
+    # place and the round modulo mp - 1, over two sweeps
+    half = mp // 2
+    table = tj.pair_table(mp)
+    places = [_cyc(x, half) for x in range(mp)]
+    for r in range(2 * (mp - 1)):
+        lab = [_label_of(c, r % (mp - 1), half) for c in places]
+        np.testing.assert_array_equal(lab[:half], table[r % (mp - 1), 0])
+        np.testing.assert_array_equal(lab[half:], table[r % (mp - 1), 1])
+
+
+def _rot_order(n, K):
+    """The pair of the n-th row record: the inverse of `_rot_pos`."""
+    return 0 if n == 0 else K - 1 if n == 1 else 1 if n == 2 else K - 2 if n == 3 else n - 2
+
+
+def _rot_pos(i, K):
+    """csrc/jacobi.cu::wide::rot_pos: the record of pair i."""
+    return 0 if i == 0 else 1 if i == K - 1 else 2 if i == 1 else 3 if i == K - 2 else i + 2
+
+
+def _next_pair_of(k, half):
+    """csrc/jacobi.cu::next_pair_of: (ip, iq, pt, qt) of the next round's pair k."""
+    xp, xq = _label_src(k, half, 2 * half), _label_src(k + half, half, 2 * half)
+    return (xp if xp < half else xp - half, xq if xq < half else xq - half, xp < half, xq < half)
+
+
+def _barrier1(lo, hi, half, nth):
+    """csrc/jacobi.cu::wide::cluster_kernel's barrier 1: (threads in it,
+    its rotating warps), the warps (2.., after the two control warps) with a
+    column pair in [lo-1, hi]."""
+    nu = nth - 64
+    R = nu // half if nu >= half else 1
+    ja, jb = max(lo - 1, 0), min(hi, half - 1)
+    ng = R if R >= 2 else 2 if half > nu else 1
+    cnt, last, warps = 32, 0, set()
+    for g in range(ng):
+        gg = g if R >= 2 else ng - 1 - g
+        a0 = gg * half + ja if R >= 2 else ja - gg * nu
+        a1 = gg * half + jb if R >= 2 else jb - gg * nu
+        a0, a1 = max(a0, 0), min(a1, nu - 1)
+        if a0 > a1:
+            continue
+        w0, w1 = a0 // 32 + 2, a1 // 32 + 2
+        start = max(w0, last + 1)
+        if w1 >= start:
+            cnt += 32 * (w1 - start + 1)
+            last = w1
+        warps |= set(range(w0, w1 + 1))
+    return cnt, warps
+
+
+class _RoundModel:
+    """One matrix in the "cluster" round (csrc/jacobi.cu::wide), nblk
+    blocks: block b holds the
+    rows of its pair positions (`grid_pairs`) in row slots through its slot
+    table, advanced by the fixed gather of `_slot_src`; its records list its
+    pairs' slots in rot_order; each round it copies its last top row into
+    block b+1's free slot and its first bottom row into block b-1's, at the
+    slots their edge messages of the round before named (their identity
+    tables' 2K and 2K+1 at round 0), and sends each neighbour edge values and
+    its own next free slot. A row is its label, an edge value the (row,
+    column) labels of the element it copies, and every label a thread uses
+    comes from `_label_of`."""
+
+    def __init__(self, mp, nblk):
+        self.mp, self.half, self.nblk = mp, mp // 2, nblk
+        half = self.half
+        self.split = tj.grid_pairs(mp, nblk)
+        self.K = [hi - lo for lo, hi in self.split]
+        S = 2 * max(self.K) + 2
+        self.rows = [np.full(S, -1) for _ in self.split]
+        self.tab = [list(range(S)) for _ in self.split]
+        self.rec = [[None] * K for K in self.K]
+        self.edge = []
+        for b, (lo, hi) in enumerate(self.split):
+            K = self.K[b]
+            for l in range(2 * K):
+                self.rows[b][l] = lo + l if l < K else half + lo + l - K
+            for i in range(K):
+                self.rec[b][_rot_pos(i, K)] = (i, K + i)
+            tp, bt = [lo - 1, half + lo - 1, lo + 1, half + lo + 1], [hi, half + hi]
+            e = {i: (tp[0], tp[i]) for i in range(4)}  # round 0: label = position
+            e.update({12 + i: (tp[1], tp[i]) for i in range(4)})
+            e.update({16: (bt[0], bt[0]), 17: (bt[0], bt[1]), 8: (bt[1], bt[0]), 9: (bt[1], bt[1])})
+            e[4] = 2 * self.K[b - 1] + 1 if b > 0 else None
+            e[10] = 2 * self.K[b + 1] if b < nblk - 1 else None
+            self.edge.append(e)
+
+    def check(self, r, lab):
+        """Round r against the labels by position `lab` of pair_table."""
+        half, rm = self.half, r % (self.mp - 1)
+        for b, (lo, hi) in enumerate(self.split):
+            K, sl, rows = self.K[b], self.tab[b], self.rows[b]
+            np.testing.assert_array_equal(rows[sl[:K]], lab[lo:hi])
+            np.testing.assert_array_equal(rows[sl[K:2 * K]], lab[half + lo:half + hi])
+            for n in range(K):  # the records name the slots of their pairs
+                i = _rot_order(n, K)
+                assert self.rec[b][n] == (sl[i], sl[K + i])
+            # warp 0's 2x2 blocks: the next pair lo + l's rows and columns
+            e = self.edge[b]
+            for l in range(K):
+                ip, iq, _, _ = _next_pair_of(lo + l, half)
+                assert lo - 1 <= ip <= hi and lo - 1 <= iq <= hi  # barrier 1's columns
+                cols_p = [_label_of(_cyc(x, half), rm, half) for x in (ip, ip + half)]
+                cols_q = [_label_of(_cyc(x, half), rm, half) for x in (iq, iq + half)]
+                want = {k: [(lab[x], lab[y]) for x in (k, k + half) for y in (k, k + half)]
+                        for k in (ip, iq)}
+                want["pq"] = [(lab[x], lab[y]) for x in (ip, ip + half) for y in (iq, iq + half)]
+                e_top, e_bot = b > 0 and l == 0, b < self.nblk - 1 and l == K - 1
+                li, lj = (iq if e_top else ip) - lo, (ip if e_bot else iq) - lo
+
+                def local(i, cols):
+                    return [(rows[sl[m]], c) for m in (i, K + i) for c in cols]
+                if e_top:
+                    assert [e[k] for k in (0, 1, 12, 13)] == want[ip]
+                    assert [e[k] for k in (2, 3, 14, 15)] == want["pq"]
+                else:
+                    assert local(li, cols_p) == want[ip] and local(li, cols_q) == want["pq"]
+                if e_bot:
+                    assert [e[k] for k in (16, 17, 8, 9)] == want[iq]
+                else:
+                    assert local(lj, cols_q) == want[iq]
+
+    def step(self, r):
+        """The copies and messages of round r, then the next round's tables."""
+        half, rn, last = self.half, (r + 1) % (self.mp - 1), self.nblk - 1
+
+        def nxt(x):
+            return _label_of(_cyc(x, half), rn, half)
+        tn, rec, out = [], [], []
+        for b, (lo, hi) in enumerate(self.split):
+            K, sl = self.K[b], self.tab[b]
+            t = [sl[_slot_src(u, b, K, self.nblk)] if u < 2 * K + 2 else sl[u]
+                 for u in range(len(sl))]
+            assert sorted(t) == list(range(len(t)))  # a permutation of the slots
+            tn.append(t)
+            # warp 0 writes the next round's records from this round's table
+            rec.append([(sl[_slot_src(_rot_order(n, K), b, K, self.nblk)],
+                         sl[_slot_src(K + _rot_order(n, K), b, K, self.nblk)]) for n in range(K)])
+            rows = self.rows[b]
+            up = {i: (rows[t[K - 1]], nxt((half if i & 1 else 0) + hi + (1 if i & 2 else -1)))
+                  for i in range(4)}
+            up[4] = t[2 * K + 1]
+            dn = {8: (rows[t[K]], nxt(lo)), 9: (rows[t[K]], nxt(half + lo)), 10: t[2 * K]}
+            kept = {12 + i: (rows[sl[K]], nxt((half if i & 1 else 0) + lo + (1 if i & 2 else -1)))
+                    for i in range(4)}
+            kept.update({16: (rows[sl[K - 1]], nxt(hi)), 17: (rows[sl[K - 1]], nxt(half + hi))})
+            out.append((up, dn, kept))
+        copies = []
+        for b in range(self.nblk):
+            K, sl, e = self.K[b], self.tab[b], self.edge[b]
+            if b < last:  # the last top row into b+1's free slot, its next local 0
+                assert e[10] not in self.tab[b + 1][:2 * self.K[b + 1]] and e[10] == tn[b + 1][0]
+                copies.append((b + 1, e[10], self.rows[b][sl[K - 1]]))
+            if b > 0:  # the first bottom row into b-1's, its next local 2K-1
+                Kd = self.K[b - 1]
+                assert e[4] not in self.tab[b - 1][:2 * Kd] and e[4] == tn[b - 1][2 * Kd - 1]
+                copies.append((b - 1, e[4], self.rows[b][sl[K]]))
+        for b, slot, row in copies:
+            self.rows[b][slot] = row
+        self.edge = []
+        for b in range(self.nblk):
+            e = dict(out[b][2])
+            if b > 0:
+                e.update(out[b - 1][0])
+            if b < last:
+                e.update(out[b + 1][1])
+            self.edge.append(e)
+        self.tab, self.rec = tn, rec
+
+
+def _round_model_runs(mp, nblk, rounds):
+    half = mp // 2
+    split = tj.grid_pairs(mp, nblk)
+    owned = np.concatenate([np.r_[lo:hi, half + lo:half + hi] for lo, hi in split])
+    np.testing.assert_array_equal(np.sort(owned), np.arange(mp))
+    assert min(hi - lo for lo, hi in split) >= 2 and max(hi - lo for lo, hi in split) <= 32
+    model = _RoundModel(mp, nblk)
+    table = tj.pair_table(mp)
+    for r in range(rounds):
+        model.check(r, np.concatenate(table[r % (mp - 1)]))
+        model.step(r)
+
+
+@pytest.mark.parametrize("mp", [496, 800, 816, 912])
+def test_cluster_round_tables_follow_pair_table(mp):
+    """The "cluster" round at the padded sizes it takes for one matrix, maxG11's and thetaG11's among
+    them: the labels, the slots, the records, the rows each block copies to
+    and receives from its neighbours, the edge values and warp 0's 2x2
+    blocks over 60 rounds (every table above repeats; a sweep is mp - 1
+    rounds: `test_closed_form_labels_are_pair_table` covers the labels over
+    two); barrier 1 holds exactly the warps whose columns warp 0 reads; each
+    block's angles sit in a 16-byte aligned run of whole 16-byte units."""
+    # (B2 of one matrix at mp 912 takes "grid", B2 of two "cluster")
+    assert tj.regime_for(1, mp, True) == tj.regime_for(2, mp, False) == "cluster"
+    _round_model_runs(mp, tj.CLUSTER, 60)
+    half, nu = mp // 2, 1024 - 64
+    pairs = -(-half // tj.CLUSTER)
+    stride = 2 * -(-pairs // 2)  # csrc/jacobi.cu::wide::ang_stride
+    for b, (lo, hi) in enumerate(tj.grid_pairs(mp, tj.CLUSTER)):
+        cnt, warps = _barrier1(lo, hi, half, 1024)
+        R = nu // half
+        cols = set(range(max(lo - 1, 0), min(hi, half - 1) + 1))
+        want = {u // 32 + 2 for u in range(nu) if u // half < R and u % half in cols}
+        assert warps == want and cnt == 32 * (1 + len(want))
+        for k in range(lo, hi):  # aidx: block b's run, in pair order
+            assert ((k + 1) * tj.CLUSTER - 1) // half == b
+        assert 16 * -(-(hi - lo) // 2) <= 8 * stride and (8 * stride) % 16 == 0
+
+
+@pytest.mark.parametrize("mp", [64, 224, 416, 496, 800, 816, 912, 928])
+def test_cluster_smem_bytes_mirror(mp):
+    """`smem_bytes("cluster", ...)` against the layout of csrc/jacobi.cu::wide
+    written out: three mbarriers, the row slots, two sets of row records,
+    three rounds of angles in runs of an even count a block, warp 0's lane
+    table, the edge values in and out, two slot tables of 16-bit entries;
+    B1 the larger of that and a consumer block (mp rows of its columns, two
+    rounds of angles and labels). The last size a cluster holds is 912."""
+    half = mp // 2
+    pairs = -(-half // 16)
+    slots, stride = 2 * pairs + 2, 2 * -(-pairs // 2)
+    rows = (32 + 4 * slots * mp + 16 * 2 * pairs + 8 * 3 * 16 * stride + 16 * 32
+            + 4 * 2 * (24 + 12) + 2 * 2 * slots)
+    c16 = -(-mp // 16)
+    consumer = 4 * mp * 2 * -(-c16 // 2) + 8 * 2 * half + 4 * 2 * half
+    assert tj.smem_bytes("cluster", mp, False) == rows
+    assert tj.smem_bytes("cluster", mp, True) == max(rows, consumer)
+    assert (tj.smem_bytes("cluster", mp, True) <= tj.SMEM_LIMIT) == (mp <= 912)
 
 
 class _GridModel:
