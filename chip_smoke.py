@@ -132,8 +132,9 @@ Phases:
      'auto' stays f64) and on tru9 at full size (the LP block in f32, the
      sparse group exact): OPTIMAL, iterations within 2 of the f64 runs of
      phases 3, 13 and 11; the handover iteration to the f64 assembly.
- 27. ms per call (CUDA events) and device launches per call (the larger of
-     two torch.profiler traces: a trace can lose activities) of
+ 27. ms per call (CUDA events) and device launches per call (the device
+     activities of the larger of two torch.profiler traces,
+     `device_launches`: a trace can lose activities) of
      `eigh_jacobi`, `eigh_mixed` with the library seed and with B1's, f64
      `torch.linalg.eigh`, `eigmin_lanczos` and `eigmin_chol`, beside the
      B1 and B2 wrappers, at (nb, m) = (2, 50) and (2, 800) (`eigh_jacobi`
@@ -310,6 +311,9 @@ import time
 import numpy as np
 import torch
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from torch_cases import DD2_NT, dd_nt_case, spectrum_matrix  # noqa: E402
+
 THETA1 = "tests/data/theta1.dat-s"
 MAXG11 = "tests/data/maxG11.dat-s"
 CONTROL1 = "tests/data/control1.dat-s"
@@ -361,6 +365,19 @@ CONTROL1_F32 = {"kit": 1, "preconditioner": 1, "eDIMACS": 3e-3, "tol_cg_min": 1e
                 "initpoint": 1, "verb": 0, "cg_kernel": "pallas", "maxit": 40}
 # bench.py:80-83 (tru9, vib9) and :86-87 (thetaG11)
 LARGE_KIT0 = {"kit": 0, "eDIMACS": 1e-5, "initpoint": 1, "verb": 0}
+# bench.py:77-79 (control1-cg) and :93-95 (theta1-cg, also theta_G100's)
+CONTROL1_CG = {"kit": 1, "preconditioner": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-6,
+               "initpoint": 1, "verb": 0}
+THETA1_CG = {"kit": 1, "eDIMACS": 1e-5, "tol_cg_min": 1e-5, "preconditioner": 1,
+             "initpoint": 1, "verb": 0}
+# the precision tiers (phases 18-21): tests/test_precision.py's options
+DD = {"kit": 0, "eDIMACS": 1e-11, "initpoint": 1, "verb": 0, "precision": "dd", "maxit": 30}
+DD2 = dict(DD, eDIMACS=5e-13, precision="dd2", datasparsity=0)
+CG_DD = {"precision": "dd", "kit": 1, "preconditioner": 1, "eDIMACS": 1e-9, "tol_cg_min": 1e-9,
+         "initpoint": 1, "verb": 0, "maxit": 40}
+CG_DD2 = dict(CG_DD, precision="dd2", eDIMACS=1e-10, tol_cg_min=1e-10, datasparsity=0)
+TRU3_DD2 = {"kit": 0, "eDIMACS": 1e-9, "initpoint": 1, "verb": 0, "precision": "dd2"}
+LP_DD2 = {"eDIMACS": 1e-13, "verb": 0, "precision": "dd2", "maxit": 40}
 THETAG11_OPTS = dict(LARGE_KIT0, datarank=-1)
 # tests/test_torch_lp.py: kit=0 at eDIMACS 1e-7 (tests/test_ipm_e2e.py:54-60)
 LP_KIT0 = {"kit": 0, "eDIMACS": 1e-7, "initpoint": 1, "verb": 0}
@@ -425,18 +442,45 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def spectrum_matrix(kind: str, m: int, nb: int, seed: int) -> np.ndarray:
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        A = rng.standard_normal((nb, m, m))
-        return (A + A.transpose(0, 2, 1)) / 2
-    # IPM-like: half the spectrum clustered at 1, a graded tail down to 1e-6
-    d = np.concatenate(
-        [np.full((nb, m // 2), 1.0), 10.0 ** rng.uniform(-6, 0, (nb, m - m // 2))], axis=1
-    )
-    Q = np.linalg.qr(rng.standard_normal((nb, m, m)))[0]
-    A = Q @ (d[:, :, None] * np.eye(m)) @ Q.transpose(0, 2, 1)
-    return (A + A.transpose(0, 2, 1)) / 2
+def lp_synthetic(device="cuda"):
+    """The mixed PSD + LP problem of tests/test_precision.py:76-96 (seed 5)."""
+    import loraine_tpu_torch as ltt
+
+    rng = np.random.default_rng(5)
+    n, m = 6, 5
+    A = rng.standard_normal((n, m, m))
+    A = (A + A.transpose(0, 2, 1)) / 2
+    b = rng.standard_normal(n) * 0.1
+    C_lin = rng.standard_normal((n, 4))
+    d_lin = np.abs(rng.standard_normal(4)) + 1.0
+    return ltt.problem_from_dense([A], [np.eye(m)], b, C_lin=C_lin, d_lin=d_lin,
+                                  storage="dense", device=device)
+
+
+def tru3_sparse(device="cuda"):
+    """SDPLIB tru3 forced to sparse storage (tests/test_precision.py:158-160)."""
+    import loraine_tpu_torch as ltt
+
+    return ltt.problem_from_sdpa("tests/data/tru3.dat-s", storage="sparse", device=device)
+
+
+def theta_g100(device="cuda"):
+    """Lovasz theta SDP at SDPLIB theta2's size: 100 vertices, edges with
+    probability 0.1 from seed 2 (463 edges), n = 464, dense storage
+    (`loraine_tpu.models.theta.lovasz_theta_problem` builds the same data)."""
+    import loraine_tpu_torch as ltt
+
+    rng = np.random.default_rng(2)
+    nv = 100
+    E = [(i, j) for i in range(nv) for j in range(i + 1, nv) if rng.random() < 0.1]
+    n = 1 + len(E)
+    A = np.zeros((n, nv, nv))
+    A[0] = np.eye(nv)
+    for k, (i, j) in enumerate(E):
+        A[k + 1, i, j] = A[k + 1, j, i] = 0.5
+    b = np.zeros(n)
+    b[0] = 1.0
+    return ltt.problem_from_dense([A], [-np.ones((nv, nv))], b, storage="dense", device=device)
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -1114,12 +1158,9 @@ def tier_line(label: str, r) -> str:
 
 def precision_tiers(launches, ltt, maxg11_f64) -> dict:
     """Phases 18-21: the precision tiers end to end on the card, with the
-    options of tests/test_precision.py (kept in `utils/profiling.py`).
-    Returns phase 19's theta1 and tru3 runs (phases 37-38 start from them)."""
-    from loraine_tpu_torch.utils.profiling import (CASES, CG_DD, CG_DD2, DD, DD2, lp_synthetic,
-                                                   tru3_sparse)
-
-    tru3_dd2, lp_dd2 = CASES["tru3-sparse-dd2"][1], CASES["lp-dd2"][1]
+    options of tests/test_precision.py. Returns phase 19's theta1 and tru3
+    runs (phases 37-38 start from them)."""
+    tru3_dd2, lp_dd2 = TRU3_DD2, LP_DD2
     # ---- phase 18: theta1 'dd', card beside the port's CPU run
     ref = ltt.solve_sdpa(THETA1, DD, device="cpu")
     r = launches.run("phase 18", ("B1", "B2"), lambda: ltt.solve_sdpa(THETA1, DD, device="cuda"))
@@ -1223,8 +1264,6 @@ def jax_cpu_modes(launches, ltt, maxg11_f64) -> None:
 
 def steplength_modes(launches, ltt) -> None:
     """Phases 24-25: the other steplength modes, the SVD NT scaling and f32."""
-    from loraine_tpu_torch.utils.profiling import THETA1_CG
-
     cases = [(THETA1, THETA1_K0, {"step_eig": "chol"}, THETA1_OPT),
              (THETA1, THETA1_K0, {"step_eig": "lanczos"}, THETA1_OPT),
              (CONTROL1, CONTROL1_K0, {"step_eig": "chol"}, CONTROL1_OPT),
@@ -1288,13 +1327,6 @@ def eigen_routines() -> None:
     and ~1 s a sweep) come from runs of 1 and 2 sweeps (fixed + sweeps x
     per sweep)."""
     from loraine_tpu_torch.ops import eigh as te, jacobi as tj, linalg as tl
-    from loraine_tpu_torch.utils.profiling import device_rows
-
-    def traced(fn) -> int:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sum(r[2] for r in device_rows(prof))
 
     def launched(fn) -> int:
         # a trace can lose activities, never add them (one read 0 for the
@@ -1302,7 +1334,7 @@ def eigen_routines() -> None:
         # of two traces
         fn()
         torch.cuda.synchronize()
-        return max(traced(fn), traced(fn))
+        return max(device_launches(fn), device_launches(fn))
 
     for nb, m in MODE_SHAPES:
         A = torch.from_numpy(spectrum_matrix("clustered", m, nb, seed=27 * m)).cuda()
@@ -1570,7 +1602,6 @@ def launches_in_profile_phases(tj, tp):
 def diagnostics_phase(launches, ltt, tj, tp, maxg11_f64, p_maxg11, card) -> None:
     """Phase 32: timing=2, profile_dir and the flop model's utilization."""
     from loraine_tpu_torch.utils import flops
-    from loraine_tpu_torch.utils.profiling import CONTROL1_CG
 
     for label, path, o, needs in (("theta1 kit=0", THETA1, THETA1_K0, ("B2",)),
                                   ("control1-cg kit=1", CONTROL1, CONTROL1_CG, ("B2", "B3"))):
@@ -1708,10 +1739,8 @@ def mesh_phases(f64_runs, maxg11_f64, card: str) -> None:
 def dd_mesh_phase(phase19: dict, card: str) -> None:
     """Phase 37: theta1 and tru3 (sparse) at 'dd2' on the (1, 2) mesh, 2 Gloo
     ranks on the card, against phase 19's unsharded runs."""
-    from loraine_tpu_torch.utils.profiling import CASES, DD2
-
     # tru3 on sparse storage: the load's threshold picks it for every block
-    tru3 = dict(CASES["tru3-sparse-dd2"][1], datasparsity=64)
+    tru3 = dict(TRU3_DD2, datasparsity=64)
     for name, opts, err3 in (("theta1", DD2, 1e-15), ("tru3", tru3, 1e-18)):
         ref = phase19[name]
         recs = mesh_run(37, 2, "gloo", ["--case", f"sdplib:{name}", "--opts", json.dumps(opts)],
@@ -1754,7 +1783,6 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     from loraine_tpu_torch.ops.dd_linalg import dd_matmul
     from loraine_tpu_torch.ops.nt_scaling import nt_scale, nt_scale_dd
     from loraine_tpu_torch.ops.schur import Aop_dd
-    from loraine_tpu_torch.utils.profiling import DD2, DD2_NT, dd_nt_case
 
     # ---- (a) tests/test_precision.py::test_dd_nt_e2e_cpu's solve, whole
     p = dd_nt_case("cuda")
@@ -1817,6 +1845,7 @@ def nt_dd_phase(launches, ltt, phase19: dict, card: str) -> None:
     # step's start; its result is read after it.
     o = ltt.Options.from_dict(dict(DD2, nt_precision="dd")).validated()
     pt = ltt.load_problem(THETA1, o, device="cuda")
+    o = o.resolved(pt, "cuda")
     st = ltt.solve(pt, dict(DD2, maxit=LATE), device="cuda").final_state
     ref = phase19["theta1"].history
     torch.cuda.synchronize()
@@ -1892,7 +1921,6 @@ def dd_kernels_phase(launches, ltt, phase19: dict, card: str) -> dict:
     from loraine_tpu_torch.ops import dd_linalg as dl
     from loraine_tpu_torch.ops.dd import DD
     from loraine_tpu_torch.utils.dd_bench import alone_ms, launcher
-    from loraine_tpu_torch.utils.profiling import DD2
 
     rng = np.random.default_rng(42)
 
@@ -2200,7 +2228,6 @@ def int8_mixed_phase(launches, ltt, maxg11, thetag11, f64_runs, card: str) -> No
     from loraine_tpu_torch.ops import mixed_chol as tm
     from loraine_tpu_torch.ops.linalg import chol_reg
     from loraine_tpu_torch.utils.diagnostics import profile_phases
-    from loraine_tpu_torch.utils.profiling import THETA1_CG
 
     def med(r):
         return 1e3 * float(np.median(r.iteration_times))
@@ -2389,7 +2416,6 @@ def main() -> int:
     import loraine_tpu_torch.ipm.step as S
     from loraine_tpu_torch.ops import dd_linalg as dl, int8gemm as ti, jacobi as tj, pcg as tp
     from loraine_tpu_torch.utils.cuda_build import BUILD_DIR, build_libraries
-    from loraine_tpu_torch.utils.profiling import CONTROL1_CG, THETA1_CG, theta_g100
 
     # ---- phase 1: setup + build
     print(f"phase 1 python {sys.version.split()[0]} torch {torch.__version__} "

@@ -25,6 +25,14 @@ distributed blocked one (`ops/linalg.py`), and the kit=1 materialized
 route gathers Hcg whole on every rank and then follows ``cg_kernel`` as on
 one device.
 
+Every 'auto' is resolved once, in one place: `Options.resolved(problem,
+device)` returns a copy with none left (the route the solve takes).
+`Solver` resolves after its kit downgrades, `solve_admm` and
+`utils/diagnostics.py:profile_phases` at their entries, and every caller
+of `ipm/step.py:step` before it; `step` refuses an unresolved value
+(`require_resolved`). ``Solver.opts``, the log header, the `Result` and
+checkpoints keep the values the user gave.
+
 In the port 'pallas' means the hand-written Jacobi kernels of
 `ops/jacobi.py` (CUDA C++ in `csrc/jacobi.cu`), and 'auto' resolves to them
 on every device; on a CPU tensor they run their plain PyTorch version, so
@@ -67,7 +75,7 @@ scaling (`ops/nt_scaling.py:nt_scale_dd`: dd Cholesky, dd congruence, dd
 Jacobi eigendecomposition from B1's warm start under 'pallas'/'auto'),
 whose dd Cholesky, GEMM and Jacobi sweeps are the hand-written kernels
 D2, D3 and D1 of `csrc/dd_linalg.cu` on the card (their plain PyTorch
-versions on the CPU). 'auto' (`nt_dd_for`) resolves as the JAX package's
+versions on the CPU). 'auto' resolves as the JAX package's
 (`loraine_tpu/ipm/step.py:364-370`) with the card in the TPU's place: the
 dd NT scaling under 'dd2' when the problem lives on a CUDA device, the
 f64 one on the CPU (so every CPU run keeps its trajectory); 'dd' and 'f64'
@@ -89,8 +97,8 @@ tensor cores, their plain PyTorch version on the CPU); dense and sparse
 groups ignore it. On the H100 it is expected to be slower than DGEMM
 (PERF.md has both times), so it stays opt-in, as in the JAX package.
 
-``chol_backend``: 'auto' (the default) resolves to 'f64' on every device
-(`ops/linalg.py:chol_backend_for`), as the JAX package's 'auto' does off
+``chol_backend``: 'auto' (the default) resolves to 'f64' on every device,
+as the JAX package's 'auto' does off
 the TPU; 'f64' is the library's f64 Cholesky (cuSOLVER on the card);
 'mixed' the f32-panel Cholesky with f64 Newton refinement and a per-panel
 f64 fallback (`ops/mixed_chol.py`: library calls, no kernel, up to two
@@ -98,18 +106,28 @@ host syncs a 128-column panel), for the NT scaling's factor of X and the
 kit=0 Schur factor. On a row-split mesh the Schur factor stays the
 distributed f64 one, as in the JAX package.
 
-``cg_kernel`` (materialized CG route only, `resolve_cg_kernel`): 'ff' is the
+``cg_kernel`` (materialized CG route only): 'ff' is the
 single-launch f64 CG kernel B3 and 'pallas' the f32 CG kernel B4
 (`ops/pcg.py`, CUDA C++ in `csrc/pcg.cu`); on a CPU tensor each runs its
 plain PyTorch version. 'xla' is the eager f64 CG of `ops/cg.py`. 'auto' is
 'ff' on a CUDA device for n <= 1024 and 'xla' otherwise, as the JAX package
 picks 'ff' on the TPU and 'xla' on the CPU.
+
+``cg_materialize`` (kit=1): 'always' assembles Hcg and takes the
+materialized CG route, 'never' the matrix-free one; 'auto' is 'always' for
+n <= 512 (`loraine_tpu/ipm/step.py:726`).
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
 from typing import Any, Dict, Optional
+
+import torch
+
+# the options whose value 'auto' `Options.resolved` replaces
+AUTO_FIELDS = ("step_eig", "eigh_backend", "chol_backend", "cg_kernel", "cg_materialize",
+               "assembly_precision", "nt_precision")
 
 
 @dataclasses.dataclass
@@ -204,6 +222,39 @@ class Options:
             o.pad_multiple = 1
         return o
 
+    def resolved(self, problem, device) -> "Options":
+        """A copy with every 'auto' replaced by the value it stands for on
+        ``device`` (a `torch.device` or its name) for ``problem``: the JAX
+        package's rules with the card in the TPU's place
+        (`loraine_tpu/ipm/solver.py:252-275`, `ipm/step.py:364-370, 726,
+        790-801`; `ops/eigh.py:53-58`, `ops/linalg.py:107-116`). Explicit
+        values stand. The kit downgrades (`Solver`) come first."""
+        o = dataclasses.replace(self)
+        cuda = torch.device(device).type == "cuda"
+        if o.eigh_backend == "auto":
+            o.eigh_backend = "pallas"  # B1's plain version on a CPU tensor
+        if o.step_eig == "auto":
+            o.step_eig = "pallas"  # B2's plain version on a CPU tensor
+        if o.chol_backend == "auto":
+            o.chol_backend = "f64"
+        if o.cg_kernel == "auto":
+            o.cg_kernel = "ff" if cuda and problem.n <= 1024 else "xla"
+        if o.cg_materialize == "auto":
+            o.cg_materialize = "always" if problem.n <= 512 else "never"
+        if o.precision != "dd2":
+            o.nt_precision = "f64"  # the dd NT scaling steps from dd2 iterates only
+        elif o.nt_precision == "auto":
+            # the f64 NT scaling on the CG path (kit=1) on the card too
+            # (ROADMAP Queue C 8)
+            o.nt_precision = "dd" if cuda and o.kit == 0 else "f64"
+        if o.assembly_precision == "auto":
+            mixed_path = problem.nlin > 0 or any(not g.is_rank1 for g in problem.groups)
+            assembles_h = o.kit == 0 or o.cg_materialize == "always"
+            f32 = (o.precision == "f64" and cuda and problem.n >= 512 and mixed_path
+                   and assembles_h)
+            o.assembly_precision = "f32" if f32 else "f64"
+        return o
+
     @classmethod
     def from_dict(cls, options: Optional[Dict[str, Any]] = None) -> "Options":
         """Build from a flat string-keyed dict; unknown keys raise."""
@@ -215,27 +266,13 @@ class Options:
         return cls(**options)
 
 
-def resolve_cg_kernel(cg_kernel: str, n: int, device) -> str:
-    """The CG solver of the materialized route (`ipm/step.py:790-801` of the
-    JAX package, with the card in the TPU's place): 'auto' is the B3 kernel
-    ('ff') on a CUDA device up to n = 1024, else the f64 'xla' loop."""
-    if cg_kernel != "auto":
-        return cg_kernel
-    return "ff" if device.type == "cuda" and n <= 1024 else "xla"
-
-
-def nt_dd_for(opts: Options, device) -> bool:
-    """Whether the step takes the native dd NT scaling (`nt_scale_dd`):
-    only under precision 'dd2'; nt_precision 'dd' yes, 'f64' no, 'auto' on
-    a CUDA device on the direct path (kit=0): the JAX package's rule
-    (`loraine_tpu/ipm/step.py:367-370`) with the card in the TPU's place,
-    but for the CG path (kit=1), which keeps the f64 NT scaling (ROADMAP
-    Queue C 8)."""
-    if opts.precision != "dd2":
-        return False
-    if opts.nt_precision == "auto":
-        return device.type == "cuda" and opts.kit == 0
-    return opts.nt_precision == "dd"
+def require_resolved(opts: Options) -> None:
+    """Raise unless no option of ``opts`` is 'auto' (`Options.resolved`):
+    below the solver every op reads the concrete value."""
+    left = [f for f in AUTO_FIELDS if getattr(opts, f) == "auto"]
+    if left:
+        raise ValueError(f"option(s) {left} still 'auto': resolve them first with "
+                         "Options.resolved(problem, device)")
 
 
 def _one_of(name: str, value, allowed) -> None:

@@ -17,8 +17,9 @@ iterations all the same, at most ``chunk`` - 1 of them.
 The PSD projection is the library's f64 `eigh` (cuSOLVER on the card,
 LAPACK on the CPU) unless ``eigh_backend`` resolves to 'jacobi' (the eager
 f64 Jacobi of `ops/eigh.py`), as the JAX package sends everything but
-'jacobi' to `jnp.linalg.eigh`; 'auto' resolves to 'pallas' in the port and
-so takes the library `eigh`. No Jacobi kernel runs here.
+'jacobi' to `jnp.linalg.eigh`; 'auto' resolves at the entry
+(`Options.resolved`) to 'pallas' and so takes the library `eigh`. No
+Jacobi kernel runs here.
 
 Solves the same problem as the IPM:  max b'y  s.t.  sum_j y_j A_j <= C,
 C_lin' y <= d_lin. Useful when a moderate-accuracy solution is enough or as
@@ -34,7 +35,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..ops.eigh import eigh_backend_for, eigh_jacobi
+from ..config import Options
+from ..ops.eigh import eigh_jacobi
 from ..ops.linalg import cho_solve, chol_reg, eigh_or_nan, sym
 from ..ops.schur import Aadj, Aop, schur_group, schur_lp
 from ..problem import SDPProblem
@@ -66,7 +68,7 @@ class ADMMResult:
 
 
 def _proj_psd(V: torch.Tensor, backend: str) -> torch.Tensor:
-    if eigh_backend_for(backend, V.shape[-1]) == "jacobi":
+    if backend == "jacobi":
         lam, Q = eigh_jacobi(V)
     else:
         lam, Q = eigh_or_nan(V)
@@ -84,6 +86,7 @@ def solve_admm(
 ) -> ADMMResult:
     """Run ADMM on ``problem`` on the device it lives on."""
     dtype, device = problem.b.dtype, problem.device
+    eigh_backend = Options(eigh_backend=eigh_backend).resolved(problem, device).eigh_backend
     n, nlin = problem.n, problem.nlin
     # the sign convention of the JAX package: b as-is and y = -AAT^{-1} rhs
     # converge to the IPM's y (objective -b'y + b_const)

@@ -11,6 +11,10 @@ maxit -> 4. On the CG path (kit=1) the loop also carries the CG tolerance
 schedule and the hybrid preconditioner switch (4 -> 1), as the JAX
 package's chunk does (`ipm/step.py:1393-1413`).
 
+The solver owns the route: after the kit downgrades it resolves every
+'auto' option once (`Options.resolved`, `config.py`) into ``Solver.route``,
+which every step reads; ``Solver.opts`` keeps the user's values.
+
 assembly_precision (`loraine_tpu/ipm/solver.py:248-273, 359-366`): 'f32'
 assembles the Schur matrix in f32 from the first iteration, 'auto' does so
 on a CUDA device (the card in the TPU's place) for n >= 512 when a group is
@@ -139,6 +143,9 @@ class Solver:
         self.initial_state = initial_state
         self.mesh = problem.mesh  # set by `parallel.mesh.shard_problem`
         self._apply_auto_downgrades()
+        # what the solve runs: every 'auto' resolved (`Options.resolved`);
+        # ``opts`` keeps the user's values for the header and the result
+        self.route = self.opts.resolved(problem, self.device)
 
     def _apply_auto_downgrades(self) -> None:
         """kit auto-downgrades (`src/Solvers.jl:421-444`)."""
@@ -178,21 +185,6 @@ class Solver:
             state = dataclasses.replace(state, X_lo=None, S_lo=None, y_lo=None,
                                         X_lin_lo=None, S_lin_lo=None)
         return state
-
-    def _mixed_assembly(self) -> bool:
-        """Whether the solve starts on the f32 Schur assembly
-        (`loraine_tpu/ipm/solver.py:252-275`, the card in the TPU's place)."""
-        o, p = self.opts, self.problem
-        if o.precision != "f64":
-            return False
-        if o.assembly_precision == "f32":
-            return True
-        if o.assembly_precision != "auto":
-            return False
-        has_mixed_path = p.nlin > 0 or any(not g.is_rank1 for g in p.groups)
-        assembles_h = o.kit == 0 or o.cg_materialize == "always" or (
-            o.cg_materialize == "auto" and p.n <= 512)
-        return self.device.type == "cuda" and p.n >= 512 and has_mixed_path and assembles_h
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -253,7 +245,7 @@ class Solver:
         return result
 
     def _solve(self) -> Result:
-        o, p = self.opts, self.problem
+        o, r, p = self.opts, self.route, self.problem
         t_start = time.perf_counter()
         self._header()
 
@@ -267,7 +259,7 @@ class Solver:
         cg_tot = 0
         tol_cg = o.tol_cg
         precond_kind = o.preconditioner if o.kit == 1 else -1
-        mixed = self._mixed_assembly()
+        mixed = r.assembly_precision == "f32"
         handover = None
         stats_h: Dict[str, Any] = {}
         iteration_times: List[float] = []
@@ -276,7 +268,7 @@ class Solver:
         while status == 0:
             t0 = time.perf_counter()
             with self.timer.phase("ipm step", "step"):
-                state, stats = step(p, state, o, tol_cg, precond_kind, mixed)
+                state, stats = step(p, state, r, tol_cg, precond_kind, mixed)
                 with span("stats"):
                     stats_h = stats.to_host(self.mesh)  # waits for the step's device work
                     self._sync()
@@ -312,7 +304,7 @@ class Solver:
             if status == 0 and precond_kind == 4 and self._hybrid_switch(stats_h["cg_cor"], it):
                 # hybrid preconditioner switch (src/Solvers.jl:339-347)
                 precond_kind = 1
-                o.aamat = 2
+                o.aamat = r.aamat = 2
                 if o.verb > 0:
                     print("Switching to preconditioner 1")
 

@@ -11,9 +11,13 @@ steplengths, Mehrotra sigma, corrector, iterate update and the six DIMACS
 errors, with the LP cone's terms beside the LMI blocks' (`find_step_lin`,
 `src/predictor_corrector.jl:329-347`).
 
+The step reads concrete options: its caller resolves every 'auto' first
+(`Options.resolved`, `config.py`; `Solver` does), and it refuses one left
+(`require_resolved`).
+
 Steplengths (`_bound_fns`, `loraine_tpu/ipm/step.py:372-464`): under
-``step_eig`` 'pallas' (and 'auto', which is 'pallas' on every device here)
-the certified spectral bounds of the B2 kernel (`ops/jacobi.py`), with the
+``step_eig`` 'pallas' (what 'auto' resolves to on every device here) the
+certified spectral bounds of the B2 kernel (`ops/jacobi.py`), with the
 predictor identity scaleX = -I - scaleS, so one bound computation on scaleS
 gives both predictor steplengths; under 'exact' the smallest eigenvalue
 from ``eigh_backend`` ('pallas' B2, 'mixed', 'jacobi' or 'xla'), under
@@ -22,7 +26,7 @@ on [scaleX; scaleS] (the two-matrix path). 'lanczos' carries no
 certificate, so it keeps the explicit Cholesky PSD probe of the new
 iterate for err2/err4.
 
-``mixed_assembly`` (assembly_precision 'f32'/'auto' before the handover,
+``mixed_assembly`` (assembly_precision 'f32' before the handover,
 `ipm/solver.py`): the Schur matrix of kit=0 and of the kit=1 materialized
 route comes from `schur_group_mixed` and `schur_lp_mixed` (f32 GEMMs on
 dense and LP data); everything else stays exact.
@@ -75,10 +79,10 @@ dd from the dd iterates, whose tails (D_lo, G_lo, W_lo) enter every W and
 G sandwich that feeds the Schur assembly, the right-hand sides and the
 directions, and the corrector's target sig_mu / D in dd
 (`loraine_tpu/ipm/step.py:128-168, 597-609, 645-649, 865-873,
-1019-1044`). 'auto' takes it under 'dd2' on a CUDA device on the direct
-path (kit=0), where its dd Cholesky, GEMM and Jacobi sweeps are the
-kernels D2, D3 and D1, and the f64 NT scaling on the CPU and on the CG
-path (`config.py:nt_dd_for`; the JAX package's rule with the card in the
+1019-1044`). 'auto' resolves to it under 'dd2' on a CUDA device on the
+direct path (kit=0), where its dd Cholesky, GEMM and Jacobi sweeps are
+the kernels D2, D3 and D1, and to the f64 NT scaling on the CPU and on the
+CG path (`Options.resolved`; the JAX package's rule with the card in the
 TPU's place, but for kit=1).
 
 Under a profiler the step marks its phases as spans (`utils/timers.py:
@@ -99,11 +103,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..config import Options, nt_dd_for, resolve_cg_kernel
+from ..config import Options, require_resolved
 from ..ops.cg import cg_plain, pcg
 from ..ops.dd import DD, dd_add, dd_mul_f64, dd_neg, dd_sum, dd_to_f64, two_prod, two_sum
 from ..ops.dd_linalg import dd_const, dd_div, dd_mul
-from ..ops.eigh import eigh_backend_for, eigh_jacobi, eigh_mixed, eigmin_lanczos
+from ..ops.eigh import eigh_jacobi, eigh_mixed, eigmin_lanczos
 from ..ops.jacobi import eig_bounds_jacobi
 from ..ops.linalg import btrace, chol_reg, cho_solve_inv, eigmin, eigmin_chol, sym, tri_inv
 from ..ops.nt_scaling import NTScaling, NTTails, nt_scale, nt_scale_dd
@@ -143,13 +147,13 @@ def _gersh_violation(M: torch.Tensor) -> torch.Tensor:
 
 def _bound_fns(opts: Options):
     """(eigmin_fn, eigrange_fn, cert_mode) of the resolved ``step_eig``
-    (`loraine_tpu/ipm/step.py:372-451`); 'auto' is the B2 bound ('pallas')
-    on every device (the JAX package picks 'pallas' on the TPU and 'exact'
-    on the CPU). eigmin_fn maps [k, m, m] to a lower bound (or the value)
+    (`loraine_tpu/ipm/step.py:372-451`; the JAX package's 'auto' is
+    'pallas' on the TPU and 'exact' on the CPU, the port's 'pallas' on
+    every device). eigmin_fn maps [k, m, m] to a lower bound (or the value)
     of each lambda_min; eigrange_fn, set only under 'pallas', maps scaleS to
     (lambda_min, lambda_max) bounds for the predictor identity; cert_mode is
     False under 'lanczos' only."""
-    mode = "pallas" if opts.step_eig == "auto" else opts.step_eig
+    mode, backend = opts.step_eig, opts.eigh_backend
 
     def eigmin_fn(M):
         if mode == "chol":
@@ -158,13 +162,12 @@ def _bound_fns(opts: Options):
             return eigmin_lanczos(M)
         if mode == "pallas":
             return eig_bounds_jacobi(M)[0]
-        resolved = eigh_backend_for(opts.eigh_backend, M.shape[-1])
-        if resolved == "jacobi":
+        if backend == "jacobi":
             # lambda_min to ~1e-9 relative needs 7 sweeps, not the default
             return eigh_jacobi(M, sweeps=7)[0][..., 0]
-        if resolved == "mixed":
+        if backend == "mixed":
             return eigh_mixed(M, refine_iters=1)[0][..., 0]
-        if resolved == "pallas":
+        if backend == "pallas":
             return eig_bounds_jacobi(M)[0]
         return eigmin(M)
 
@@ -462,7 +465,7 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     """The kit=1 Schur solve, rhs -> (dely, CG iterations), for one IPM
     iteration (`loraine_tpu/ipm/step.py:716-853`).
 
-    Materialized route (n <= 512 under 'auto', or 'always'): Hcg assembled
+    Materialized route (cg_materialize 'always'): Hcg assembled
     like the direct path's H, the preconditioner as the matrix Mli with
     M = Mli^T Mli, and then either a CG kernel on Hp = sym(Mli Hcg Mli^T)
     followed by the f64 `cg_plain` polish of any shortfall, or the f64
@@ -475,11 +478,11 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
     with its f64 refinement) run on f64 copies of the f32 operator and
     return the solution in f32."""
     n = problem.n
-    mat_cg = opts.cg_materialize == "always" or (opts.cg_materialize == "auto" and n <= 512)
+    mat_cg = opts.cg_materialize == "always"
     if mat_cg:
         Hcg = _schur(problem, nts, lpw, mixed, opts.gemm_backend)
         if problem.rows_split:
-            # whole on every rank (n <= 512 under 'auto'): the CG below is
+            # whole on every rank: the CG below is
             # the unsharded route, with no collective inside it
             sh = problem.shard
             Hcg = sym(sh.mesh.gather(Hcg, "schur", n, sh.rows[0]))
@@ -513,8 +516,7 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
             return pcg(matvec, rhs, precond, tol_cg, opts.cg_maxiter)
         return solve
 
-    cg_kernel = resolve_cg_kernel(opts.cg_kernel, n, problem.device)
-    use_kernel = mat_cg and cg_kernel in ("ff", "pallas")
+    use_kernel = mat_cg and opts.cg_kernel in ("ff", "pallas")
     if use_kernel and Mli is None:
         Mli = torch.eye(n, dtype=Hcg.dtype, device=Hcg.device)
     if mat_cg and Mli is not None:
@@ -524,7 +526,7 @@ def _cg_solver(problem: SDPProblem, nts, lpw: Optional[torch.Tensor], opts: Opti
         Hp = sym(Mli @ Hcg @ MliT)
 
     if use_kernel:
-        kernel_fn = pcg_kernel_ff if cg_kernel == "ff" else pcg_kernel_mixed
+        kernel_fn = pcg_kernel_ff if opts.cg_kernel == "ff" else pcg_kernel_mixed
         dtype = Hcg.dtype
         if dtype != torch.float64:
             Hcg, Mli, MliT, Hp = (t.double() for t in (Hcg, Mli, MliT, Hp))
@@ -597,8 +599,10 @@ def step(
     ``precond_kind`` the preconditioner (default ``opts.preconditioner``;
     the solver's hybrid 4 -> 1 switch changes it between iterations).
     ``mixed_assembly``: the f32 Schur assembly (the solver's phase of
-    assembly_precision 'f32'/'auto' before DIMACS < 1e-3).
+    assembly_precision 'f32' before DIMACS < 1e-3). ``opts`` holds no
+    'auto' (`Options.resolved`).
     precision='dd2' needs the state's tails (`Solver` adds zero tails)."""
+    require_resolved(opts)
     dtype, device = problem.b.dtype, problem.device
     nlin = problem.nlin
     ngroups = len(problem.groups)
@@ -606,8 +610,8 @@ def step(
     zero = torch.zeros((), dtype=dtype, device=device)
     dd_mode = opts.precision in ("dd", "dd2")
     dd2 = opts.precision == "dd2"
-    # the native dd NT scaling ('auto': on a CUDA device at kit=0 only)
-    nt_dd = nt_dd_for(opts, device)
+    # the native dd NT scaling (`Options.resolved` leaves 'dd' under 'dd2' only)
+    nt_dd = opts.nt_precision == "dd"
     mesh = problem.mesh
     C_lin = problem.C_lin
     eigmin_fn, eigrange_fn, cert_mode = _bound_fns(opts)

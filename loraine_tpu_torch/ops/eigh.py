@@ -1,6 +1,6 @@
 """Batched symmetric eigendecompositions and the Lanczos lambda_min bound.
-Port of `loraine_tpu/ops/eigh.py` (`eigh_backend_for`, `round_robin_pairs`,
-`eigh_jacobi`, `eigh_mixed`, `eigmin_lanczos`).
+Port of `loraine_tpu/ops/eigh.py` (`round_robin_pairs`, `eigh_jacobi`,
+`eigh_mixed`, `eigmin_lanczos`).
 
 The backends of ``eigh_backend``:
 
@@ -12,12 +12,13 @@ The backends of ``eigh_backend``:
             ops, (m-1) rounds per sweep of ~45 small ops each;
   'xla'     the library's f64 `eigh`.
 
-'auto' is 'pallas' on every device (the JAX package picks 'pallas' on the
-TPU and 'jacobi'/'mixed' by size on the CPU, `loraine_tpu/ops/eigh.py:53-58`):
-on a CPU tensor B1 runs its plain version, so CPU and card runs follow the
-same algorithm. None of 'mixed', 'jacobi', 'xla' or `eigmin_lanczos`
-reaches a Pallas kernel in the JAX package (XLA loops, GEMMs and
-`jnp.linalg.eigh`), so none has a kernel here either.
+'auto' resolves to 'pallas' on every device (`Options.resolved`; the JAX
+package's `eigh_backend_for` picks 'pallas' on the TPU and 'jacobi'/'mixed'
+by size on the CPU, `loraine_tpu/ops/eigh.py:53-58`): on a CPU tensor B1
+runs its plain version, so CPU and card runs follow the same algorithm.
+None of 'mixed', 'jacobi', 'xla' or `eigmin_lanczos` reaches a Pallas kernel
+in the JAX package (XLA loops, GEMMs and `jnp.linalg.eigh`), so none has a
+kernel here either.
 """
 from __future__ import annotations
 
@@ -31,20 +32,11 @@ from .jacobi import eigh_jacobi_f32
 from .linalg import eigh_or_nan
 
 __all__ = [
-    "eigh_backend_for",
     "round_robin_pairs",
     "eigh_jacobi",
     "eigh_mixed",
     "eigmin_lanczos",
 ]
-
-
-def eigh_backend_for(backend: str, m: int) -> str:
-    """Resolve the eigensolver backend. In the port 'auto' is the kernel
-    route ('pallas') on every device: on a CPU tensor it runs the kernel's
-    plain version, so CPU and card runs follow the same algorithm. The
-    explicit values 'pallas', 'mixed', 'jacobi' and 'xla' stand."""
-    return "pallas" if backend == "auto" else backend
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,7 +26,6 @@ __all__ = [
     "sym",
     "btrace",
     "chol_blocked",
-    "chol_backend_for",
     "chol_reg",
     "CholResult",
     "tri_solve",
@@ -107,14 +106,6 @@ def chol_blocked(M_rows: torch.Tensor, mesh, base: int = 128) -> torch.Tensor:
     return L
 
 
-def chol_backend_for(backend: str, n: int) -> str:
-    """Resolve ``chol_backend``: 'auto' is 'f64' on every device of the port,
-    as `loraine_tpu/ops/linalg.py:107-116` resolves it off the TPU (the
-    mixed panels exist there for the TPU's f64 latency); an explicit
-    'mixed' or 'f64' stays."""
-    return "f64" if backend == "auto" else backend
-
-
 def chol_reg(M: torch.Tensor, eps: float, max_tries: int = 1000, backend: str = "f64",
              mesh=None) -> CholResult:
     """Cholesky with bounded diagonal-shift regularization
@@ -128,7 +119,7 @@ def chol_reg(M: torch.Tensor, eps: float, max_tries: int = 1000, backend: str = 
     the factor. Failed factors come back as NaN, as in the JAX package, so a
     give-up propagates into the step's status. One host sync per round.
 
-    ``backend`` (`chol_backend_for`): 'f64' is the library's f64
+    ``backend`` (the resolved ``chol_backend``): 'f64' is the library's f64
     factorization, 'mixed' the f32-panel factorization of
     `ops/mixed_chol.py` (f64 fallback per panel, the same NaN semantics).
 
@@ -141,7 +132,7 @@ def chol_reg(M: torch.Tensor, eps: float, max_tries: int = 1000, backend: str = 
     if mesh is not None:
         return _chol_reg_rows(M, eps, max_tries, mesh)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-    mixed = chol_backend_for(backend, M.shape[-1]) == "mixed"
+    mixed = backend == "mixed"
 
     def attempt(Mc):
         if mixed:

@@ -18,7 +18,8 @@ reference's maximum total S shift) marks the scaling not ok. Method 'svd'
 is the reference's formulation, kept as the parity path: chol of X and S
 together, the library SVD, S^{-1} by two triangular solves.
 
-`nt_scale_dd` (nt_precision='dd', and 'auto' on the card at kit=0, under 'dd2')
+`nt_scale_dd` (nt_precision='dd', which 'auto' resolves to on the card at
+kit=0 under 'dd2')
 runs chol(X), the congruence L_x^T S L_x and its Jacobi eigendecomposition
 on dd pairs (`ops/dd_linalg.py`: the kernels D2, D3 and D1 on a CUDA
 tensor), so the congruent spectrum (~mu) survives below the f64 formation
@@ -37,7 +38,7 @@ from ..utils.timers import span
 from .dd import DD
 from .dd_linalg import (dd_chol, dd_const, dd_div, dd_eigh_jacobi, dd_matmul, dd_mul, dd_sqrt,
                         dd_sym, dd_transpose)
-from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
+from .eigh import eigh_jacobi, eigh_mixed
 from .linalg import chol_reg, eigh_or_nan, svd_or_nan, sym, tri_solve
 
 __all__ = ["NTScaling", "NTTails", "nt_scale", "nt_scale_dd"]
@@ -45,12 +46,11 @@ __all__ = ["NTScaling", "NTTails", "nt_scale", "nt_scale_dd"]
 
 def _eigh(M: torch.Tensor, backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``eigh_backend`` dispatch (`loraine_tpu/ops/nt_scaling.py:38-46`)."""
-    resolved = eigh_backend_for(backend, M.shape[-1])
-    if resolved == "jacobi":
+    if backend == "jacobi":
         return eigh_jacobi(M)
-    if resolved == "mixed":
+    if backend == "mixed":
         return eigh_mixed(M)
-    if resolved == "pallas":
+    if backend == "pallas":
         return eigh_mixed(M, seed="pallas")
     return eigh_or_nan(M)
 
@@ -73,7 +73,7 @@ def nt_scale(
     reg_eps: float = 1e-5,
     max_reg: int = 1000,
     method: str = "eigh",
-    eigh_backend: str = "auto",
+    eigh_backend: str = "pallas",
     chol_backend: str = "f64",
 ) -> NTScaling:
     """NT scaling for a stacked group of blocks [nb, m, m] by ``method``
@@ -148,7 +148,7 @@ def nt_scale_dd(
     S: DD,
     reg_eps: float = 1e-5,
     max_reg: int = 1000,
-    eigh_backend: str = "auto",
+    eigh_backend: str = "pallas",
     sweeps: Optional[int] = None,
     mesh=None,
 ) -> Tuple[NTScaling, NTTails]:
@@ -159,7 +159,7 @@ def nt_scale_dd(
     The f64 `nt_scale` of the hi words is the baseline. Then dd_chol(X),
     M = L_x^T S L_x in dd, the warm start V0 from the ``eigh_backend``
     eigenbasis of M.hi (B1's seed plus the f64 refinement under
-    'pallas'/'auto'), `dd_eigh_jacobi` from V0, a 2^-100 relative clamp of
+    'pallas'), `dd_eigh_jacobi` from V0, a 2^-100 relative clamp of
     the spectrum, and D, D^{-1/2}, G and W in dd; Gi, Si and DDsi from the
     hi words (their consumers are f64).
 

@@ -23,8 +23,9 @@ preconditioner itself (Mli, or the SMW factor) is replicated.
 The eigendecompositions of W follow ``eigh_backend`` as in the JAX package's
 `_eigh` (`loraine_tpu/ops/precond.py:37-43`): 'jacobi' is `eigh_jacobi`,
 'mixed' `eigh_mixed` with the library's f32 seed, and 'xla' and 'pallas'
-(so 'auto' too) the library's f64 `torch.linalg.eigh`: there the resolved
-'pallas' falls through to the library call, not to the Jacobi kernel.
+(what 'auto' resolves to, `Options.resolved`) the library's f64
+`torch.linalg.eigh`: here 'pallas' falls through to the library call, not
+to the Jacobi kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..problem import SDPProblem
-from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
+from .eigh import eigh_jacobi, eigh_mixed
 from .linalg import chol_reg, cho_solve, eigh_or_nan, sym, tri_inv
 from .nt_scaling import NTScaling
 from .schur import Aadj, Aop, bsum, gather_blocks, gather_rows
@@ -45,10 +46,9 @@ __all__ = [
 
 
 def _eigh(M: torch.Tensor, backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    resolved = eigh_backend_for(backend, M.shape[-1])
-    if resolved == "jacobi":
+    if backend == "jacobi":
         return eigh_jacobi(M)
-    if resolved == "mixed":
+    if backend == "mixed":
         return eigh_mixed(M)
     return eigh_or_nan(M)
 
@@ -76,7 +76,7 @@ def prep_beta(
     lpw: Optional[torch.Tensor],
     erank: int,
     aamat: int,
-    eigh_backend: str = "auto",
+    eigh_backend: str = "pallas",
 ) -> BetaPrecond:
     s = torch.zeros((), dtype=problem.b.dtype, device=problem.device)
     for g, nt in zip(problem.groups, nts):
@@ -141,7 +141,7 @@ def prep_alpha(
     lpw: Optional[torch.Tensor],
     erank: int,
     aamat: int,
-    eigh_backend: str = "auto",
+    eigh_backend: str = "pallas",
     materialize: bool = False,
 ):
     """H_alpha for the current NT scaling: `AlphaPrecondDense` when

@@ -271,11 +271,12 @@ def dd_step_pair(key: str, mesh, device) -> Dict[str, np.ndarray]:
     problem = build(device)
     o = ltt.Options(**{"kit": 0, "verb": 0, "datasparsity": 0, **extra}).validated()
     st = _dd_start(key, problem, o, device)
-    ref_state, ref_stats = step(problem, st, o)
+    r = o.resolved(problem, device)
+    ref_state, ref_stats = step(problem, st, r)
     sp, ss = shard_problem(problem, mesh), shard_state(st, problem, mesh)
     before = _launches()
     t0 = time.perf_counter()
-    out_state, out_stats = step(sp, ss, o)
+    out_state, out_stats = step(sp, ss, r)
     out_h = out_stats.to_host(mesh)
     R = {"seconds": np.array(time.perf_counter() - t0),
          "launches": np.array([a - b for a, b in zip(_launches(), before)]),
@@ -285,7 +286,7 @@ def dd_step_pair(key: str, mesh, device) -> Dict[str, np.ndarray]:
     for gi, (g, Xr, Xs) in enumerate(zip(sp.groups, ref_state.X, out_state.X)):
         R[f"X{gi}"] = np.stack([Xr.cpu().numpy(), gather_blocks(g, Xs).cpu().numpy()])
     if o.nt_precision == "dd":
-        R["dd_ok"] = np.array([_dd_ok(problem, st, o), _dd_ok(sp, ss, o)])
+        R["dd_ok"] = np.array([_dd_ok(problem, st, r), _dd_ok(sp, ss, r)])
     return R
 
 
@@ -353,7 +354,7 @@ def run_gate(gate: int, data: dict, modes: dict, device) -> dict:
     opts = {**GATE_OPTS[gate], **modes}
     rec = {"gate": gate, "mesh": list(shape), "tol": TOLS[gate]}
     if gate == 6:
-        o = ltt.Options(**opts).validated()
+        o = ltt.Options(**opts).validated().resolved(p, device)
         st = initial_point(p, o)
         _, ref = step(p, st, o)
         before = _launches()
@@ -408,11 +409,12 @@ def run_sdplib(name: str, opts: dict, device, one_step: bool) -> dict:
     sp = shard_problem(p, mesh)
     if one_step:
         st = initial_point(p, o)
-        _, ref = step(p, st, o)
+        r = o.resolved(p, device)
+        _, ref = step(p, st, r)
         ref = ref.to_host()
         before = _launches()
         t0 = time.perf_counter()
-        _, sh = step(sp, shard_state(st, p, mesh), o)
+        _, sh = step(sp, shard_state(st, p, mesh), r)
         sh = sh.to_host(mesh)
         rec["seconds"] = time.perf_counter() - t0
         for f in ("obj", "dimacs", "alpha_min", "beta_min"):

@@ -17,7 +17,8 @@ MODE is one of
   cpu-nt-card  the CPU; every `nt_scale_dd` computed on the card (D1-D3)
                from the CPU's iterate and its outputs moved back
 
-each with `utils/profiling.py`'s CG_DD2 options and nt_precision='dd'. For
+each with the options CG_DD2 (tests/test_precision.py's theta1 kit=1
+'dd2' case) and nt_precision='dd'. For
 each mode it prints one JSON line: the status, the iterations, DIMACS, the
 errors, the seconds, the iteration history and, per NT call, dd_ok and the
 range of D. With both 'kernels' and 'plain' it also prints whether their
@@ -38,6 +39,9 @@ import time
 import numpy as np
 import torch
 
+# theta1 on the CG path at 'dd2' (tests/test_precision.py's options)
+CG_DD2 = {"precision": "dd2", "kit": 1, "preconditioner": 1, "eDIMACS": 1e-10,
+          "tol_cg_min": 1e-10, "initpoint": 1, "verb": 0, "maxit": 40, "datasparsity": 0}
 MODES = ("kernels", "plain", "nt-cpu", "cpu", "cpu-nt-card")
 
 
@@ -80,7 +84,6 @@ def _mode(mode: str, calls: list):
 def run(mode: str) -> tuple:
     """(record, calls) of one theta1 CG 'dd2' solve under ``mode``."""
     import loraine_tpu_torch as ltt
-    from .profiling import CG_DD2
 
     device = "cpu" if mode.startswith("cpu") else "cuda"
     calls = []

@@ -12,13 +12,16 @@ whole-step row keeps the JAX name "full fused step", though the port's step
 is eager PyTorch and fuses nothing: it is the ground truth the phase rows
 attribute.
 
-The kernels of the rows: the NT row seeds `eigh_mixed` with B1 under
-``eigh_backend`` 'pallas' (= 'auto'); "find_step spectral" runs B2
-(`eig_bounds_jacobi`) where ``step_eig`` resolves to 'pallas' (= 'auto' in
-the port on every device; in the JAX package on the TPU only); on kit=1's
-materialized route "CG solve (ff kernel, tol 1e-7)" runs B3 where
-`resolve_cg_kernel` gives 'ff' (on a card; the JAX package adds the row on
-the TPU only).
+The options are resolved first (`Options.resolved`), so every row runs
+what the solve runs. The kernels of the rows: the NT row seeds
+`eigh_mixed` with B1 under ``eigh_backend`` 'pallas' (what 'auto'
+resolves to); "find_step spectral" times the step's own bound function
+(`ipm/step.py:_bound_fns`) on the predictor's scaleS: B2
+(`eig_bounds_jacobi`) under ``step_eig`` 'pallas' ('auto' in the port on
+every device; in the JAX package on the TPU only) and under 'exact' with
+``eigh_backend`` 'pallas'; on kit=1's materialized route "CG solve (ff
+kernel, tol 1e-7)" runs B3 where ``cg_kernel`` resolves to 'ff' (on a
+card; the JAX package adds the row on the TPU only).
 
 Wired into the solver: ``timing=2`` prints this breakdown after the solve
 (`Solver.solve`), and the CLI exposes ``--phases``.
@@ -33,10 +36,8 @@ from typing import Dict
 
 import torch
 
-from ..config import Options, resolve_cg_kernel
-from ..ops.eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
-from ..ops.jacobi import eig_bounds_jacobi
-from ..ops.linalg import chol_reg, cho_solve_inv, eigh_or_nan, sym, tri_inv
+from ..config import Options
+from ..ops.linalg import chol_reg, cho_solve_inv, sym, tri_inv
 from ..ops.nt_scaling import nt_scale
 from ..ops.schur import Aadj, Aop, lp_weight, schur_group, schur_lp
 
@@ -75,10 +76,10 @@ def profile_phases(
     seconds}. The 'full fused step' row (one whole eager step) is the ground
     truth; phase rows attribute it."""
     from ..ipm.initial import initial_point
-    from ..ipm.step import step
+    from ..ipm.step import _bound_fns, step
 
     opts = options if isinstance(options, Options) else Options.from_dict(options)
-    opts = opts.validated()
+    opts = opts.validated().resolved(problem, problem.device)
     precond = opts.preconditioner if opts.kit else None
     st = initial_point(problem, opts)
     for _ in range(iters):
@@ -142,8 +143,7 @@ def profile_phases(
         from ..ops.pcg import pcg_kernel_ff
         from ..ops.precond import prep_alpha
 
-        mat_cg = opts.cg_materialize == "always" or (
-            opts.cg_materialize == "auto" and problem.n <= 512)
+        mat_cg = opts.cg_materialize == "always"
         if mat_cg:
             out["Schur materialize (CG operator)"] = timed(schur, nts)
             Hcg = schur(nts)
@@ -154,7 +154,7 @@ def profile_phases(
                 return pa.Mli if mat_cg else pa.diag_scalar
 
             out["precond prep (H_alpha)"] = timed(palpha, nts)
-        if mat_cg and resolve_cg_kernel(opts.cg_kernel, problem.n, device) == "ff":
+        if mat_cg and opts.cg_kernel == "ff":
             Mli = prep_alpha(problem, nts, lpw, opts.erank, opts.aamat, opts.eigh_backend,
                              materialize=True).Mli
 
@@ -163,24 +163,19 @@ def profile_phases(
 
             out["CG solve (ff kernel, tol 1e-7)"] = timed(cgsolve, Hcg, Mli, h)
 
-    # steplength phase: the scaled-direction spectral computation as the
-    # step's bound path sees it (find_step_A..D)
-    mode = "pallas" if opts.step_eig == "auto" else opts.step_eig
+    # steplength phase: the predictor's scaled-direction bounds by the
+    # step's own bound functions (find_step_A..D): (lambda_min, lambda_max)
+    # of scaleS under 'pallas' (the predictor identity), else lambda_min of
+    # [scaleX; scaleS] with scaleX = -I - scaleS
+    eigmin_fn, eigrange_fn, _ = _bound_fns(opts)
     for gi, nt in enumerate(nts):
         def steplen(delS, nt=nt):
             delSb = nt.G.mT @ delS @ nt.G
             scaleS = sym(nt.DDsi[:, :, None] * delSb * nt.DDsi[:, None, :])
-            if mode == "pallas":
-                return eig_bounds_jacobi(scaleS)
-            resolved = eigh_backend_for(opts.eigh_backend, scaleS.shape[-1])
-            if resolved == "jacobi":
-                lam = eigh_jacobi(scaleS, sweeps=7)[0]
-            elif resolved in ("mixed", "pallas"):
-                lam = eigh_mixed(scaleS, refine_iters=1,
-                                 seed="pallas" if resolved == "pallas" else "xla32")[0]
-            else:
-                lam = eigh_or_nan(scaleS)[0]
-            return lam[..., 0], lam[..., -1]
+            if eigrange_fn is not None:
+                return eigrange_fn(scaleS)
+            eye = torch.eye(scaleS.shape[-1], dtype=dtype, device=device)
+            return eigmin_fn(torch.cat([-eye - scaleS, scaleS], dim=0))
 
         out[f"find_step spectral, group{gi} (predictor)"] = timed(steplen, Rds[gi])
 

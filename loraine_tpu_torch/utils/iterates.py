@@ -59,7 +59,7 @@ def scale_iterates(rows: int, cols: int, seed: int, steps: int, device: str = "c
     from ..ops.nt_scaling import nt_scale
 
     p = maxcut_problem(torus_graph(rows, cols, seed), datarank=-1, device=device)
-    o = Options.from_dict(OPTS).validated()
+    o = Options.from_dict(OPTS).validated().resolved(p, device)
     st = initial_point(p, o)
     out = []
     for k in range(steps + 1):
@@ -70,12 +70,12 @@ def scale_iterates(rows: int, cols: int, seed: int, steps: int, device: str = "c
         ev = torch.linalg.eigvalsh(M)
         rec = {"k": k, "n": X.shape[-1], "M_eig_min": float(ev[0, 0]),
                "M_eig_max": float(ev[0, -1])}
-        for backend in (o.eigh_backend, "mixed"):
-            rec[f"nt_ok_{backend}"] = bool(nt_scale(X, S, eigh_backend=backend).ok)
+        for label, backend in (("auto", o.eigh_backend), ("mixed", "mixed")):
+            rec[f"nt_ok_{label}"] = bool(nt_scale(X, S, eigh_backend=backend).ok)
         lam, _ = eigh_mixed(M, seed="pallas")  # what the scaling under 'auto' sees
         rec["eigh_mixed_min"] = float(lam[0, 0])
         out.append((rec, X.cpu().numpy(), S.cpu().numpy()))
-        if not rec[f"nt_ok_{o.eigh_backend}"] or k == steps:
+        if not rec["nt_ok_auto"] or k == steps:
             break
         st, _ = step(p, st, o)
     return out
@@ -83,7 +83,7 @@ def scale_iterates(rows: int, cols: int, seed: int, steps: int, device: str = "c
 
 def capture_step(problem, state, opts, *args, **kwargs) -> dict:
     """One step from ``state`` (`ipm.step.step`'s arguments after the
-    state) with the NT scaling, the Schur matrix and the corrector's
+    state, ``opts`` resolved: `Options.resolved`) with the NT scaling, the Schur matrix and the corrector's
     directions and steplengths of block 0 recorded, unpadded."""
     from ..ipm import step as step_mod
 
@@ -132,7 +132,7 @@ def solve_iterates(problem, options: dict, at, device: str = "cuda"):
     calls = []
 
     def recording(p, st, o, *a, **k):
-        calls.append((st, a, k))
+        calls.append((st, o, a, k))
         return real(p, st, o, *a, **k)
 
     solver = solver_mod.Solver(problem, options, device=device)
@@ -144,8 +144,8 @@ def solve_iterates(problem, options: dict, at, device: str = "cuda"):
     out = {}
     for k in at:
         k = len(calls) if k == -1 else k
-        st, a, kw = calls[k - 1]
-        out[k] = capture_step(problem, st, solver.opts, *a, **kw)
+        st, o, a, kw = calls[k - 1]
+        out[k] = capture_step(problem, st, o, *a, **kw)
     return res, out
 
 

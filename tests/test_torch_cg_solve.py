@@ -17,7 +17,7 @@ import torch
 
 import loraine_tpu as lt
 import loraine_tpu_torch as ltt
-from loraine_tpu_torch.config import resolve_cg_kernel
+from torch_cases import sized_problem
 
 DATA = pathlib.Path(__file__).parent / "data"
 CONTROL1 = str(DATA / "control1.dat-s")
@@ -97,6 +97,10 @@ def test_cg_kernel_auto_resolution():
     # the card's default is B3 up to n = 1024 (step.py:790-801); the CPU
     # runs the f64 'xla' loop, as the JAX package on its CPU backend
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def resolve_cg_kernel(cg_kernel, n, device):
+        return ltt.Options(cg_kernel=cg_kernel).resolved(sized_problem(n), device).cg_kernel
+
     assert resolve_cg_kernel("auto", 464, cuda) == "ff"
     assert resolve_cg_kernel("auto", 1024, cuda) == "ff"
     assert resolve_cg_kernel("auto", 1025, cuda) == "xla"

@@ -27,13 +27,14 @@ import jax.numpy as jnp
 from loraine_tpu.ops import dd_linalg as jdl
 from loraine_tpu.ops import nt_scaling as jnts
 from loraine_tpu.ops.dd import DD as JDD
-from loraine_tpu_torch.config import Options, nt_dd_for
+from loraine_tpu_torch.config import Options
 from loraine_tpu_torch.ops import dd_linalg as tdl
 from loraine_tpu_torch.ops.dd import DD, dd_add, dd_sum, dd_to_f64
 from loraine_tpu_torch.ops.dd_linalg import (dd_abs, dd_chol, dd_const, dd_div, dd_eigh_jacobi,
                                              dd_matmul, dd_mul, dd_sqr, dd_sqrt, dd_sym)
 from loraine_tpu_torch.ops.eigh import round_robin_pairs
 from loraine_tpu_torch.ops.nt_scaling import nt_scale, nt_scale_dd
+from torch_cases import sized_problem
 
 mp.mp.dps = 50
 
@@ -235,6 +236,7 @@ def test_nt_scale_dd_identities_beyond_f64(backend):
     Xmp, Xdd = _graded_spd(m, 16, seed=11)
     Smp, Sdd = _graded_spd(m, 12, seed=13)
     X, S = _stack_dd([Xdd]), _stack_dd([Sdd])
+    backend = Options(eigh_backend=backend).resolved(sized_problem(m), "cpu").eigh_backend
     nts, tails = nt_scale_dd(X, S, eigh_backend=backend)
     assert bool(tails.dd_ok)
 
@@ -668,6 +670,10 @@ def test_nt_precision_auto_rule(precision):
     Queue C 8); 'dd' and 'f64' stand on both paths (a pure function: no
     card needed)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
+
+    def nt_dd_for(o, device):
+        return o.resolved(sized_problem(10), device).nt_precision == "dd"
+
     for kit in (0, 1):
         o = Options(precision=precision, kit=kit)
         assert nt_dd_for(o, cpu) is False

@@ -53,6 +53,42 @@ def test_profile_phases_rows_as_jax(case):
     assert "ground truth" in table and "CPU times" in table
 
 
+def test_steplength_row_times_the_steps_bound(monkeypatch):
+    """Under step_eig='exact' with eigh_backend='pallas' the step bounds
+    with B2 (`eig_bounds_jacobi`, `ipm/step.py:_bound_fns`): the "find_step
+    spectral" row times that bound, and no B1 seed (`eigh_jacobi_f32`)."""
+    import loraine_tpu_torch.ipm.step as S
+    import loraine_tpu_torch.ops.eigh as E
+    from loraine_tpu_torch.utils import diagnostics as D
+
+    calls, row = [], {"on": False}
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            if row["on"]:
+                calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    real = D._timed
+
+    def timed(fn, *a, **k):
+        row["on"] = fn.__name__ == "steplen"
+        try:
+            return real(fn, *a, **k)
+        finally:
+            row["on"] = False
+
+    monkeypatch.setattr(S, "eig_bounds_jacobi", counted("B2", S.eig_bounds_jacobi))
+    monkeypatch.setattr(E, "eigh_jacobi_f32", counted("B1", E.eigh_jacobi_f32))
+    monkeypatch.setattr(D, "_timed", timed)
+    tt = profile_phases(_small(ltt, device="cpu"),
+                        {"verb": 0, "step_eig": "exact", "eigh_backend": "pallas"},
+                        repeats=1, iters=1)
+    assert "find_step spectral, group0 (predictor)" in tt
+    assert calls and set(calls) == {"B2"}, calls
+
+
 def test_timing2_prints_phase_table(capsys):
     """tests/test_api.py::test_timing2_prints_phase_breakdown on the port
     (on control1: a smaller solve than theta1 on the CPU)."""

@@ -16,9 +16,11 @@ import torch
 
 from loraine_tpu.ops.mixed_chol import chol_mixed_blocked as jchol_mixed_blocked
 from loraine_tpu.ops.mixed_chol import panel_chol_mixed as jpanel_chol_mixed
+from loraine_tpu_torch.config import Options
 from loraine_tpu_torch.ops import mixed_chol as tm
-from loraine_tpu_torch.ops.linalg import chol_backend_for, chol_reg
+from loraine_tpu_torch.ops.linalg import chol_reg
 from loraine_tpu_torch.ops.mixed_chol import chol_mixed_blocked, panel_chol_mixed
+from torch_cases import sized_problem
 
 U = 2.0**-53
 
@@ -87,7 +89,9 @@ def test_panel_inverse_accuracy():
 def test_auto_resolves_to_f64():
     # 'auto' is the f64 factorization on every device of the port (the JAX
     # package's off the TPU); explicit values stay
-    assert [chol_backend_for(b, 800) for b in ("auto", "f64", "mixed")] == ["f64", "f64", "mixed"]
+    for device in ("cpu", "cuda"):
+        assert [Options(chol_backend=b).resolved(sized_problem(800), device).chol_backend
+                for b in ("auto", "f64", "mixed")] == ["f64", "f64", "mixed"]
 
 
 def test_counts_panels_and_syncs():

@@ -39,8 +39,7 @@ import torch
 import loraine_tpu_torch as ltt
 import loraine_tpu_torch.ipm.step as tstep
 from loraine_tpu_torch.ipm.state import IPMState
-from loraine_tpu_torch.utils.profiling import DD2_NT, dd_nt_case
-from torch_cases import EXACT_MODES, PALLAS_MODES, STEP_FIELDS
+from torch_cases import DD2_NT, EXACT_MODES, PALLAS_MODES, STEP_FIELDS, dd_nt_case
 
 DATA = pathlib.Path(__file__).parent / "data"
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -167,7 +166,7 @@ def test_one_step_from_jax_state_matches(jax_steps, prec):
     j = jax_steps
     p = ltt.problem_from_dense(*_lp_data(), storage="dense", device="cpu")
     st = _start_state(j, prec)
-    o = ltt.Options.from_dict(_step_opts(prec)).validated()
+    o = ltt.Options.from_dict(_step_opts(prec)).validated().resolved(p, p.device)
     new, stats = tstep.step(p, st, o, 1e-3)
     for name in STEP_FIELDS:
         a, b = float(getattr(stats, name)), float(j[f"{prec}.stats.{name}"])
@@ -192,7 +191,7 @@ def test_one_step_from_jax_state_matches(jax_steps, prec):
         # the f64 scaling's step from the same start is farther on every field
         gaps = _dd_gaps(new, j, prec)
         assert max(gaps.values()) <= NT_DD_TOL, gaps
-        o64 = ltt.Options.from_dict(_step_opts("dd2")).validated()
+        o64 = ltt.Options.from_dict(_step_opts("dd2")).validated().resolved(p, p.device)
         gaps64 = _dd_gaps(tstep.step(p, st, o64, 1e-3)[0], j, prec)
         assert min(gaps64.values()) > NT_DD_TOL, gaps64
 

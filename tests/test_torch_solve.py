@@ -102,7 +102,8 @@ def test_one_step_from_jax_state_matches(maxcut_problems):
     new_j, stats_j = jax.jit(build_step(opts_j, -1))(pj, mid, 1e-2)
     pt = problem_from_numpy(jax.device_get(pj), device="cpu")
     st = state_from_numpy(jax.device_get(mid), device="cpu")
-    new_t, stats_t = torch_step(pt, st, ltt.Options.from_dict(PORT_OPTS).validated())
+    new_t, stats_t = torch_step(pt, st, ltt.Options.from_dict(PORT_OPTS).validated()
+                                .resolved(pt, pt.device))
 
     # mu is f64 arithmetic on the shared iterate; the steplengths come from
     # the certified bounds, whose f32 seeds differ at f32 rounding (measured

@@ -1,4 +1,6 @@
 """Shared inputs of the tests/test_torch_*.py files (not a test module)."""
+import types
+
 import numpy as np
 import pytest
 
@@ -39,6 +41,32 @@ def spectrum_matrix(kind: str, m: int, nb: int, seed: int) -> np.ndarray:
     return (A + A.transpose(0, 2, 1)) / 2
 
 
+def sized_problem(n: int, nlin: int = 0, rank1: bool = False):
+    """What `Options.resolved` reads of a problem (n, nlin, each group's
+    is_rank1), without its data: one group."""
+    return types.SimpleNamespace(n=n, nlin=nlin, groups=(types.SimpleNamespace(is_rank1=rank1),))
+
+
+# the native dd NT scaling end to end (tests/test_precision.py::test_dd_nt_e2e_cpu)
+DD2_NT = {"kit": 0, "eDIMACS": 1e-12, "verb": 0, "precision": "dd2", "nt_precision": "dd",
+          "maxit": 40}
+
+
+def dd_nt_case(device="cuda"):
+    """The problem of tests/test_precision.py::test_dd_nt_e2e_cpu: one dense
+    8x8 block, n = 10, seed 5 (the native dd NT scaling's end-to-end case)."""
+    import loraine_tpu_torch as ltt
+
+    rng = np.random.default_rng(5)
+    m, n = 8, 10
+    A = rng.standard_normal((n, m, m))
+    A = (A + A.transpose(0, 2, 1)) / 2
+    C = rng.standard_normal((m, m))
+    C = C @ C.T + m * np.eye(m)
+    return ltt.problem_from_dense([A], [C], np.einsum("jpp->j", A), storage="dense",
+                                  device=device)
+
+
 # Eigen/step modes under which the two packages run the same algorithm
 # (ROADMAP "Held against the reference"). PALLAS_MODES is the path the port
 # takes: the Jacobi kernels (Pallas in interpret mode on the JAX side, the
@@ -73,7 +101,7 @@ def step_both(pj, state_j, opts, tol_cg=1e-3, modes=EXACT_MODES, mixed_assembly=
         pj, state_j, tol_cg)
     pt = problem_from_numpy(jax.device_get(pj), device="cpu")
     st = state_from_numpy(jax.device_get(state_j), device="cpu")
-    ot = ltt.Options.from_dict(dict(opts, **modes)).validated()
+    ot = ltt.Options.from_dict(dict(opts, **modes)).validated().resolved(pt, pt.device)
     new_t, stats_t = step(pt, st, ot, tol_cg, precond if precond >= 0 else None, mixed_assembly)
     return (new_j, stats_j), (new_t, stats_t)
 

@@ -39,6 +39,7 @@ def _port(device, opts):
 
     o = ltt.Options.from_dict(opts).validated()
     p = ltt.load_problem(THETA1, o, device=device)
+    o = o.resolved(p, device)
     return lambda st: step(p, st, o, 1e-3), lambda s: {k: float(s.to_host()[k]) for k in KEYS}
 
 

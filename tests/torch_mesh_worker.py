@@ -39,7 +39,7 @@ def case_parallel(shape, out):
     R = {}
     # test_sharded_step_matches_single_device
     problem = dryrun.lp_blocks("cpu")
-    opts = ltt.Options(kit=0, verb=0).validated()
+    opts = ltt.Options(kit=0, verb=0).validated().resolved(problem, "cpu")
     state = initial_point(problem, opts)
     ref_state, ref_stats = step(problem, state, opts)
     sp, ss = shard_problem(problem, mesh), shard_state(state, problem, mesh)
