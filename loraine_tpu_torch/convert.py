@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .ipm.state import IPMState
-from .problem import BlockGroup, SDPProblem, adjoint_layout
+from .problem import BlockGroup, SDPProblem, adjoint_layout, held, lp_cone
 from .utils.device import resolve_device
 
 __all__ = ["problem_from_numpy", "state_from_numpy"]
@@ -59,16 +59,25 @@ def problem_from_numpy(
             C_norms=tuple(g.C_norms),
             **sparse,
         ))
+    n = int(src.n)
+    lp = (None, None, None, 0.0)
+    if src.C_lin is not None:
+        lp = lp_cone(np.array(src.C_lin), np.array(src.d_lin), n, dtype, device)
+    C_lin, d_lin, row_norms, d_norm = lp
+    b_host = held(np.array(src.b), dtype)
     return SDPProblem(
         groups=tuple(groups),
-        b=_tensor(src.b, device, dtype),
-        C_lin=_tensor(src.C_lin, device, dtype),
-        d_lin=_tensor(src.d_lin, device, dtype),
-        n=int(src.n),
+        b=torch.as_tensor(b_host).to(device=device),
+        C_lin=C_lin,
+        d_lin=d_lin,
+        n=n,
         nlin=int(src.nlin),
         nlmi=int(src.nlmi),
         b_const=float(src.b_const),
         sum_msizes=int(src.sum_msizes),
+        b_host=b_host,
+        C_lin_row_norms=row_norms,
+        d_lin_norm=d_norm,
     )
 
 

@@ -3,9 +3,11 @@
 Two strategies matching the reference (`src/initial_point.jl:17-81`):
   initpoint = 0: X = I, S = n * I (n = number of variables), LP vars = 1.
   initpoint = 1: SDPT3-like norm-scaled identity start.
-Built on the host in numpy and moved to the problem's device once. On a
-sharded problem each rank builds its own blocks from the whole problem's
-norms (`BlockGroup.data_norms`/`C_norms` stay whole, `parallel/mesh.py`).
+Built on the host in numpy from the host values the build keeps
+(`BlockGroup.data_norms`/`C_norms`, `SDPProblem.b_host`, `C_lin_row_norms`,
+`d_lin_norm`), with no read of device data, and moved to the problem's
+device once. On a sharded problem each rank builds its own blocks from the
+whole problem's norms (they stay whole, `parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ EXPON = 3.0
 def initial_point(problem: SDPProblem, opts: Options) -> IPMState:
     dtype, device = problem.b.dtype, problem.device
     n = problem.n
-    b2 = 1.0 + np.abs(problem.b.cpu().numpy())
+    b2 = 1.0 + np.abs(problem.b_host)
     norm_b2 = float(np.linalg.norm(b2))
 
     def dev(x: np.ndarray) -> torch.Tensor:
@@ -57,12 +59,10 @@ def initial_point(problem: SDPProblem, opts: Options) -> IPMState:
         if opts.initpoint == 0:
             epss = etaa = 1.0
         else:
-            C_lin = problem.C_lin.cpu().numpy()  # [n, nlin]
-            row_norms = np.linalg.norm(C_lin, axis=1)  # per variable j
+            row_norms = problem.C_lin_row_norms  # of C_lin's rows, per variable j
             p = b2 / (1.0 + row_norms)
             epss = max(1.0, float(p.max())) if p.size else 1.0
-            mf = max(float(row_norms.max()) if row_norms.size else 0.0,
-                     float(np.linalg.norm(problem.d_lin.cpu().numpy())))
+            mf = max(float(row_norms.max()) if row_norms.size else 0.0, problem.d_lin_norm)
             etaa = max(1.0, mf / np.sqrt(problem.nlin))
         X_lin = dev(np.full(problem.nlin, epss))
         S_lin = dev(np.full(problem.nlin, etaa))

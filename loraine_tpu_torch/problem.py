@@ -13,7 +13,14 @@ package does, so the padded shapes are identical: ``A [nb, n, m, m]``
 A_j = sgn_j b_j b_j^T), or the fully expanded COO ``Arows/Acols/Avals
 [nb, n, s]`` (sparse). Padding is exact: a block of size m0 padded to m is
 the same SDP with a trailing ``0 <= I`` identity tail (A padded with zeros,
-C with an identity tail). The LP cone is dense, ``C_lin [n, nlin]``.
+C with an identity tail). The LP cone ``C_lin [n, nlin]`` is dense on the
+device. On the host it stays in the form it arrives in: the dense entry
+points (`problem_from_dense`, `problem_from_dict`) hand over a dense array,
+while `problem_from_sdpa` keeps its diagonal blocks as (row, column, value)
+entries, which the device scatters into a zeroed ``C_lin``. Either way
+`SDPProblem` carries the host values the initial point needs (``b_host``,
+``C_lin_row_norms``, ``d_lin_norm``), so `ipm/initial.py` reads nothing
+back from the device.
 
 Sparse groups also carry `AdjLayout`, built once at load time: the COO
 entries regrouped by target cell so that the adjoint sum_j y_j A_j is a
@@ -23,7 +30,8 @@ to run in the last bit.
 
 Each entry (`problem_from_sdpa`, `problem_from_dense`, `problem_from_dict`)
 runs inside the span ``ltt.build`` (`utils/timers.py:span`), with
-`_build_problem`'s three phases as its children.
+`_build_problem`'s phases as its children (``ltt.build.lp`` only where
+there is an LP cone).
 """
 from __future__ import annotations
 
@@ -149,6 +157,12 @@ class SDPProblem:
     nlmi: int  # number of LMI blocks (sum of group nb)
     b_const: float
     sum_msizes: int  # sum of padded block sizes (mu normalization)
+    # host-side values for the initial point, from the values the device
+    # holds: b in the problem's dtype, the LP cone's row 2-norms [n]
+    # (float64, None without an LP cone) and ||d_lin||
+    b_host: np.ndarray
+    C_lin_row_norms: Optional[np.ndarray]
+    d_lin_norm: float
     # this rank's slice of a sharded problem (`parallel/mesh.py`): n, nlmi
     # and sum_msizes stay global, b and the LP data are replicated
     shard: Optional[Shard] = None
@@ -195,6 +209,48 @@ class _BlockData:
         off = r != c
         np.add.at(A, (j[off], c[off], r[off]), v[off])
         return A
+
+
+class LPEntries(NamedTuple):
+    """The LP cone as entries on the host: C_lin[rows[k], cols[k]] is the
+    sum of the vals of its (row, column), summed in entry order from 0.0,
+    as `np.add.at` into a zeroed array sums them."""
+
+    rows: np.ndarray  # int64 constraint index
+    cols: np.ndarray  # int64 LP column
+    vals: np.ndarray  # float64
+
+
+def held(x, dtype: torch.dtype) -> np.ndarray:
+    """``x`` on the host as a device of ``dtype`` holds it (no copy where
+    ``x`` is a float64 array and ``dtype`` float64)."""
+    return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(dtype).numpy()
+
+
+def lp_cone(C_lin: Union[np.ndarray, LPEntries], d_lin: np.ndarray, n: int,
+            dtype: torch.dtype, device: torch.device):
+    """The LP cone on ``device`` and its host norms: (C_lin [n, nlin],
+    d_lin [nlin], the row 2-norms of C_lin [n] float64, ||d_lin||).
+
+    A dense ``C_lin`` is copied as it is. `LPEntries` are summed per
+    (row, column) on the host and scattered into a zeroed [n, nlin] on the
+    device (one write an index: no atomics), the same tensor bit for bit."""
+    d = held(d_lin, dtype)
+    d_norm = float(np.linalg.norm(d))
+    d_dev = torch.as_tensor(d).to(device=device)
+    if not isinstance(C_lin, LPEntries):
+        C = held(C_lin, dtype)
+        return (torch.as_tensor(C).to(device=device), d_dev,
+                np.linalg.norm(C, axis=1).astype(np.float64), d_norm)
+    nlin = d.shape[0]
+    cells, inv = np.unique(C_lin.rows * nlin + C_lin.cols, return_inverse=True)
+    vals = held(np.bincount(inv.reshape(-1), weights=C_lin.vals, minlength=cells.size), dtype)
+    v64 = vals.astype(np.float64)
+    row_norms = np.sqrt(np.bincount(cells // nlin, weights=v64 * v64, minlength=n))
+    C = torch.zeros((n, nlin), dtype=dtype, device=device)
+    C.view(-1).index_copy_(0, torch.as_tensor(cells).to(device=device),
+                           torch.as_tensor(vals).to(device=device))
+    return C, d_dev, row_norms, d_norm
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -392,7 +448,7 @@ def _adjoint_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, m: int
 def _build_problem(
     blocks: List[_BlockData],
     b: np.ndarray,
-    C_lin: Optional[np.ndarray],
+    C_lin: Optional[Union[np.ndarray, LPEntries]],
     d_lin: Optional[np.ndarray],
     b_const: float,
     datarank: int,
@@ -404,11 +460,13 @@ def _build_problem(
     sparse_max_nnz: Optional[int] = None,
     sparse_min_n: int = 256,
 ) -> SDPProblem:
-    """Port of `loraine_tpu/problem.py:_build_problem`, in three spans
-    (`utils/timers.py:span`): ``ltt.build.factors`` (the rank-1 factors),
+    """Port of `loraine_tpu/problem.py:_build_problem`, in the spans
+    (`utils/timers.py:span`) ``ltt.build.factors`` (the rank-1 factors),
     ``ltt.build.layout`` (the storage choice and each group's host arrays:
-    padded stacks, the sparse COO slots and `AdjLayout`) and
-    ``ltt.build.upload`` (the host arrays copied to ``device``)."""
+    padded stacks, the sparse COO slots and `AdjLayout`),
+    ``ltt.build.upload`` (the host arrays copied to ``device``) and, with an
+    LP cone, ``ltt.build.lp`` (`lp_cone`). ``C_lin`` is a dense [n, nlin]
+    array or `LPEntries`."""
     n = int(np.asarray(b).shape[0])
     nlmi = len(blocks)
 
@@ -451,18 +509,28 @@ def _build_problem(
                 **meta, **sparse,
             ))
 
-        nlin = 0 if C_lin is None else int(np.asarray(C_lin).shape[1])
-        return SDPProblem(
-            groups=tuple(groups),
-            b=dev(b),
-            C_lin=dev(C_lin) if nlin else None,
-            d_lin=dev(d_lin) if nlin else None,
-            n=n,
-            nlin=nlin,
-            nlmi=nlmi,
-            b_const=float(b_const),
-            sum_msizes=sum(g.m * g.nb for g in groups),
-        )
+        b_host = held(b, dtype)
+        b_dev = torch.as_tensor(b_host).to(device=device)
+
+    lp = (None, None, None, 0.0)
+    if C_lin is not None and np.size(d_lin):
+        with span("build.lp"):
+            lp = lp_cone(C_lin, d_lin, n, dtype, device)
+    C_dev, d_dev, row_norms, d_norm = lp
+    return SDPProblem(
+        groups=tuple(groups),
+        b=b_dev,
+        C_lin=C_dev,
+        d_lin=d_dev,
+        n=n,
+        nlin=0 if d_dev is None else int(d_dev.shape[0]),
+        nlmi=nlmi,
+        b_const=float(b_const),
+        sum_msizes=sum(g.m * g.nb for g in groups),
+        b_host=b_host,
+        C_lin_row_norms=row_norms,
+        d_lin_norm=d_norm,
+    )
 
 
 def _storage_mode(blocks: List[_BlockData], n: int, use_rank1: bool, storage: str,
@@ -635,17 +703,17 @@ def problem_from_sdpa(
         n = data.nvar
 
         blocks: List[_BlockData] = []
-        lp_cols: List[np.ndarray] = []
+        lp: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []  # LPEntries' parts
         lp_d: List[np.ndarray] = []
+        nlin = 0
         for bs, (mat, row, col, val) in zip(data.block_sizes, data.blocks):
             if bs < 0:
-                Cl = np.zeros((n, -bs))
                 dl = np.zeros(-bs)
                 f0 = mat == 0  # diagonal blocks: row == col
                 np.add.at(dl, row[f0], -val[f0])
-                np.add.at(Cl, (mat[~f0] - 1, row[~f0]), -val[~f0])
-                lp_cols.append(Cl)
+                lp.append((mat[~f0] - 1, row[~f0] + nlin, -val[~f0]))
                 lp_d.append(dl)
+                nlin -= bs
                 continue
             C = np.zeros((bs, bs))
             f0 = mat == 0
@@ -660,7 +728,7 @@ def problem_from_sdpa(
         return _build_problem(
             blocks,
             b=-np.asarray(data.c, dtype=np.float64),
-            C_lin=np.concatenate(lp_cols, axis=1) if lp_cols else None,
+            C_lin=LPEntries(*(np.concatenate(x) for x in zip(*lp))) if lp else None,
             d_lin=np.concatenate(lp_d) if lp_d else None,
             b_const=0.0,
             datarank=datarank,

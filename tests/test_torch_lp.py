@@ -9,7 +9,9 @@ under EXACT_MODES (torch_cases.py), the whole solves under PALLAS_MODES,
 the port's own path, and per iteration under EXACT_MODES too.
 """
 import contextlib
+import dataclasses
 import pathlib
+import tracemalloc
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ import loraine_tpu_torch as ltt
 from loraine_tpu.ipm.initial import initial_point as jax_initial_point
 from loraine_tpu.ops import nt_scaling as jnt, precond as jprec, schur as jschur
 from loraine_tpu_torch.convert import problem_from_numpy
+from loraine_tpu_torch.io.sdpa import read_sdpa
 from loraine_tpu_torch.ipm.initial import initial_point
 from loraine_tpu_torch.ops import precond as tprec, schur as tschur
 from loraine_tpu_torch.ops.nt_scaling import NTScaling
@@ -271,3 +274,153 @@ def test_pure_lp_matches_jax(kit):
     for a, c in ((rt.objective, rj.objective), (rt.dual_objective, rj.dual_objective)):
         assert abs(a - c) <= 1e-12 * abs(c)
     np.testing.assert_allclose(rt.X_lin, rj.X_lin, rtol=1e-10, atol=1e-14)
+
+
+# ---------------------------------------------------------------------------
+# The LP cone from SDPA entries (`problem.py:lp_cone`) and the initial point
+# from the build's host norms
+# ---------------------------------------------------------------------------
+
+# n = 3, a 2x2 LMI block and two LP blocks (3 and 2 columns): constraint 1
+# has four LP nonzeros (three in the first block), constraint 2 a
+# duplicated entry, constraint 3 a pair that cancels to an explicit 0.0
+SYNTHETIC = """\
+* two LP blocks, a duplicated entry, a row with three or more nonzeros
+3
+3
+2 -3 -2
+1.0 2.0 3.0
+0 1 1 1 1.0
+0 1 2 2 1.0
+1 1 1 2 0.5
+2 1 1 1 1.0
+3 1 2 2 -1.0
+0 2 1 1 1.5
+0 2 2 2 2.0
+0 2 3 3 1.0
+1 2 1 1 0.1
+1 2 2 2 -0.7
+1 2 3 3 1.3
+2 2 2 2 0.25
+2 2 2 2 0.1
+3 2 1 1 0.5
+3 2 1 1 -0.5
+0 3 1 1 1.0
+0 3 2 2 3.0
+1 3 1 1 0.9
+2 3 1 1 1e-3
+3 3 2 2 -2.2
+"""
+LP_CASES = ["tru3", "vib3", "tru9", "synthetic"]
+
+
+@pytest.fixture(scope="module")
+def lp_cases(tmp_path_factory):
+    """name -> (parsed SDPA data, the port's problem on the CPU)."""
+    synthetic = tmp_path_factory.mktemp("lp") / "synthetic.dat-s"
+    synthetic.write_text(SYNTHETIC)
+    out = {}
+    for name in LP_CASES:
+        data = read_sdpa(str(synthetic) if name == "synthetic" else _path(name))
+        out[name] = data, ltt.problem_from_sdpa(data, device="cpu")
+    return out
+
+
+def _dense_lp(data):
+    """C_lin and d_lin as `problem_from_sdpa` built them densely: `np.add.at`
+    into a zeroed [n, nlin] per LP block, the blocks concatenated."""
+    Cs, ds = [], []
+    for bs, (mat, row, col, val) in zip(data.block_sizes, data.blocks):
+        if bs < 0:
+            C, d, f0 = np.zeros((data.nvar, -bs)), np.zeros(-bs), mat == 0
+            np.add.at(d, row[f0], -val[f0])
+            np.add.at(C, (mat[~f0] - 1, row[~f0]), -val[~f0])
+            Cs.append(C)
+            ds.append(d)
+    return np.concatenate(Cs, axis=1), np.concatenate(ds)
+
+
+def _formula_initial_point(problem, C_lin, d_lin):
+    """The initpoint=1 start (`src/initial_point.jl:17-81`) from the device
+    b and a dense host C_lin, with `np.linalg.norm` of its rows."""
+    b2 = 1.0 + np.abs(problem.b.numpy())
+    norm_b2 = float(np.linalg.norm(b2))
+    X, S = [], []
+    for g in problem.groups:
+        m = g.m
+        f = norm_b2 / (1.0 + np.asarray(g.data_norms))
+        eps = np.sqrt(m) * np.maximum(1.0, np.sqrt(m) * f)
+        mf = (1.0 + np.maximum(f, np.asarray(g.C_norms))) / np.sqrt(m)
+        eta = np.sqrt(m) * np.maximum(1.0, mf)
+        X.append(eps[:, None, None] * np.eye(m)[None])
+        S.append(eta[:, None, None] * np.eye(m)[None])
+    row_norms = np.linalg.norm(C_lin, axis=1)
+    epss = max(1.0, float((b2 / (1.0 + row_norms)).max()))
+    mf = max(float(row_norms.max()), float(np.linalg.norm(d_lin)))
+    etaa = max(1.0, mf / np.sqrt(C_lin.shape[1]))
+    return X, S, np.full(C_lin.shape[1], epss), np.full(C_lin.shape[1], etaa)
+
+
+@pytest.mark.parametrize("name", LP_CASES)
+def test_sdpa_lp_cone_equals_the_dense_construction(lp_cases, name):
+    """(a) The LP cone built from SDPA entries on the device is the dense
+    `np.add.at` construction bit for bit: duplicates summed in entry order,
+    the columns of several LP blocks side by side."""
+    data, pt = lp_cases[name]
+    C_lin, d_lin = _dense_lp(data)
+    assert pt.nlin == C_lin.shape[1] and pt.C_lin.dtype == torch.float64
+    np.testing.assert_array_equal(pt.C_lin.numpy(), C_lin)
+    np.testing.assert_array_equal(pt.d_lin.numpy(), d_lin)
+    np.testing.assert_array_equal(pt.b_host, pt.b.numpy())
+    if name == "synthetic":
+        assert np.count_nonzero(C_lin, axis=1).max() >= 3 and C_lin[2, 0] == 0.0
+
+
+@pytest.mark.parametrize("name,exact", [("tru9", True), ("synthetic", False)])
+def test_initial_point_from_build_norms_matches_the_dense_formula(lp_cases, name, exact):
+    """(b) `initial_point` from the build's host norms against the formula
+    over the dense rows: bit for bit where every row of C_lin has at most
+    two nonzeros (tru9: numpy's pairwise sum and the bincount both give
+    fl(a^2 + b^2)), to 1e-15 relative where a row has more."""
+    data, pt = lp_cases[name]
+    if exact:
+        assert np.count_nonzero(pt.C_lin.numpy(), axis=1).max() <= 2
+    X, S, X_lin, S_lin = _formula_initial_point(pt, *_dense_lp(data))
+    st = initial_point(pt, ltt.Options.from_dict({"initpoint": 1}).validated())
+    for got, want in zip(st.X + st.S + (st.y, st.X_lin, st.S_lin),
+                         X + S + [np.zeros(pt.n), X_lin, S_lin]):
+        if exact:
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("name", LP_CASES)
+@pytest.mark.parametrize("initpoint", [0, 1])
+def test_initial_point_reads_no_device_lp_data(lp_cases, name, initpoint):
+    """(c) The same start when C_lin and d_lin live on the 'meta' device,
+    which holds no values: `initial_point` reads only the build's host
+    values."""
+    _, pt = lp_cases[name]
+    blind = dataclasses.replace(pt, C_lin=torch.empty(pt.C_lin.shape, device="meta"),
+                                d_lin=torch.empty(pt.d_lin.shape, device="meta"))
+    opts = ltt.Options.from_dict({"initpoint": initpoint}).validated()
+    a, b = initial_point(pt, opts), initial_point(blind, opts)
+    for x, y in zip(a.X + a.S + (a.y, a.X_lin, a.S_lin, a.sigma),
+                    b.X + b.S + (b.y, b.X_lin, b.S_lin, b.sigma)):
+        assert torch.equal(x, y)
+
+
+def test_sdpa_build_allocates_no_dense_host_lp_cone(lp_cases):
+    """(d) tru9's build from parsed data traces under 40 MB of host (numpy)
+    allocations at its peak; the dense [3240, 6480] float64 C_lin alone was
+    168 MB."""
+    data, _ = lp_cases["tru9"]
+    tracemalloc.start()
+    try:
+        pt = ltt.problem_from_sdpa(data, device="cpu")
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert pt.C_lin.shape == (3240, 6480)
+    assert peak < 40e6, f"{peak / 1e6:.1f} MB"

@@ -119,13 +119,23 @@ def test_eig_under_the_nt_scaling_and_the_steplengths(solved):
                for e in eig)
 
 
-@pytest.mark.parametrize("child", ["ltt.build.factors", "ltt.build.layout", "ltt.build.upload"])
+@pytest.mark.parametrize("child", ["ltt.build.factors", "ltt.build.layout", "ltt.build.upload",
+                                   "ltt.build.lp"])
 def test_build_phases_inside_the_build(solved, child):
     _, spans = solved
     (build,) = _named(spans, "ltt.build")
     (one,) = _named(spans, child)
     assert _inside(one, build)
     assert not any(_inside(build, s) for s in _named(spans, "ltt.solve"))
+
+
+def test_no_lp_span_without_an_lp_cone():
+    """theta1 has no diagonal block, so its build opens no ``ltt.build.lp``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        problem = ltt.problem_from_sdpa(os.path.join(HERE, "data", "theta1.dat-s"), device="cpu")
+    spans = _spans(prof)
+    assert problem.nlin == 0 and problem.C_lin is None and problem.C_lin_row_norms is None
+    assert _named(spans, "ltt.build.upload") and not _named(spans, "ltt.build.lp")
 
 
 def test_cg_path_marks_its_set_up_as_the_schur_phase():
